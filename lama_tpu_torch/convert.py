@@ -1,0 +1,81 @@
+"""Weights into the port's state_dict (counterpart of
+lama_tpu/training/convert.py).
+
+`state_dict_from_flax` turns the JAX package's {'params', 'batch_stats'}
+tree into reference-format tensors: conv kernels HWIO -> OIHW, the
+generator's ConvTranspose kernels HWIO -> IOHW, and a zero
+`num_batches_tracked` beside every BatchNorm, as bin/export_torch_checkpoint.py
+writes them. `load_checkpoint` reads a reference-format `.ckpt`.
+"""
+import re
+from typing import Any, Dict, Iterable, Sequence, Set, Tuple
+
+import numpy as np
+import torch
+
+
+def flax_path_to_torch_key(path: Sequence[str], leaf: str) -> str:
+    """('model_5','conv1','ffc','convg2g','conv1_0'), 'kernel' ->
+    'model.5.conv1.ffc.convg2g.conv1.0.weight'. A copy of
+    lama_tpu/training/convert.py:32-47 (that module imports flax lazily)."""
+    parts = []
+    for p in path:
+        m = re.match(r'^(.*?)_(\d+)$', p)
+        parts.append(f'{m.group(1)}.{m.group(2)}' if m else p)
+    leaf_map = {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias',
+                'mean': 'running_mean', 'var': 'running_var', 'angle': 'angle'}
+    return '.'.join(parts + [leaf_map[leaf]])
+
+
+def transposed_conv_paths(n_downsampling: int, n_blocks: int) -> Set[str]:
+    """Sequential entries of FFCResNetGenerator that are ConvTranspose2d
+    (copy of lama_tpu/training/convert.py:50-55)."""
+    base = 3 + n_downsampling + n_blocks
+    return {f'model_{base + 3 * i}' for i in range(n_downsampling)}
+
+
+def _flatten(tree: Dict, prefix=()) -> Iterable[Tuple[Tuple[str, ...], Any]]:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def state_dict_from_flax(variables: Dict, n_downsampling: int,
+                         n_blocks: int) -> Dict[str, torch.Tensor]:
+    """{'params', 'batch_stats'} of lama_tpu's FFCResNetGenerator (numpy or
+    array leaves) -> the port's state_dict, float32 CPU tensors."""
+    tconv = transposed_conv_paths(n_downsampling, n_blocks)
+    out: Dict[str, torch.Tensor] = {}
+    for path, val in _flatten(dict(variables.get('params', {}))):
+        *mpath, leaf = path
+        v = np.asarray(val)
+        if leaf == 'kernel' and v.ndim == 4:
+            v = np.transpose(v, (2, 3, 0, 1) if mpath[0] in tconv
+                             else (3, 2, 0, 1))
+        out[flax_path_to_torch_key(mpath, leaf)] = torch.tensor(
+            v, dtype=torch.float32)
+    for path, val in _flatten(dict(variables.get('batch_stats', {}))):
+        *mpath, leaf = path
+        out[flax_path_to_torch_key(mpath, leaf)] = torch.tensor(
+            np.asarray(val), dtype=torch.float32)
+    for key in [k for k in out if k.endswith('.running_mean')]:
+        out[key[:-len('running_mean')] + 'num_batches_tracked'] = \
+            torch.zeros((), dtype=torch.long)
+    return out
+
+
+def load_checkpoint(path: str, prefix: str = 'generator.'
+                    ) -> Dict[str, torch.Tensor]:
+    """The generator's state_dict from a reference-format checkpoint
+    ({'state_dict': {'generator.<key>': tensor, ...}}, as upstream LaMa and
+    bin/export_torch_checkpoint.py write it); keys outside `prefix`, such
+    as the discriminator's, are dropped. Lightning checkpoints pickle more
+    than tensors, so this unpickles in full, as lama_tpu's loader does
+    (convert.py:197): load only checkpoints from a trusted source."""
+    state = torch.load(path, map_location='cpu', weights_only=False)
+    if isinstance(state, dict) and 'state_dict' in state:
+        state = state['state_dict']
+    return {k[len(prefix):]: v for k, v in state.items()
+            if k.startswith(prefix)}

@@ -1,0 +1,340 @@
+"""The FFC generator big-lama uses, as PyTorch modules over NCHW tensors.
+
+Counterpart of lama_tpu/models/ffc.py (FourierUnit :136, SpectralTransform
+:333, FFC :377, FFC_BN_ACT :480, FFCResnetBlock :557, concat_tuple :606,
+FFCResNetGenerator :618), eval mode, stage 'full'. The module tree mirrors
+the reference key-space (`model.N.*`, e.g.
+`model.5.conv1.ffc.convg2g.conv1.0.weight`), so a reference-format state_dict
+loads with `load_state_dict(strict=True)`.
+
+The two streams are (local, global) tuples; an absent stream is None. Every
+parameter stays float32; the generator casts its input to `dtype` (float32
+or bfloat16) and each conv runs in its input's dtype, while BatchNorm and the
+spectral path compute in float32, as in the JAX package. Modules are built
+with `kernels='cuda'` (the hand-written kernels run on CUDA tensors; on CPU
+tensors their plain versions run) or `kernels='plain'` (plain versions
+everywhere). Options of the reference that big-lama does not use raise
+NotImplementedError naming the ROADMAP item that ports them.
+"""
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+
+from ..ops.activations import get_activation
+from ..ops.conv import Conv2d, ConvTranspose2d, check_kernels
+from ..ops.kernels.fourier_unit import (fourier_unit_plain,
+                                        fused_fourier_unit, planar_params)
+from ..ops.norm import BatchNorm2d
+
+_LATER = 'not ported yet (ROADMAP queue 1 item 4)'
+
+
+def _unsupported(name, value):
+    return NotImplementedError(f'{name}={value!r} is {_LATER}')
+
+
+class FourierUnit(nn.Module):
+    """rfft2 -> 1x1 conv over interleaved re/im channels -> BN -> ReLU ->
+    irfft2 (reference ffc.py:49-113), eval mode. Keys: conv_layer.weight,
+    bn.*. The kernel path folds BN into the conv once per set of weights
+    (`planar_params`) and keeps the result."""
+
+    def __init__(self, in_channels, out_channels, groups=1,
+                 spatial_scale_factor=None, spectral_pos_encoding=False,
+                 use_se=False, ffc3d=False, fft_norm='ortho',
+                 kernels='cuda'):
+        super().__init__()
+        for name, value, default in (
+                ('groups', groups, 1),
+                ('spatial_scale_factor', spatial_scale_factor, None),
+                ('spectral_pos_encoding', spectral_pos_encoding, False),
+                ('use_se', use_se, False), ('ffc3d', ffc3d, False),
+                ('fft_norm', fft_norm, 'ortho')):
+            if value != default:
+                raise _unsupported(name, value)
+        self.kernels = check_kernels(kernels)
+        self.conv_layer = nn.Conv2d(in_channels * 2, out_channels * 2, 1,
+                                    bias=False)
+        self.bn = BatchNorm2d(out_channels * 2)
+        self._planar_key = None
+        self._planar = None
+
+    def _params(self):
+        return (self.conv_layer.weight, self.bn.weight, self.bn.bias,
+                self.bn.running_mean, self.bn.running_var)
+
+    def planar(self):
+        """(W, bias) of `planar_params`, recomputed only when a parameter
+        changed: an in-place update (a load) bumps a tensor's version, a
+        move to another device changes its storage. Inference tensors (made
+        under torch.inference_mode) keep no version; for them only the
+        storage counts."""
+        key = tuple((t.data_ptr(), -1 if t.is_inference() else t._version)
+                    for t in self._params())
+        if key != self._planar_key:
+            self._planar = planar_params(*self._params(), eps=self.bn.eps)
+            self._planar_key = key
+        return self._planar
+
+    def forward(self, x):
+        if self.training:
+            raise NotImplementedError('FourierUnit train mode is not ported '
+                                      'yet (ROADMAP queue 1 item 10)')
+        if self.kernels == 'plain':
+            out = fourier_unit_plain(x, *self._params(), eps=self.bn.eps)
+        else:
+            out = fused_fourier_unit(
+                x, *self._params(), eps=self.bn.eps,
+                planar=self.planar() if x.is_cuda else None)
+        return out.to(x.dtype)
+
+
+class SpectralTransform(nn.Module):
+    """Reference ffc.py:116-163: 1x1 conv + BN + ReLU, FourierUnit, residual,
+    1x1 conv. Keys: conv1.0, conv1.1, fu, conv2."""
+
+    def __init__(self, in_channels, out_channels, stride=1, groups=1,
+                 enable_lfu=True, kernels='cuda', **fu_kwargs):
+        super().__init__()
+        if enable_lfu:
+            raise _unsupported('enable_lfu', enable_lfu)
+        if groups != 1:
+            raise _unsupported('groups', groups)
+        self.downsample = (nn.AvgPool2d(kernel_size=2, stride=2)
+                           if stride == 2 else nn.Identity())
+        self.conv1 = nn.Sequential(
+            Conv2d(in_channels, out_channels // 2, 1, bias=False,
+                   kernels=kernels),
+            BatchNorm2d(out_channels // 2), nn.ReLU())
+        self.fu = FourierUnit(out_channels // 2, out_channels // 2,
+                              kernels=kernels, **fu_kwargs)
+        self.conv2 = Conv2d(out_channels // 2, out_channels, 1, bias=False,
+                            kernels=kernels)
+
+    def forward(self, x):
+        x = self.conv1(self.downsample(x))
+        return self.conv2(x + self.fu(x))
+
+
+class FFC(nn.Module):
+    """Two-stream (local, global) convolution (reference ffc.py:166-225):
+    l2l, l2g and g2l reflect convs, and the g2g SpectralTransform."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, ratio_gin,
+                 ratio_gout, stride=1, padding=0, dilation=1, groups=1,
+                 bias=False, enable_lfu=True, padding_type='reflect',
+                 gated=False, kernels='cuda', **spectral_kwargs):
+        super().__init__()
+        if gated:
+            raise _unsupported('gated', gated)
+        in_cg = int(in_channels * ratio_gin)
+        in_cl = in_channels - in_cg
+        out_cg = int(out_channels * ratio_gout)
+        out_cl = out_channels - out_cg
+        kw = dict(kernel_size=kernel_size, stride=stride, padding=padding,
+                  dilation=dilation, groups=groups, bias=bias,
+                  padding_mode=padding_type, kernels=kernels)
+
+        def conv(cin, cout):
+            return (Conv2d(cin, cout, **kw) if cin > 0 and cout > 0
+                    else nn.Identity())
+
+        self.convl2l = conv(in_cl, out_cl)
+        self.convl2g = conv(in_cl, out_cg)
+        self.convg2l = conv(in_cg, out_cl)
+        self.convg2g = (SpectralTransform(
+            in_cg, out_cg, stride, 1 if groups == 1 else groups // 2,
+            enable_lfu, kernels=kernels, **spectral_kwargs)
+            if in_cg > 0 and out_cg > 0 else nn.Identity())
+        self.has = dict(l2l=in_cl > 0 and out_cl > 0,
+                        l2g=in_cl > 0 and out_cg > 0,
+                        g2l=in_cg > 0 and out_cl > 0,
+                        g2g=in_cg > 0 and out_cg > 0)
+        self.out_cl, self.out_cg = out_cl, out_cg
+
+    def forward(self, x):
+        x_l, x_g = x if isinstance(x, tuple) else (x, None)
+
+        def add(acc, term):
+            return term if acc is None else acc + term
+
+        out_l = out_g = None
+        if self.out_cl > 0:
+            if self.has['l2l'] and x_l is not None:
+                out_l = self.convl2l(x_l)
+            if self.has['g2l'] and x_g is not None:
+                out_l = add(out_l, self.convg2l(x_g))
+        if self.out_cg > 0:
+            if self.has['l2g'] and x_l is not None:
+                out_g = self.convl2g(x_l)
+            if self.has['g2g'] and x_g is not None:
+                out_g = add(out_g, self.convg2g(x_g))
+        return out_l, out_g
+
+
+class FFC_BN_ACT(nn.Module):
+    """FFC + per-stream BatchNorm + activation (reference ffc.py:228-255).
+    Keys: ffc, bn_l, bn_g."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, ratio_gin,
+                 ratio_gout, stride=1, padding=0, dilation=1, groups=1,
+                 bias=False, activation='identity', padding_type='reflect',
+                 enable_lfu=True, kernels='cuda', **kwargs):
+        super().__init__()
+        self.ffc = FFC(in_channels, out_channels, kernel_size, ratio_gin,
+                       ratio_gout, stride, padding, dilation, groups, bias,
+                       enable_lfu, padding_type=padding_type,
+                       kernels=kernels, **kwargs)
+        out_cg = int(out_channels * ratio_gout)
+        out_cl = out_channels - out_cg
+        self.bn_l = BatchNorm2d(out_cl) if out_cl > 0 else nn.Identity()
+        self.bn_g = BatchNorm2d(out_cg) if out_cg > 0 else nn.Identity()
+        self.act = get_activation(activation)
+
+    def forward(self, x):
+        x_l, x_g = self.ffc(x)
+        if x_l is not None:
+            x_l = self.act(self.bn_l(x_l))
+        if x_g is not None:
+            x_g = self.act(self.bn_g(x_g))
+        return x_l, x_g
+
+
+class FFCResnetBlock(nn.Module):
+    """Two 3x3 FFC_BN_ACT with a residual on both streams (reference
+    ffc.py:258-292). Keys: conv1, conv2."""
+
+    def __init__(self, dim, padding_type='reflect', activation='relu',
+                 dilation=1, ratio_gin=0.75, ratio_gout=0.75,
+                 enable_lfu=True, kernels='cuda', **spectral_kwargs):
+        super().__init__()
+        kw = dict(kernel_size=3, ratio_gin=ratio_gin, ratio_gout=ratio_gout,
+                  padding=dilation, dilation=dilation, activation=activation,
+                  padding_type=padding_type, enable_lfu=enable_lfu,
+                  kernels=kernels, **spectral_kwargs)
+        self.conv1 = FFC_BN_ACT(dim, dim, **kw)
+        self.conv2 = FFC_BN_ACT(dim, dim, **kw)
+
+    def forward(self, x):
+        id_l, id_g = x if isinstance(x, tuple) else (x, None)
+        x_l, x_g = self.conv2(self.conv1((id_l, id_g)))
+
+        def residual(ident, y):
+            if ident is None:
+                return y
+            # y first: a sum takes its first operand's memory format, and on
+            # the kernel path y is channels-last while the stem and
+            # downsamples (reflect pad + stock conv) hand over NCHW
+            return ident if y is None else y + ident
+
+        return residual(id_l, x_l), residual(id_g, x_g)
+
+
+class ConcatTupleLayer(nn.Module):
+    """(local, global) -> one tensor along channels (reference
+    ffc.py:295-302)."""
+
+    def forward(self, x):
+        if not isinstance(x, tuple):
+            return x
+        x_l, x_g = x
+        if x_g is None:
+            return x_l
+        if x_l is None:
+            return x_g
+        return torch.cat([x_l, x_g], dim=1)
+
+
+class _Activation(nn.Module):
+    def __init__(self, kind, float32=False):
+        super().__init__()
+        self.fn = get_activation(kind)
+        self.float32 = float32
+
+    def forward(self, x):
+        return self.fn(x.float() if self.float32 else x)
+
+
+class FFCResNetGenerator(nn.Module):
+    """The LaMa generator (reference ffc.py:305-367; lama_tpu
+    models/ffc.py:618), NCHW. big-lama: input_nc=4, ngf=64,
+    n_downsampling=3, n_blocks=18, resnet ratio 0.75, add_out_act='sigmoid'.
+
+    `self.model` is an nn.Sequential with the reference's indices. As in the
+    JAX package, the two ReflectionPad2d(3) entries are folded into the 7x7
+    convs that follow them (padding=3, reflect); their indices hold a
+    parameterless Identity. The output activation, if any, runs in float32.
+    """
+
+    def __init__(self, input_nc=4, output_nc=3, ngf=64, n_downsampling=3,
+                 n_blocks=18, padding_type='reflect', activation='relu',
+                 up_activation='relu', init_conv_kwargs=None,
+                 downsample_conv_kwargs=None, resnet_conv_kwargs=None,
+                 spatial_transform_layers: Optional[Sequence[int]] = None,
+                 spatial_transform_kwargs=None, add_out_act=True,
+                 max_features=1024, out_ffc=False, out_ffc_kwargs=None,
+                 spectral_kwargs=None, dtype=torch.float32, kernels='cuda'):
+        super().__init__()
+        if spatial_transform_layers:
+            raise NotImplementedError(
+                f'spatial_transform_layers={spatial_transform_layers!r} is '
+                f'{_LATER}')
+        if out_ffc:
+            raise _unsupported('out_ffc', out_ffc)
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f'dtype={dtype}: expected float32 or bfloat16')
+        self.dtype = dtype
+        init_kw = dict(init_conv_kwargs or {})
+        down_kw = dict(downsample_conv_kwargs or {})
+        res_kw = dict(resnet_conv_kwargs or {})
+        common = dict(kernels=kernels, **(spectral_kwargs or {}))
+
+        layers = [nn.Identity(),   # 0: ReflectionPad2d(3), folded into 1
+                  FFC_BN_ACT(input_nc, ngf, kernel_size=7, padding=3,
+                             ratio_gin=init_kw.get('ratio_gin', 0),
+                             ratio_gout=init_kw.get('ratio_gout', 0),
+                             enable_lfu=init_kw.get('enable_lfu', True),
+                             activation=activation,
+                             padding_type=padding_type, **common)]
+        for i in range(n_downsampling):
+            mult = 2 ** i
+            ratio_gout = (res_kw.get('ratio_gin', 0) if i == n_downsampling - 1
+                          else down_kw.get('ratio_gout', 0))
+            layers.append(FFC_BN_ACT(
+                min(max_features, ngf * mult),
+                min(max_features, ngf * mult * 2),
+                kernel_size=3, stride=2, padding=1,
+                ratio_gin=down_kw.get('ratio_gin', 0), ratio_gout=ratio_gout,
+                enable_lfu=down_kw.get('enable_lfu', True),
+                activation=activation, padding_type=padding_type, **common))
+        feats = min(max_features, ngf * 2 ** n_downsampling)
+        for _ in range(n_blocks):
+            layers.append(FFCResnetBlock(
+                feats, padding_type=padding_type, activation=activation,
+                ratio_gin=res_kw.get('ratio_gin', 0.75),
+                ratio_gout=res_kw.get('ratio_gout', 0.75),
+                enable_lfu=res_kw.get('enable_lfu', True), **common))
+        layers.append(ConcatTupleLayer())
+        for i in range(n_downsampling):
+            mult = 2 ** (n_downsampling - i)
+            layers += [
+                ConvTranspose2d(min(max_features, ngf * mult),
+                                min(max_features, int(ngf * mult / 2)),
+                                kernel_size=3, stride=2, padding=1,
+                                output_padding=1),
+                BatchNorm2d(min(max_features, int(ngf * mult / 2))),
+                _Activation(up_activation)]
+        layers += [nn.Identity(),  # ReflectionPad2d(3), folded into the head
+                   Conv2d(ngf, output_nc, kernel_size=7, padding=3,
+                          padding_mode='reflect', kernels=kernels)]
+        if add_out_act:
+            layers.append(_Activation(
+                'tanh' if add_out_act is True else add_out_act, float32=True))
+        self.model = nn.Sequential(*layers)
+
+    def forward(self, x):
+        """(B, input_nc, H, W) -> (B, output_nc, H, W); float32 when an
+        output activation is set, else `dtype`. Works channels-last."""
+        x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
+        return self.model(x)

@@ -1,0 +1,95 @@
+"""Convolutions with torch init and semantics, plus the kernel dispatch
+(counterpart of lama_tpu/ops/conv.py).
+
+`conv2d` sends a reflect-padded stride-1 conv whose shape is in a kernel's
+envelope to that kernel (ops/kernels/reflect_conv.py):
+  3x3, C = C_out = 128                     -> reflect_conv3x3_cols
+  3x3, C and C_out multiples of 128        -> reflect_conv3x3_taps
+  7x7, C_out <= 8, C <= 128, C % 8 == 0    -> reflect_out_conv7x7
+Everything else is `F.pad` + `F.conv2d`: the 7x7 4->64 stem, the stride-2
+downsamples, the 1x1 convs. In the JAX package these are XLA convs outside
+any Pallas kernel (conv.py:285-301), so they stay stock here.
+`kernels='plain'` sends the kernels' shapes to their plain version too; it
+is how the tests and chip_smoke.py compare the two.
+"""
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .kernels import reflect_conv as rc
+from .pad import pad2d
+
+KERNEL_CHOICES = ('cuda', 'plain')
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
+def check_kernels(kernels: str) -> str:
+    if kernels not in KERNEL_CHOICES:
+        raise ValueError(f'kernels={kernels!r}: expected one of '
+                         f'{KERNEL_CHOICES}')
+    return kernels
+
+
+def kernel_for(x, weight, stride, padding, dilation, groups, padding_mode):
+    """The kernel wrapper of ops/kernels/reflect_conv.py that takes this
+    conv, or None when it goes to the stock conv."""
+    stride, padding, dilation = _pair(stride), _pair(padding), _pair(dilation)
+    kh, kw = weight.shape[-2:]
+    shape = (x.shape[2], x.shape[3], x.shape[1], weight.shape[0])
+    if not (padding_mode == 'reflect' and groups == 1 and stride == (1, 1)
+            and dilation == (1, 1) and kh == kw
+            and padding == (kh // 2, kw // 2)
+            and x.dtype in (torch.float32, torch.bfloat16)):
+        return None
+    if kh == 3 and rc.reflect_conv3x3_cols_supported(*shape):
+        return rc.reflect_conv3x3_cols
+    if kh == 3 and rc.reflect_conv3x3_taps_supported(*shape):
+        return rc.reflect_conv3x3_taps
+    if kh == 7 and rc.reflect_out_conv7x7_supported(*shape):
+        return rc.reflect_out_conv7x7
+    return None
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           padding_mode='zeros', kernels='cuda'):
+    """NCHW input, OIHW weight, torch semantics; computes in x's dtype."""
+    kernel = (kernel_for(x, weight, stride, padding, dilation, groups,
+                         padding_mode) if kernels == 'cuda' else None)
+    if kernel is not None:
+        return kernel(x, weight, bias)
+    padding = _pair(padding)
+    weight = weight.to(x.dtype)
+    bias = None if bias is None else bias.to(x.dtype)
+    if padding_mode != 'zeros' and padding != (0, 0):
+        x = pad2d(x, padding, mode=padding_mode)
+        padding = (0, 0)
+    return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d (reference keys and init) whose forward runs `conv2d` in
+    the input's dtype, so the parameters stay float32 under bf16 compute."""
+
+    def __init__(self, *args, kernels: str = 'cuda', **kwargs):
+        super().__init__(*args, **kwargs)
+        self.kernels = check_kernels(kernels)
+
+    def forward(self, x):
+        return conv2d(x, self.weight, self.bias, self.stride, self.padding,
+                      self.dilation, self.groups, self.padding_mode,
+                      self.kernels)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d (weight (I, O, kh, kw), as the reference) run in
+    the input's dtype."""
+
+    def forward(self, x):
+        return F.conv_transpose2d(
+            x, self.weight.to(x.dtype),
+            None if self.bias is None else self.bias.to(x.dtype),
+            self.stride, self.padding, self.output_padding, self.groups,
+            self.dilation)

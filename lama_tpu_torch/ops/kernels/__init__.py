@@ -1,0 +1,5 @@
+"""Hand-written Hopper kernels, each beside its plain PyTorch version.
+
+`reflect_conv` and `fourier_unit` wrap the CUDA sources under
+`lama_tpu_torch/csrc/`, which `_build` compiles with nvcc at first use.
+"""

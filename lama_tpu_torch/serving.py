@@ -1,0 +1,113 @@
+"""Serving helpers: model-dir loading and the inpainting forward
+(counterpart of lama_tpu/serving.py)."""
+import os
+from typing import Tuple
+
+import torch
+
+from lama_tpu.config import load_yaml
+from lama_tpu.config.node import resolve_interpolations, to_dict
+from lama_tpu.data.io import ceil_modulo
+
+from .convert import load_checkpoint
+from .models import make_generator
+
+_DTYPES = {'fp32': torch.float32, 'bf16': torch.bfloat16}
+
+
+def generator_config(path: str) -> dict:
+    """The `generator:` section of a training config (a model dir's
+    config.yaml, or configs/training/*.yaml), interpolations resolved, as
+    plain Python values; `kind` names the generator."""
+    config = load_yaml(path)
+    resolve_interpolations(config)
+    return to_dict(config.generator)
+
+
+def load_serving_model(model_path: str, checkpoint: str = 'best.ckpt',
+                       precision: str = 'bf16', device='cuda',
+                       quant_zero_pad: bool = False,
+                       spectral_bf16_store: bool = False,
+                       s2d_out_head: bool = False,
+                       xfold_stem: bool = False) -> Tuple[torch.nn.Module, dict]:
+    """Build the generator from <model_path>/config.yaml, load
+    <model_path>/models/<checkpoint> (a reference-format .ckpt/.pth/.pt)
+    with strict key matching, and return (generator in eval mode on
+    `device`, generator kwargs). precision: fp32 | bf16. fp32 turns TF32 off
+    for matmuls and cuDNN convs, which PyTorch allows in cuDNN by default.
+    The remaining options of lama_tpu.serving.load_serving_model are later
+    ROADMAP items and raise."""
+    if precision == 'int8' or quant_zero_pad:
+        raise NotImplementedError('int8 serving (precision=int8, '
+                                  'quant_zero_pad) is not ported yet '
+                                  '(ROADMAP queue 1 item 7)')
+    for name, value in (('spectral_bf16_store', spectral_bf16_store),
+                        ('s2d_out_head', s2d_out_head),
+                        ('xfold_stem', xfold_stem)):
+        if value:
+            raise NotImplementedError(f'{name}=true is not ported yet '
+                                      '(ROADMAP queue 1 item 7)')
+    if precision not in _DTYPES:
+        raise ValueError(f'precision={precision!r}: expected fp32 or bf16')
+    if precision == 'fp32':
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    gen_kwargs = generator_config(os.path.join(model_path, 'config.yaml'))
+    kind = gen_kwargs.pop('kind')
+    generator = make_generator(kind, dtype=_DTYPES[precision], **gen_kwargs)
+    ckpt = os.path.join(model_path, 'models', str(checkpoint))
+    if not ckpt.endswith(('.ckpt', '.pth', '.pt')) or not os.path.isfile(ckpt):
+        raise FileNotFoundError(f'{ckpt}: expected a reference-format '
+                                '.ckpt/.pth/.pt file (orbax directories need '
+                                'bin/export_torch_checkpoint.py first)')
+    generator.load_state_dict(load_checkpoint(ckpt), strict=True)
+    return generator.to(device).eval(), gen_kwargs
+
+
+def bucket_shape(h: int, w: int, modulo: int, bucket: int) -> Tuple[int, int]:
+    """The padded (H, W) an original (h, w) input is served at: dataset
+    modulo-pad, then bucket-pad (at least one modulo). A copy of
+    lama_tpu/serving.py:158-177 without the spatial-shard rounding."""
+    def ceil_to(x, mod):
+        return ((x + mod - 1) // mod) * mod
+
+    modulo = int(modulo or 0)
+    ph = ceil_modulo(int(h), modulo) if modulo else int(h)
+    pw = ceil_modulo(int(w), modulo) if modulo else int(w)
+    return ceil_to(max(ph, modulo), bucket), ceil_to(max(pw, modulo), bucket)
+
+
+def make_inpaint_forward(generator, wire: str = 'fp32',
+                         out_key: str = 'inpainted'):
+    """The serving forward: (image (B,H,W,3), mask (B,H,W,1)) tensors on the
+    generator's device -> the served image (B,H,W,3), with the semantics of
+    lama_tpu/serving.py:180-224.
+
+    out_key: 'inpainted' (known pixels kept: mask * pred + (1 - mask) *
+    image) or 'predicted_image' (the raw generator output).
+    wire: 'fp32' (float32 in [0,1] in, float32 out) or 'uint8' (uint8 image
+    0-255 and {0,1} mask in; uint8 out as floor(clip(out * 255, 0, 255)),
+    the map save_image applies to float results, so both wires write the
+    same files for 8-bit sources)."""
+    if wire not in ('fp32', 'uint8'):
+        raise ValueError(f'wire={wire!r}: expected fp32 or uint8')
+    if out_key not in ('inpainted', 'predicted_image'):
+        raise ValueError(f'out_key={out_key!r}: expected inpainted or '
+                         'predicted_image')
+    u8 = wire == 'uint8'
+
+    @torch.inference_mode()
+    def predict(image, mask):
+        if u8:
+            image = image.float() / 255.0
+            mask = mask.float()
+        x = torch.cat([image * (1 - mask), mask], dim=-1).permute(0, 3, 1, 2)
+        pred = generator(x).permute(0, 2, 3, 1).float()
+        out = pred if out_key == 'predicted_image' else (
+            mask * pred + (1 - mask) * image)
+        if u8:
+            return torch.floor(torch.clamp(out * 255.0, 0.0, 255.0)).to(
+                torch.uint8)
+        return out
+    return predict

@@ -81,3 +81,5 @@ def stub_reference_deps():
 
 def pytest_configure(config):
     config.addinivalue_line('markers', 'slow: slow end-to-end tests')
+    config.addinivalue_line('markers', 'cuda: needs a CUDA device; skips '
+                            'without one')

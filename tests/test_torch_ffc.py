@@ -1,0 +1,128 @@
+"""The port's FFC generator against lama_tpu's on the CPU.
+
+A tiny big-lama-shaped generator (3 downsamplings, ratio 0.75 blocks, no
+LFU, sigmoid) is initialised in JAX, carried over with
+`state_dict_from_flax`, loaded with strict key matching, and run on the same
+64^2 input: fp32, rtol 1e-3 / atol 2e-4, the bounds of the flax-vs-torch
+export test (tests/test_export_torch_cli.py).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lama_tpu.models import make_generator as make_jax_generator
+from lama_tpu.training.convert import flax_to_torch
+from lama_tpu_torch.convert import state_dict_from_flax
+from lama_tpu_torch.models import make_generator
+from lama_tpu_torch.models import ffc
+
+torch.set_num_threads(1)
+
+GEN_KW = dict(
+    input_nc=4, output_nc=3, ngf=8, n_downsampling=3, n_blocks=2,
+    add_out_act='sigmoid',
+    init_conv_kwargs=dict(ratio_gin=0, ratio_gout=0, enable_lfu=False),
+    downsample_conv_kwargs=dict(ratio_gin=0, ratio_gout=0, enable_lfu=False),
+    resnet_conv_kwargs=dict(ratio_gin=0.75, ratio_gout=0.75, enable_lfu=False),
+)
+
+
+@pytest.fixture(scope='module')
+def jax_model():
+    gen = make_jax_generator('ffc_resnet', **GEN_KW)
+    variables = gen.init(jax.random.PRNGKey(3), jnp.zeros((1, 64, 64, 4)),
+                         train=False)
+    # non-trivial running statistics, so the BN fold is exercised
+    rng = np.random.RandomState(5)
+    stats = jax.tree_util.tree_map(
+        lambda v: np.asarray(v) + rng.rand(*v.shape).astype(np.float32) * 0.2,
+        variables['batch_stats'])
+    return gen, {'params': variables['params'], 'batch_stats': stats}
+
+
+def _port(variables, **kw):
+    g = make_generator('ffc_resnet', **GEN_KW, **kw)
+    g.load_state_dict(state_dict_from_flax(variables, 3, 2), strict=True)
+    return g.eval()
+
+
+@pytest.mark.parametrize('kernels', ['cuda', 'plain'])
+def test_generator_matches_jax(jax_model, kernels):
+    gen, variables = jax_model
+    x = np.random.RandomState(0).rand(2, 64, 64, 4).astype(np.float32)
+    ref = np.asarray(gen.apply(variables, jnp.asarray(x), train=False))
+    port = _port(variables, kernels=kernels)
+    with torch.no_grad():
+        out = port(torch.from_numpy(np.transpose(x, (0, 3, 1, 2))))
+    assert out.dtype == torch.float32 and out.shape == (2, 3, 64, 64)
+    np.testing.assert_allclose(np.transpose(out.numpy(), (0, 2, 3, 1)), ref,
+                               rtol=1e-3, atol=2e-4)
+
+
+def test_generator_bf16_close_to_fp32(jax_model):
+    _, variables = jax_model
+    x = torch.rand(1, 4, 64, 64, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        ref = _port(variables)(x)
+        out = _port(variables, dtype=torch.bfloat16)(x)
+    assert out.dtype == torch.float32   # the sigmoid runs in float32
+    assert float((out - ref).abs().max()) < 5e-2
+
+
+def test_state_dict_from_flax_matches_flax_to_torch(jax_model):
+    gen, variables = jax_model
+    ours = state_dict_from_flax(variables, 3, 2)
+    theirs = flax_to_torch(variables, model=gen)
+    assert set(ours) - set(theirs) == {
+        k[:-len('running_mean')] + 'num_batches_tracked'
+        for k in theirs if k.endswith('.running_mean')}
+    for k, v in theirs.items():
+        np.testing.assert_array_equal(ours[k].numpy(), v, err_msg=k)
+    # the reference key-space, e.g. the g2g spectral conv of block 1
+    assert 'model.5.conv1.ffc.convg2g.conv1.0.weight' in ours
+    assert ours['model.8.weight'].shape == (64, 32, 3, 3)   # ConvT: I, O
+
+
+def test_fourier_unit_planar_cache_follows_weights():
+    fu = ffc.FourierUnit(4, 4).eval()
+    w1 = fu.planar()[0]
+    assert fu.planar()[0] is w1          # unchanged weights: kept
+    with torch.no_grad():
+        fu.bn.running_var.mul_(2.0)      # a load or an edit bumps the version
+    w2 = fu.planar()[0]
+    assert w2 is not w1 and not torch.equal(w1, w2)
+    with torch.inference_mode():   # e.g. .to(device) under inference_mode
+        fu.bn.running_var = torch.ones(8)
+    w3 = fu.planar()[0]
+    assert not torch.equal(w2, w3)
+
+
+@pytest.mark.parametrize('kwargs', [
+    dict(resnet_conv_kwargs=dict(ratio_gin=0.75, ratio_gout=0.75,
+                                 enable_lfu=True)),
+    dict(spatial_transform_layers=[0]),
+    dict(out_ffc=True),
+    dict(spectral_kwargs=dict(use_se=True)),
+    dict(spectral_kwargs=dict(spectral_pos_encoding=True)),
+    dict(spectral_kwargs=dict(ffc3d=True)),
+    dict(spectral_kwargs=dict(spatial_scale_factor=0.5)),
+])
+def test_unported_options_raise(kwargs):
+    kw = dict(GEN_KW, **kwargs)
+    with pytest.raises(NotImplementedError):
+        make_generator('ffc_resnet', **kw)
+
+
+def test_gated_ffc_raises():
+    with pytest.raises(NotImplementedError):
+        ffc.FFC(8, 8, 3, 0.5, 0.5, padding=1, gated=True, enable_lfu=False)
+    with pytest.raises(NotImplementedError):
+        make_generator('pix2pixhd_global')
+
+
+def test_train_mode_raises(jax_model):
+    _, variables = jax_model
+    with pytest.raises(NotImplementedError):
+        _port(variables).train()(torch.rand(1, 4, 64, 64))

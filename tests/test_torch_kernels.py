@@ -1,0 +1,185 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+Each kernel's plain PyTorch version (the path its wrapper takes on a CPU
+tensor) is held against the TPU kernel run in Pallas interpret mode on the
+same numpy inputs, at small envelope shapes, rtol 1e-4 / atol 1e-5 (fp32;
+the two differ only in summation order). The FourierUnit kernel's stage
+plan (shapes, strides, twiddle tables) is replayed in numpy and held against
+the plain version, which covers what the CUDA source takes from Python. The
+CUDA sources themselves build and run only on the card (chip_smoke.py).
+"""
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lama_tpu.ops.pallas import fourier_unit as jfu
+from lama_tpu.ops.pallas import reflect_conv as jrc
+from lama_tpu_torch.ops.kernels import _build
+from lama_tpu_torch.ops.kernels import fourier_unit as tfu
+from lama_tpu_torch.ops.kernels import reflect_conv as trc
+
+torch.set_num_threads(1)
+
+RTOL, ATOL = 1e-4, 1e-5
+
+
+def _nchw(a):
+    return torch.from_numpy(np.ascontiguousarray(np.transpose(a, (0, 3, 1, 2))))
+
+
+def _nhwc(t):
+    return np.transpose(t.detach().numpy(), (0, 2, 3, 1))
+
+
+CONV_CASES = [
+    # (kernel name, (B, H, W, C), C_out, bias)
+    ('reflect_conv3x3_cols', (2, 16, 16, 128), 128, False),
+    ('reflect_conv3x3_cols', (2, 16, 16, 128), 128, True),
+    ('reflect_conv3x3_taps', (2, 16, 16, 384), 128, False),
+    ('reflect_conv3x3_taps', (2, 16, 16, 128), 384, False),
+    ('reflect_out_conv7x7', (2, 16, 16, 64), 3, True),
+]
+
+
+@pytest.mark.parametrize('name,shape,c_out,use_bias', CONV_CASES)
+def test_reflect_conv_plain_matches_pallas_interpret(name, shape, c_out,
+                                                      use_bias):
+    rng = np.random.RandomState(0)
+    k = 7 if '7x7' in name else 3
+    x = rng.rand(*shape).astype(np.float32)
+    kern = (rng.randn(k, k, shape[-1], c_out) * 0.05).astype(np.float32)
+    bias = rng.randn(c_out).astype(np.float32) if use_bias else None
+    ref = getattr(jrc, name)(jnp.asarray(x), jnp.asarray(kern),
+                             bias=None if bias is None else jnp.asarray(bias),
+                             dtype=jnp.float32, interpret=True)
+    weight = torch.from_numpy(np.ascontiguousarray(
+        np.transpose(kern, (3, 2, 0, 1))))
+    before = getattr(trc, name).launches
+    out = getattr(trc, name)(_nchw(x), weight,
+                             None if bias is None else torch.from_numpy(bias))
+    assert getattr(trc, name).launches == before   # CPU: plain, no launch
+    np.testing.assert_allclose(_nhwc(out), np.asarray(ref), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize('h,w,c,c_out', [(64, 64, 128, 128), (64, 64, 384, 128),
+                                         (64, 64, 128, 384), (64, 48, 128, 128),
+                                         (64, 64, 192, 128), (512, 512, 64, 3)])
+def test_envelopes_follow_the_tpu_kernels(h, w, c, c_out):
+    for name in ('reflect_conv3x3_cols', 'reflect_conv3x3_taps'):
+        ours = getattr(trc, name + '_supported')(h, w, c, c_out)
+        assert ours == getattr(jrc, name + '_supported')(h, w, c, c_out)
+    # the head drops only the TPU's row-tile divisibility (h % 128)
+    assert (trc.reflect_out_conv7x7_supported(h, w, c, c_out)
+            == jrc.reflect_out_conv7x7_supported(h, w, c, c_out))
+
+
+def _fu_params(rng, c, co):
+    return dict(conv=(rng.randn(2 * co, 2 * c, 1, 1) * 0.3).astype(np.float32),
+                gamma=(rng.rand(2 * co) + 0.5).astype(np.float32),
+                beta=rng.randn(2 * co).astype(np.float32),
+                mean=(rng.randn(2 * co) * 0.1).astype(np.float32),
+                var=(rng.rand(2 * co) + 0.5).astype(np.float32))
+
+
+def _torch_fu_args(p):
+    return [torch.from_numpy(p[k]) for k in ('conv', 'gamma', 'beta', 'mean',
+                                             'var')]
+
+
+def test_fourier_unit_plain_matches_pallas_interpret():
+    rng = np.random.RandomState(0)
+    x = rng.rand(2, 16, 16, 8).astype(np.float32)
+    p = _fu_params(rng, 8, 8)
+    ref = jfu.fused_fourier_unit(
+        jnp.asarray(x), jnp.asarray(np.transpose(p['conv'], (2, 3, 1, 0))),
+        jnp.asarray(p['gamma']), jnp.asarray(p['beta']),
+        jnp.asarray(p['mean']), jnp.asarray(p['var']),
+        dtype=jnp.float32, interpret=True)
+    before = tfu.fused_fourier_unit.launches
+    out = tfu.fused_fourier_unit(_nchw(x), *_torch_fu_args(p))
+    assert tfu.fused_fourier_unit.launches == before
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(_nhwc(out), np.asarray(ref), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_planar_params_match_jax():
+    rng = np.random.RandomState(1)
+    p = _fu_params(rng, 6, 4)
+    w_ref, b_ref = jfu._planar_params(np.transpose(p['conv'], (2, 3, 1, 0)),
+                                      p['gamma'], p['beta'], p['mean'],
+                                      p['var'])
+    w, b = tfu.planar_params(*_torch_fu_args(p))
+    np.testing.assert_allclose(w.numpy(), w_ref, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(b.numpy(), b_ref, rtol=1e-6, atol=1e-6)
+    assert tfu.planar_perm(6).tolist() == jfu._planar_perm(6).tolist()
+
+
+def _replay_plan(plan, bufs):
+    """numpy model of csrc/fourier_unit.cu::strided_gemm_kernel."""
+    def index(split, i):
+        d, hi, lo = split
+        return (i // d) * hi + (i % d) * lo
+
+    for st in plan:
+        m, n, k = np.arange(st['M']), np.arange(st['N']), np.arange(st['K'])
+        outs = []
+        for b in range(st['batches']):
+            def take(spec, rows, cols):
+                name, sb, row, col = spec
+                idx = (b * sb + index(row, rows)[:, None]
+                       + index(col, cols)[None, :])
+                return bufs[name].reshape(-1)[idx].astype(np.float64)
+            acc = take(st['a'], m, k) @ take(st['b'], k, n)
+            if st.get('bias'):
+                acc = acc + bufs['bp'][None, :]
+            if st.get('relu'):
+                acc = np.maximum(acc, 0.0)
+            outs.append(acc)
+        name, sb, row, col = st['out']
+        flat = bufs[name].reshape(-1)
+        for b, acc in enumerate(outs):
+            idx = b * sb + index(row, m)[:, None] + index(col, n)[None, :]
+            flat[idx] = acc
+
+
+@pytest.mark.parametrize('b,h,w,c,co', [(2, 8, 8, 3, 3), (1, 6, 10, 4, 2)])
+def test_fourier_unit_stage_plan_matches_plain(b, h, w, c, co):
+    rng = np.random.RandomState(2)
+    x = rng.rand(b, h, w, c).astype(np.float32)
+    p = _fu_params(rng, c, co)
+    wp, bp = tfu.planar_params(*_torch_fu_args(p))
+    wf = w // 2 + 1
+    scratch = b * h * 2 * wf * max(c, co)
+    tables = tfu.twiddles_np(h, w)
+    # the kernel reads raw row-major memory, as the replay's reshape(-1) does
+    assert all(t.flags.c_contiguous for t in tables.values())
+    bufs = dict(tables, x=x, wp=wp.numpy(), bp=bp.numpy(),
+                s0=np.zeros(scratch, np.float32),
+                s1=np.zeros(scratch, np.float32),
+                out=np.zeros((b, h, w, co), np.float32))
+    _replay_plan(tfu._stage_plan(b, h, w, c, co), bufs)
+    ref = tfu.fourier_unit_plain(_nchw(x), *_torch_fu_args(p))
+    np.testing.assert_allclose(bufs['out'], _nhwc(ref), rtol=RTOL, atol=ATOL)
+
+
+def test_cuda_sources_and_build_flags():
+    for name in _build.SOURCES:
+        assert os.path.isfile(_build.source_path(name)), name
+    assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
+    assert _build.BUILD_DIR.endswith(os.path.join('lama_tpu_torch', '_build'))
+    # importing the wrappers builds and loads nothing
+    assert not _build._loaded
+
+
+def test_kernels_refuse_to_drop_gradients():
+    w = torch.zeros(4, 4, 3, 3, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        trc.check_no_grad('k', torch.zeros(1), w)
+    with torch.no_grad():
+        trc.check_no_grad('k', torch.zeros(1), w)
+    trc.check_no_grad('k', torch.zeros(1), None)

@@ -1,0 +1,168 @@
+"""The port's serving path against bin/predict.py on the CPU.
+
+One model dir (config.yaml + a reference-format .ckpt exported from a flax
+generator) served by both CLIs on three tiny PNG pairs, one of odd size:
+the written PNGs differ by at most one level, and known pixels are
+bit-equal to the input. Also: the port's wires write the same files,
+out_key=predicted_image works, the port imports no jax, and the options of
+later slices raise.
+"""
+import importlib.util
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from lama_tpu.data.io import load_image, save_image
+from lama_tpu_torch import predict as port_predict
+from lama_tpu_torch.serving import bucket_shape, load_serving_model
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GEN_CFG = dict(
+    kind='ffc_resnet', input_nc=4, output_nc=3, ngf=8, n_downsampling=2,
+    n_blocks=2, add_out_act='sigmoid',
+    init_conv_kwargs=dict(ratio_gin=0, ratio_gout=0, enable_lfu=False),
+    downsample_conv_kwargs=dict(ratio_gin=0, ratio_gout=0, enable_lfu=False),
+    resnet_conv_kwargs=dict(ratio_gin=0.75, ratio_gout=0.75, enable_lfu=False),
+)
+SIZES = [(64, 64), (50, 70), (37, 45)]
+
+
+@pytest.fixture(scope='module')
+def served(tmp_path_factory):
+    """Model dir + inputs, and both CLIs' fp32 outputs."""
+    from lama_tpu.models import make_generator
+    from lama_tpu.training.convert import flax_to_torch
+
+    root = tmp_path_factory.mktemp('serve')
+    model_dir = root / 'model'
+    (model_dir / 'models').mkdir(parents=True)
+    with open(model_dir / 'config.yaml', 'w') as f:
+        yaml.safe_dump({'generator': GEN_CFG}, f)
+    kw = dict(GEN_CFG)
+    gen = make_generator(kw.pop('kind'), **kw)
+    variables = gen.init(jax.random.PRNGKey(1), jnp.zeros((1, 64, 64, 4)),
+                         train=False)
+    sd = {f'generator.{k}': torch.from_numpy(np.ascontiguousarray(v))
+          for k, v in flax_to_torch(variables, model=gen).items()}
+    for k in [k for k in sd if k.endswith('.running_mean')]:
+        sd[k[:-len('running_mean')] + 'num_batches_tracked'] = torch.zeros(
+            (), dtype=torch.long)
+    torch.save({'state_dict': sd}, model_dir / 'models' / 'best.ckpt')
+
+    rng = np.random.RandomState(0)
+    indir = root / 'in'
+    indir.mkdir()
+    for i, (h, w) in enumerate(SIZES):
+        mask = np.zeros((h, w, 1))
+        mask[h // 4: h // 2 + 3, w // 5: w // 2] = 1.0
+        save_image(str(indir / f'img{i}.png'), rng.rand(h, w, 3))
+        save_image(str(indir / f'img{i}_mask.png'), mask)
+
+    spec = importlib.util.spec_from_file_location(
+        'bin_predict_port_test', os.path.join(REPO, 'bin', 'predict.py'))
+    jax_predict = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_predict)
+    common = [f'model.path={model_dir}', f'indir={indir}', 'device=cpu',
+              'precision=fp32']
+    jax_predict.main(common + [f'outdir={root / "jax"}'])
+    port_predict.main(common + [f'outdir={root / "port"}', 'batch_size=2'])
+    return root, common
+
+
+def _read(root, sub, i):
+    return load_image(str(root / sub / f'img{i}_mask.png'), return_orig=True)[1]
+
+
+def test_port_predict_matches_bin_predict(served):
+    root, _ = served
+    for i, (h, w) in enumerate(SIZES):
+        ours, theirs = _read(root, 'port', i), _read(root, 'jax', i)
+        assert ours.shape == (h, w, 3)
+        diff = np.abs(ours.astype(int) - theirs.astype(int))
+        assert diff.max() <= 1, (i, diff.max())
+        img = load_image(str(root / 'in' / f'img{i}.png'), return_orig=True)[1]
+        mask = load_image(str(root / 'in' / f'img{i}_mask.png'),
+                          mode='L', return_orig=True)[1][..., 0]
+        known = mask == 0
+        np.testing.assert_array_equal(ours[known], img[known])
+        assert np.abs(ours[~known].astype(int) - img[~known]).max() > 0
+
+
+def test_wire_uint8_writes_the_same_files(served):
+    root, common = served
+    port_predict.main(common + [f'outdir={root / "port_u8"}', 'batch_size=2',
+                                'wire=uint8'])
+    for i in range(len(SIZES)):
+        np.testing.assert_array_equal(_read(root, 'port_u8', i),
+                                      _read(root, 'port', i))
+
+
+def test_out_key_predicted_image(served):
+    root, common = served
+    port_predict.main(common + [f'outdir={root / "port_pred"}',
+                                'out_key=predicted_image'])
+    for i, (h, w) in enumerate(SIZES):
+        pred, inp = _read(root, 'port_pred', i), _read(root, 'port', i)
+        mask = load_image(str(root / 'in' / f'img{i}_mask.png'),
+                          mode='L', return_orig=True)[1][..., 0]
+        assert pred.shape == (h, w, 3)
+        np.testing.assert_array_equal(pred[mask > 0], inp[mask > 0])
+        assert (pred[mask == 0] != inp[mask == 0]).any()
+
+
+def test_bucket_shape_matches_jax():
+    from lama_tpu.serving import bucket_shape as jax_bucket_shape
+    for hw in [(37, 45), (64, 64), (500, 380), (512, 512), (1, 1)]:
+        for modulo, bucket in [(8, 64), (8, 8), (0, 16)]:
+            assert (bucket_shape(*hw, modulo, bucket)
+                    == jax_bucket_shape(*hw, modulo, bucket))
+
+
+def test_port_imports_no_jax():
+    code = ('import sys; import lama_tpu_torch, lama_tpu_torch.serving, '
+            'lama_tpu_torch.predict; '
+            'print(any(m == "jax" or m.startswith(("jax.", "flax")) '
+            'for m in sys.modules))')
+    res = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip() == 'False'
+
+
+@pytest.mark.parametrize('override', ['precision=int8', 'refine=true',
+                                      'spatial_shards=2',
+                                      'quant_calibration=4',
+                                      'spectral_bf16_store=true'])
+def test_later_options_raise(served, override):
+    root, common = served
+    with pytest.raises(NotImplementedError):
+        port_predict.main(common + [f'outdir={root / "never"}', override])
+
+
+def test_cuda_device_without_a_card_raises(served):
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    root, common = served
+    argv = [a for a in common if not a.startswith('device=')]
+    with pytest.raises(RuntimeError, match='device=cpu'):
+        port_predict.main(argv + [f'outdir={root / "never"}'])
+
+
+def test_model_enable_lfu_raises(tmp_path):
+    cfg = dict(GEN_CFG, resnet_conv_kwargs=dict(ratio_gin=0.75,
+                                                ratio_gout=0.75,
+                                                enable_lfu=True))
+    (tmp_path / 'models').mkdir()
+    with open(tmp_path / 'config.yaml', 'w') as f:
+        yaml.safe_dump({'generator': cfg}, f)
+    with pytest.raises(NotImplementedError):
+        load_serving_model(str(tmp_path), precision='fp32', device='cpu')
