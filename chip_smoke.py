@@ -7,17 +7,38 @@ Phases, each fatal on failure (nothing falls back to the CPU or to a plain
 version):
   1. card: nvidia-smi name and power limit, torch's device name;
   2. build: nvcc builds every CUDA source of the port (lama_tpu_torch/csrc);
-  3. kernels: each hand-written kernel at its big-lama 512^2 shape (batch
-     4), fp32 (TF32 off) and bf16, against its plain PyTorch version on the
-     same inputs, with the median time of each (CUDA events);
+  3. kernels: each hand-written kernel at its big-lama shapes (batch 4;
+     the bottleneck at 64^2, the downsamples at 512^2 to 128^2, the head at
+     512^2) and at the refine phase's (batch 1; the 1024^2 image's 128x128
+     bottleneck, the 1000x760 image's odd 125x95 and 63x48 bottlenecks,
+     its 1000x760 and 504x384 inputs), fp32
+     (TF32 off) and bf16, against its plain PyTorch version on the same
+     inputs, with the median time of each (CUDA events) and its bound (the
+     least time for its bytes or its FLOP on an H100); then, in fp32, each
+     kernel's gradients through its autograd wrapper against plain
+     autograd;
   4. serve: big-lama (ngf 64, 18 blocks, random weights from a seed) served
      by `python -m lama_tpu_torch.predict` (run in this process, as `-m`
      runs it) on synthetic PNGs: bf16 and fp32, wire fp32 and uint8. Checks
      sizes, known pixels, bit-equal wires, and that every forward launched
      each kernel its expected number of times (cols 36, taps 72, FU 36,
-     head 1);
-  5. generator: kernels vs plain path at 512^2, batch 2, fp32;
-  6. throughput: img/s at 512^2, batch 16, bf16 and fp32, kernels vs plain.
+     head 1, down 4);
+  5. refine: `python -m lama_tpu_torch.predict refine=true precision=bf16`
+     on 1024^2 and 1000x760 images (two pyramid scales each, n_iters 15;
+     each size twice, the first a warm-up). Checks sizes, known pixels, the
+     hole, finite outputs, the launches (down 4 per front pass; the others
+     per rear forward: 1 at the first scale, n_iters at the second) and
+     that the loss falls at each refined scale; prints seconds per image
+     (refine_predict's call, timed) and the forward/backward split and
+     device profile of one Adam step; one front and one rear pass of the
+     kernels generator, fp32 and bf16, vs the fp32 plain one on the
+     padded 1024^2, 1000x760 and 504x384 inputs; then, fp32 at 512^2, the
+     gradient of one scale's loss w.r.t. z through the kernels vs through
+     the plain path, against the plain path's own spread, with planted
+     faults as controls (a dropped gradient must be rejected);
+  6. generator: kernels vs plain path at 512^2, batch 2, fp32;
+  7. throughput: img/s at 512^2, batch 16, bf16 and fp32, kernels vs plain,
+     and one profiled forward of each (idle share, top device kernels).
 Prints the `kernels` JSON line, then, as its last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device, and
 when run outside a checkout of the repository.
@@ -35,11 +56,38 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH = 4
 PER_FORWARD = {'reflect_conv3x3_cols': 36, 'reflect_conv3x3_taps': 72,
-               'fused_fourier_unit': 36, 'reflect_out_conv7x7': 1}
+               'fused_fourier_unit': 36, 'reflect_out_conv7x7': 1,
+               'reflect_down_conv3x3': 4}
+FRONT_KERNELS = ('reflect_down_conv3x3',)   # the rest run in the rear stage
 # bounds: fp32 kernel vs fp32 plain (summation order only); bf16 kernel on
 # bf16-rounded operands vs the fp32 plain output on the fp32 operands
 TOL = {'fp32': (1e-4, 1e-4), 'bf16': (2e-2, 2e-2)}
+# gradients through a kernel's autograd wrapper (backward: the plain VJP) vs
+# plain autograd, fp32, linear loss so both see the same output gradient:
+# cuDNN's algorithm choice only; atol relative to the largest gradient
+GRAD_TOL = (1e-4, 1e-5)
 GEN_ATOL = 1e-3   # whole generator, kernels vs plain, fp32, sigmoid output
+# one scale's refiner loss gradient w.r.t. z, kernels vs plain, fp32: this
+# gradient is not smooth at rounding scale (ReLU gates), so it is held to
+# the plain path's own spread when z moves by REFINE_Z_EPS (the front's
+# kernels-vs-plain difference, ~1e-6 relative), the largest over
+# REFINE_DRAWS draws of the noise: max and norm differences within
+# REFINE_FLOOR_FACTOR times that spread, cosine >= 1 - REFINE_COS_TOL
+REFINE_Z_EPS, REFINE_DRAWS = 1e-6, 8
+REFINE_FLOOR_FACTOR, REFINE_COS_TOL = 2.0, 1e-5
+# controls of that check, planted in the first rear FourierUnit: its output
+# (forward and backward) scaled by 1 + eps * (random signs) for each eps,
+# logged to show the check's resolution; and its gradient dropped (the
+# output detached), a wiring fault, which the check must reject
+REFINE_CONTROL_EPS = (1e-3, 1e-2, 1e-1)
+# the refine path's padded inputs (a 1024^2 image's second scale, a
+# 1000x760 image's second and first): one front and one rear pass of the
+# kernels generator vs kernels='plain' fp32, at the TOL bounds
+REFINE_PASS_SIZES = ((1024, 1024), (1000, 760), (504, 384))
+N_ITERS = 15      # the refiner's default (configs/prediction/default.yaml)
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core
+# FLOP/s, fp32 FMA FLOP/s outside the tensor cores
+HBM_BPS, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
 
 
 def check(cond, msg):
@@ -95,7 +143,7 @@ def median_ms(fn, iters=10, warmup=3):
 
 def kernel_cases(gen):
     """(name, TPU kernel, role, kernel fn, plain fn, fp32 inputs) at the
-    big-lama 512^2 shapes, batch BATCH."""
+    big-lama 512^2 shapes, batch BATCH, and at the refine phase's."""
     import torch
     from lama_tpu_torch.ops.kernels import fourier_unit as fu
     from lama_tpu_torch.ops.kernels import reflect_conv as rc
@@ -104,32 +152,100 @@ def kernel_cases(gen):
         t = torch.rand(*shape, generator=gen) * 2 - 1
         return (t * scale + shift).cuda()
 
-    def conv_case(c, co, h, k, bias):
-        x = (u(BATCH, c, h, h) + 1) / 2
-        w = u(co, c, k, k, scale=(c * k * k) ** -0.5)
-        b = u(co, scale=0.1) if bias else None
-        return x, w, b
+    def conv_case(c, co, h, k, bias, x=None, b=BATCH, w=None):
+        x = (u(b, c, h, w or h) + 1) / 2 if x is None else x
+        wt = u(co, c, k, k, scale=(c * k * k) ** -0.5)
+        bias = u(co, scale=0.1) if bias else None
+        return x, wt, bias
 
-    c128 = conv_case(128, 128, 64, 3, False)
-    l2g = conv_case(128, 384, 64, 3, False)
-    g2l = conv_case(384, 128, 64, 3, False)
-    head = conv_case(64, 3, 512, 7, True)
-    fu_in = ((u(BATCH, 192, 64, 64) + 1) / 2, u(384, 384, 1, 1, scale=0.05),
-             u(384, scale=0.2, shift=1.0), u(384, scale=0.1),
-             u(384, scale=0.1), u(384, scale=0.3, shift=1.0))
-    src = 'lama_tpu/ops/pallas/'
-    return [
-        ('reflect_conv3x3_cols', src + 'reflect_conv.py:130', 'l2l',
-         rc.reflect_conv3x3_cols, rc.reflect_conv_plain, c128),
-        ('reflect_conv3x3_taps', src + 'reflect_conv.py:465', 'l2g',
-         rc.reflect_conv3x3_taps, rc.reflect_conv_plain, l2g),
-        ('reflect_conv3x3_taps', src + 'reflect_conv.py:465', 'g2l',
-         rc.reflect_conv3x3_taps, rc.reflect_conv_plain, g2l),
-        ('reflect_out_conv7x7', src + 'reflect_conv.py:327', 'head',
-         rc.reflect_out_conv7x7, rc.reflect_conv_plain, head),
-        ('fused_fourier_unit', src + 'fourier_unit.py:130', 'fu',
-         fu.fused_fourier_unit, fu.fourier_unit_plain, fu_in),
+    def fu_case(b, h, w):
+        return ((u(b, 192, h, w) + 1) / 2, u(384, 384, 1, 1, scale=0.05),
+                u(384, scale=0.2, shift=1.0), u(384, scale=0.1),
+                u(384, scale=0.1), u(384, scale=0.3, shift=1.0))
+
+    l2l3 = conv_case(256, 128, 128, 3, False)
+    cases = [
+        ('reflect_conv3x3_cols', 'l2l', conv_case(128, 128, 64, 3, False)),
+        ('reflect_conv3x3_taps', 'l2g', conv_case(128, 384, 64, 3, False)),
+        ('reflect_conv3x3_taps', 'g2l', conv_case(384, 128, 64, 3, False)),
+        ('reflect_out_conv7x7', 'head', conv_case(64, 3, 512, 7, True)),
+        ('fused_fourier_unit', 'fu', fu_case(BATCH, 64, 64)),
+        ('reflect_down_conv3x3', 'down1', conv_case(64, 128, 512, 3, False)),
+        ('reflect_down_conv3x3', 'down2', conv_case(128, 256, 256, 3, False)),
+        # the third downsample's two convs, on one input
+        ('reflect_down_conv3x3', 'down3_l2l', l2l3),
+        ('reflect_down_conv3x3', 'down3_l2g',
+         conv_case(256, 384, 128, 3, False, x=l2l3[0])),
+        # the refine phase's own shapes, batch 1: the 1024^2 image's
+        # bottleneck (128x128), the 1000x760 image's second scale
+        # (bottleneck 125x95, odd on both sides) and first scale (500x380
+        # padded to 504x384: bottleneck 63x48); partial tiles everywhere
+        ('reflect_conv3x3_cols', 'refine_l2l',
+         conv_case(128, 128, 125, 3, False, b=1, w=95)),
+        ('reflect_conv3x3_taps', 'refine_l2g',
+         conv_case(128, 384, 125, 3, False, b=1, w=95)),
+        ('reflect_conv3x3_taps', 'refine_g2l',
+         conv_case(384, 128, 125, 3, False, b=1, w=95)),
+        ('reflect_out_conv7x7', 'refine_head',
+         conv_case(64, 3, 1000, 7, True, b=1, w=760)),
+        ('fused_fourier_unit', 'refine_fu_1024', fu_case(1, 128, 128)),
+        ('fused_fourier_unit', 'refine_fu', fu_case(1, 125, 95)),
+        ('fused_fourier_unit', 'refine_fu_s1', fu_case(1, 63, 48)),
+        ('reflect_down_conv3x3', 'refine_down1',
+         conv_case(64, 128, 1000, 3, False, b=1, w=760)),
+        ('reflect_down_conv3x3', 'refine_down1_s1',
+         conv_case(64, 128, 504, 3, False, b=1, w=384)),
+        ('reflect_down_conv3x3', 'refine_down3_l2g',
+         conv_case(256, 384, 250, 3, False, b=1, w=190)),
     ]
+    src = 'lama_tpu/ops/pallas/'
+    fns = {'reflect_conv3x3_cols': ('reflect_conv.py:130',
+                                    rc.reflect_conv3x3_cols,
+                                    rc.reflect_conv_plain),
+           'reflect_conv3x3_taps': ('reflect_conv.py:465',
+                                    rc.reflect_conv3x3_taps,
+                                    rc.reflect_conv_plain),
+           'reflect_out_conv7x7': ('reflect_conv.py:327',
+                                   rc.reflect_out_conv7x7,
+                                   rc.reflect_conv_plain),
+           'fused_fourier_unit': ('fourier_unit.py:130',
+                                  fu.fused_fourier_unit,
+                                  fu.fourier_unit_plain),
+           'reflect_down_conv3x3': ('reflect_conv.py:230',
+                                    rc.reflect_down_conv3x3,
+                                    rc.reflect_down_conv3x3_plain)}
+    return [(name, src + fns[name][0], role, fns[name][1], fns[name][2], args)
+            for name, role, args in cases]
+
+
+def bound(name, args, dtype):
+    """(least ms for the work on an H100, 'bytes' or 'operations'): each
+    input read once, each output written once, over HBM_BPS; the FLOP the
+    kernel does over the peak of its arithmetic (bf16 tensor cores for the
+    bf16 convs; fp32 FMA for the fp32 convs and for the FourierUnit, which
+    computes in fp32 for either input)."""
+    from lama_tpu_torch.ops.kernels import fourier_unit as fu
+    x = args[0]
+    b, c, h, w = x.shape
+    xsize = 2 if dtype == 'bf16' else 4
+    if name == 'fused_fourier_unit':
+        co = args[1].shape[0] // 2
+        nbytes = b * c * h * w * xsize + b * co * h * w * 4 + sum(
+            a.numel() * 4 for a in args[1:])
+        flop = sum(2 * st['M'] * st['N'] * st['K'] * st['batches']
+                   for st in fu._stage_plan(b, h, w, c, co))
+        peak = FP32_FLOPS
+    else:
+        wt, bias = args[1], args[2]
+        co, k = wt.shape[0], wt.shape[-1]
+        s = 2 if 'down' in name else 1
+        out_px = b * (h // s) * (w // s)
+        nbytes = (b * c * h * w + out_px * co + wt.numel()
+                  + (0 if bias is None else bias.numel())) * xsize
+        flop = 2 * out_px * co * c * k * k
+        peak = BF16_FLOPS if dtype == 'bf16' else FP32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flop / peak * 1e3
+    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
 
 
 def kernels_vs_plain(gen):
@@ -147,6 +263,7 @@ def kernels_vs_plain(gen):
             ok = bool(torch.all(err <= atol + rtol * ref.abs()))
             k_ms = median_ms(lambda: kfn(*kargs))
             p_ms = median_ms(lambda: pfn(*kargs))
+            b_ms, b_by = bound(name, args, dtype)
             row = dict(name=name, role=role, route='cuda',
                        source=('lama_tpu_torch/csrc/fourier_unit.cu'
                                if 'fourier' in name else
@@ -155,16 +272,58 @@ def kernels_vs_plain(gen):
                        shape=list(args[0].shape), dtype=dtype,
                        max_abs_err=float(err.max()),
                        tol=dict(rtol=rtol, atol=atol), within_tol=ok,
-                       ms=k_ms, kernel_ms=k_ms, plain_ms=p_ms)
+                       ms=k_ms, kernel_ms=k_ms, plain_ms=p_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
             log(f'kernel {name}/{role} {dtype} {list(args[0].shape)}: '
                 f'max|d| {row["max_abs_err"]:.3e} (rtol {rtol} atol {atol}) '
-                f'kernel {k_ms:.3f} ms plain {p_ms:.3f} ms')
+                f'kernel {k_ms:.3f} ms plain {p_ms:.3f} ms bound '
+                f'{b_ms:.3f} ms ({b_by})')
             check(ok, f'{name}/{role} {dtype}: outside tolerance')
             rows.append(row)
     return rows
 
 
+def kernel_gradients(gen, rows):
+    """fp32 gradients of a linear loss through each kernel's wrapper vs
+    plain autograd, on the first case of each kernel."""
+    import torch
+    seen = set()
+    for name, _, role, kfn, pfn, args in kernel_cases(gen):
+        if name in seen:
+            continue
+        seen.add(name)
+        # x, then the weight and bias (conv) or the conv/BN affine
+        # parameters (FourierUnit; the BN statistics are buffers)
+        n_diff = 4 if name == 'fused_fourier_unit' else 3
+        leaves = [a.clone().requires_grad_() if i < n_diff and a is not None
+                  else a for i, a in enumerate(args)]
+        wrt = [a for a in leaves[:n_diff] if a is not None]
+        before = kfn.launches
+        out = kfn(*leaves)
+        check(kfn.launches == before + 1, f'{name}: no launch with gradients')
+        r = torch.rand(out.shape, generator=gen).to(out.device)
+        ours = torch.autograd.grad((out * r).sum(), wrt)
+        ref = torch.autograd.grad((pfn(*leaves) * r).sum(), wrt)
+        worst = 0.0
+        for a, b in zip(ours, ref):
+            scale = float(b.abs().max())
+            err = (a - b).abs()
+            check(bool(torch.all(err <= GRAD_TOL[1] * scale
+                                 + GRAD_TOL[0] * b.abs())),
+                  f'{name}: gradient outside tolerance')
+            worst = max(worst, float(err.max()) / max(scale, 1e-30))
+        log(f'gradient {name}/{role} fp32: {len(wrt)} inputs, max|d| / '
+            f'max|grad| {worst:.3e} (rtol {GRAD_TOL[0]}, atol {GRAD_TOL[1]} '
+            'x max|grad|)')
+        for row in rows:
+            if row['name'] == name and row['role'] == role \
+                    and row['dtype'] == 'fp32':
+                row['grad_max_rel_err'] = worst
+
+
 def big_lama_kwargs():
+    """big-lama's generator section (configs/training/big-lama.yaml), read
+    by the port's own config code."""
     from lama_tpu_torch.serving import generator_config
     return generator_config(os.path.join(REPO, 'configs', 'training',
                                          'big-lama.yaml'))
@@ -251,18 +410,17 @@ def reset_counts():
     fns = dict(reflect_conv3x3_cols=rc.reflect_conv3x3_cols,
                reflect_conv3x3_taps=rc.reflect_conv3x3_taps,
                reflect_out_conv7x7=rc.reflect_out_conv7x7,
-               fused_fourier_unit=fu.fused_fourier_unit)
+               fused_fourier_unit=fu.fused_fourier_unit,
+               reflect_down_conv3x3=rc.reflect_down_conv3x3)
     for fn in fns.values():
         fn.launches = 0
     return fns
 
 
-def serve(work, gen_kwargs, sd):
+def serve(work, model_dir):
     import torch
     from lama_tpu_torch.models.ffc import FFCResNetGenerator
 
-    model_dir = os.path.join(work, 'model')
-    write_model_dir(model_dir, dict(kind='ffc_resnet', **gen_kwargs), sd)
     indir = os.path.join(work, 'in')
     sizes = write_images(indir, np.random.RandomState(0))
     forwards = [0]
@@ -313,6 +471,321 @@ def serve(work, gen_kwargs, sd):
     return launches
 
 
+def write_refine_images(root, rng):
+    """Image + mask (two rectangles) PNGs, sorted by name in this order:
+    1024^2 twice, 1000x760 twice. The first of each size is its warm-up
+    (the process's first passes at those shapes); the second is timed."""
+    os.makedirs(root)
+    sizes = [(1024, 1024), (1024, 1024), (1000, 760), (1000, 760)]
+    for i, (h, w) in enumerate(sizes):
+        yy, xx = np.mgrid[0:h, 0:w] / 96.0
+        img = np.stack([np.sin(yy + i), np.cos(xx - i), np.sin(xx - yy)], -1)
+        img = np.clip(0.5 + 0.4 * img + 0.05 * rng.randn(h, w, 3), 0, 1)
+        mask = np.zeros((h, w), np.uint8)
+        mask[h // 5:h // 5 + h // 4, w // 6:w // 6 + w // 3] = 255
+        mask[h // 2:h // 2 + h // 6, w // 2:w // 2 + w // 4] = 255
+        write_png(os.path.join(root, f'r{i}.png'),
+                  np.rint(img * 255).astype(np.uint8))
+        write_png(os.path.join(root, f'r{i}_mask.png'), mask)
+    return sizes
+
+
+def refine(work, model_dir):
+    """`python -m lama_tpu_torch.predict refine=true precision=bf16` on the
+    refine images; returns the launch counts. The CLI's call of
+    `refinement.refine_predict` is wrapped for the run, to time each image
+    (synchronised before and after) and to take its per-scale Adam-step
+    losses (return_losses=True)."""
+    import torch
+    from lama_tpu_torch.evaluation import refinement
+    from lama_tpu_torch.models.ffc import FFCResNetGenerator
+
+    indir = os.path.join(work, 'refine_in')
+    outdir = os.path.join(work, 'refine_out')
+    sizes = write_refine_images(indir, np.random.RandomState(1))
+    passes = {'front': 0, 'rear': 0, 'full': 0}
+    finite = []
+    seconds, losses = [], []
+    refine_predict = refinement.refine_predict
+
+    def timed_refine_predict(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, scale_losses = refine_predict(*args, return_losses=True,
+                                           **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(scale_losses)
+        return out
+
+    def count_pass(module, inputs, output):
+        if not isinstance(module, FFCResNetGenerator):
+            return
+        stage = ('rear' if isinstance(inputs[0], tuple) else
+                 'front' if isinstance(output, tuple) else 'full')
+        passes[stage] += 1
+        outs = output if isinstance(output, tuple) else (output,)
+        finite.extend(torch.isfinite(t).all() for t in outs if t is not None)
+
+    hook = torch.nn.modules.module.register_module_forward_hook(count_pass)
+    refinement.refine_predict = timed_refine_predict
+    try:
+        fns = reset_counts()
+        t0 = time.perf_counter()
+        run_predict([f'model.path={model_dir}', f'indir={indir}',
+                     f'outdir={outdir}', 'device=cuda', 'precision=bf16',
+                     'refine=true', f'refiner.n_iters={N_ITERS}'])
+        secs = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in fns.items()}
+    finally:
+        refinement.refine_predict = refine_predict
+        hook.remove()
+    n = len(sizes)
+    log(f'refine bf16: {n} images in {secs:.1f} s, passes {passes}, '
+        f'launches {counts}')
+    check(passes == {'front': 2 * n, 'rear': (1 + N_ITERS) * n, 'full': 0},
+          f'refine passes {passes}: expected 2 front and {1 + N_ITERS} rear '
+          'per image (two scales)')
+    check(all(bool(f) for f in finite), 'refine: non-finite generator output')
+    for k, per in PER_FORWARD.items():
+        expected = per * passes['front' if k in FRONT_KERNELS else 'rear']
+        check(counts[k] == expected,
+              f'refine {k}: {counts[k]} launches, expected {expected}')
+    check(len(seconds) == n, f'refine: {len(seconds)} refine_predict calls')
+    for i, (h, w) in enumerate(sizes):
+        check([len(v) for v in losses[i]] == [0, N_ITERS - 1],
+              f'refine r{i}: Adam steps per scale {[len(v) for v in losses[i]]}')
+        first, last = float(losses[i][-1][0]), float(losses[i][-1][-1])
+        log(f'refine image {i}: {N_ITERS - 1} Adam steps at the second '
+            f'scale, loss {first:.6f} -> {last:.6f}')
+        check(last < first, f'refine r{i}: the loss did not fall')
+        out = read_png(os.path.join(outdir, f'r{i}_mask.png'))
+        img = read_png(os.path.join(indir, f'r{i}.png'))
+        mask = read_png(os.path.join(indir, f'r{i}_mask.png'), 'L')
+        check(out.shape == (h, w, 3), f'refine r{i}: shape {out.shape}')
+        check(np.array_equal(out[mask == 0], img[mask == 0]),
+              f'refine r{i}: known pixels changed')
+        check((out[mask > 0] != img[mask > 0]).any(),
+              f'refine r{i}: hole left as input')
+        log(f'refine {h}x{w} bf16: {seconds[i]:.3f} s per image '
+            f'(n_iters {N_ITERS}{"" if i % 2 else ", warm-up"})')
+    return counts
+
+
+def _refine_inputs(size, seed):
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    image = torch.rand(1, 3, size, size, generator=g)
+    mask = torch.zeros(1, 1, size, size)
+    mask[:, :, size // 4:size // 2, size // 3:2 * size // 3] = 1
+    ref = torch.rand(1, 3, size // 2, size // 2, generator=g)
+    return image.cuda(), mask.cuda(), ref.cuda()
+
+
+def _signs(shape, gen):
+    import torch
+    return (torch.randint(0, 2, shape, generator=gen) * 2 - 1).float().cuda()
+
+
+def _grad_diff(a, b):
+    """(max |a - b| / max |b|, ||a - b|| / ||b||, cosine) over z's tensors."""
+    import torch
+    a = torch.cat([t.flatten() for t in a])
+    b = torch.cat([t.flatten() for t in b])
+    return (float((a - b).abs().max() / b.abs().max()),
+            float((a - b).norm() / b.norm()),
+            float((a * b).sum() / (a.norm() * b.norm())))
+
+
+def _within(out, ref, precision):
+    """(max |out - ref|, whether every element is within TOL[precision])."""
+    import torch
+    rtol, atol = TOL[precision]
+    err = (out.float() - ref).abs()
+    return float(err.max()), bool(torch.all(err <= atol + rtol * ref.abs()))
+
+
+def refine_passes_vs_plain(gens):
+    """At each REFINE_PASS_SIZES input (masked image + mask, batch 1): the
+    front of the kernels generator (fp32 and bf16) vs the fp32 plain front,
+    and the rear of each on the plain front's features vs the fp32 plain
+    rear, at the kernels' TOL bounds."""
+    import torch
+    res = {}
+    for h, w in REFINE_PASS_SIZES:
+        g = torch.Generator().manual_seed(h + w)
+        image = torch.rand(1, 3, h, w, generator=g)
+        mask = torch.zeros(1, 1, h, w)
+        mask[:, :, h // 5:h // 5 + h // 4, w // 6:w // 6 + w // 3] = 1
+        x = torch.cat([image * (1 - mask), mask], 1).cuda()
+        with torch.no_grad():
+            z = gens['fp32', 'plain'](x, stage='front')
+            ref = gens['fp32', 'plain'](z, stage='rear').float()
+            for precision in ('fp32', 'bf16'):
+                gen = gens[precision, 'cuda']
+                front = gen(x, stage='front')
+                rear = gen(z, stage='rear')
+                errs = [_within(a, b.float(), precision)
+                        for a, b in zip(front, z)] + [
+                    _within(rear, ref, precision)]
+                res[h, w, precision] = errs
+                log(f'refine passes {h}x{w} {precision} kernels vs fp32 '
+                    f'plain: front local max|d| {errs[0][0]:.3e}, global '
+                    f'{errs[1][0]:.3e} (max|ref| {float(z[0].abs().max()):.3f}'
+                    f', {float(z[1].abs().max()):.3f}); rear max|d| '
+                    f'{errs[2][0]:.3e} (rtol, atol {TOL[precision]})')
+    for key, errs in res.items():
+        check(all(ok for _, ok in errs),
+              f'refine passes {key}: kernels vs plain outside tolerance')
+    return res
+
+
+def refine_gradient_vs_plain(gens, size=512):
+    """fp32: one scale's loss gradient w.r.t. z, kernels vs plain path, on
+    the same z (the plain front's), against the plain path's own spread
+    when z moves by REFINE_Z_EPS (relative, gaussian; the largest spread of
+    REFINE_DRAWS draws, since one draw may or may not flip a given gate,
+    and single draws on the same z differ severalfold). The targets
+    (the image, and the previous scale's result) are the plain prediction
+    offset by +-0.05 per element, away from the L1's kink."""
+    import torch
+    from lama_tpu_torch.evaluation import refinement as R
+    from lama_tpu_torch.models.ffc import FourierUnit
+    image, mask, _ = _refine_inputs(size, 4)
+    x = torch.cat([image * (1 - mask), mask], 1)
+    ek = R._ellipse_kernel(15)
+    g = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        z0 = gens['fp32', 'plain'](x, stage='front')
+        pred = gens['fp32', 'plain'](z0, stage='rear').float()
+        image = pred - 0.05 * _signs(pred.shape, g)
+        ref = R._pyrdown(pred)
+        ref = ref - 0.05 * _signs(ref.shape, g)
+
+    def grad(kernels, eps=0.0):
+        z = [(t * (1 + eps * torch.randn(t.shape, generator=g).cuda()))
+             .detach().requires_grad_() for t in z0]
+        pred = gens['fp32', kernels](tuple(z), stage='rear').float()
+        loss = R._scale_loss(pred, image, mask.expand(-1, 3, -1, -1), ref,
+                             (size, size), ek)
+        return torch.autograd.grad(loss, z)
+
+    def faulty_grad(eps):
+        """grad('cuda') with the first rear FourierUnit's output scaled by
+        1 + eps * (random signs), in its forward and so in its backward;
+        eps None: the output detached, so no gradient flows through it."""
+        gen = gens['fp32', 'cuda']
+        unit = next(m for m in gen.model[2 + gen.n_downsampling:].modules()
+                    if isinstance(m, FourierUnit))
+        signs = {}
+
+        def fault(module, inputs, out):
+            if eps is None:
+                return out.detach()
+            if 's' not in signs:
+                signs['s'] = _signs(out.shape, g)
+            return out * (1 + eps * signs['s'])
+
+        handle = unit.register_forward_hook(fault)
+        try:
+            return grad('cuda')
+        finally:
+            handle.remove()
+
+    plain = grad('plain')
+    ours = _grad_diff(grad('cuda'), plain)
+    draws = [_grad_diff(grad('plain', REFINE_Z_EPS), plain)
+             for _ in range(REFINE_DRAWS)]
+    floor = (max(d[0] for d in draws), max(d[1] for d in draws),
+             min(d[2] for d in draws))
+
+    def passes(d):
+        return (d[0] <= REFINE_FLOOR_FACTOR * floor[0]
+                and d[1] <= REFINE_FLOOR_FACTOR * floor[1]
+                and d[2] >= 1 - REFINE_COS_TOL)
+
+    controls = {eps: _grad_diff(faulty_grad(eps), plain)
+                for eps in REFINE_CONTROL_EPS + (None,)}
+    log(f'refine gradient fp32 {size}^2, kernels vs plain: max|d|/max|g| '
+        f'{ours[0]:.3e}, ||d||/||g|| {ours[1]:.3e}, cosine {ours[2]:.8f}; '
+        f'plain vs plain with z x (1 + {REFINE_Z_EPS} noise), largest of '
+        f'{REFINE_DRAWS} draws: {floor[0]:.3e}, {floor[1]:.3e}, '
+        f'{floor[2]:.8f} (single draws: max '
+        + ', '.join(f'{d[0]:.2e}' for d in draws) + ')')
+    for eps, d in controls.items():
+        fault = ('gradient dropped' if eps is None else
+                 f'output x (1 + {eps} signs)')
+        log(f'refine gradient control, one FourierUnit {fault}: {d[0]:.3e}, '
+            f'{d[1]:.3e}, {d[2]:.8f}: '
+            + ('passes the check' if passes(d) else 'rejected'))
+    check(passes(ours),
+          'refine gradient: kernels vs plain beyond the plain path\'s spread')
+    check(not passes(controls[None]),
+          'refine gradient: the check let a dropped gradient pass')
+    return ours, floor, controls
+
+
+def device_profile(fn, label, top=10):
+    """One call of fn under torch.profiler: wall ms, device-kernel ms, idle
+    share, and the kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = {e.key: e.self_device_time_total for e in kernels}
+    counts = {e.key: e.count for e in kernels}
+    busy = sum(dev.values()) / 1e3
+    log(f'{label} profiled: wall {wall:.1f} ms, device kernels {busy:.1f} '
+        f'ms, idle share {1 - busy / wall:.3f}')
+    for name, us in sorted(dev.items(), key=lambda kv: -kv[1])[:top]:
+        log(f'  {us / 1e3:8.2f} ms {counts[name]:5d}x {name[:100]}')
+
+
+def refine_step_split(gen, size=1024, iters=3, top=10):
+    """Host time of one Adam step's rear forward + loss and of its backward,
+    bf16 kernels, at the second scale of a size^2 image; then one more step
+    under torch.profiler: device-busy share and the kernels with the most
+    device time."""
+    import torch
+    from lama_tpu_torch.evaluation import refinement as R
+    image, mask, ref = _refine_inputs(size, 5)
+    x = torch.cat([image * (1 - mask), mask], 1)
+    ek = R._ellipse_kernel(15)
+    mask3 = mask.expand(-1, 3, -1, -1)
+    with torch.no_grad():
+        z = [t.detach().requires_grad_() for t in gen(x, stage='front')]
+
+    def forward():
+        return R._scale_loss(gen(tuple(z), stage='rear').float(), image,
+                             mask3, ref, (size, size), ek)
+
+    fwd, bwd = [], []
+    for i in range(iters + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = forward()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        if i:   # the first step warms up
+            fwd.append(t1 - t0)
+            bwd.append(time.perf_counter() - t1)
+    f, b = float(np.mean(fwd)) * 1e3, float(np.mean(bwd)) * 1e3
+    log(f'refine Adam step bf16 {size}^2: rear forward + loss {f:.1f} ms, '
+        f'backward {b:.1f} ms, backward share {b / (f + b):.3f}')
+
+    device_profile(lambda: forward().backward(),
+                   f'refine Adam step bf16 {size}^2', top)
+    return dict(forward_ms=f, backward_ms=b, backward_share=b / (f + b))
+
+
 def make_generators(gen_kwargs, sd):
     import torch
     from lama_tpu_torch.models import make_generator
@@ -322,7 +795,7 @@ def make_generators(gen_kwargs, sd):
             g = make_generator('ffc_resnet', dtype=dtype, kernels=kernels,
                                **gen_kwargs)
             g.load_state_dict(sd, strict=True)
-            gens[precision, kernels] = g.cuda().eval()
+            gens[precision, kernels] = g.cuda().eval().requires_grad_(False)
     return gens
 
 
@@ -372,6 +845,9 @@ def throughput(gens, card_line, iters=3):
             log(f'throughput big-lama 512^2 b16 {precision}: kernels '
                 f'{res[precision]["cuda"]:.2f} img/s, plain '
                 f'{res[precision]["plain"]:.2f} img/s ({card_line})')
+            for kernels in ('cuda', 'plain'):
+                device_profile(lambda: gens[precision, kernels](x),
+                               f'big-lama 512^2 b16 {precision} {kernels}')
     return res
 
 
@@ -389,16 +865,24 @@ def main():
     build()
     gen = torch.Generator().manual_seed(0)
     rows = kernels_vs_plain(gen)
+    kernel_gradients(gen, rows)
     gen_kwargs = big_lama_kwargs()
     gen_kwargs.pop('kind')
     from lama_tpu_torch.models import make_generator
     sd = random_state_dict(make_generator('ffc_resnet', **gen_kwargs), seed=0)
     with tempfile.TemporaryDirectory() as work:
-        launches = serve(work, gen_kwargs, sd)
+        model_dir = os.path.join(work, 'model')
+        write_model_dir(model_dir, dict(kind='ffc_resnet', **gen_kwargs), sd)
+        launches = serve(work, model_dir)
+        refine_launches = refine(work, model_dir)
     for row in rows:
         row['launches'] = launches[row['dtype']][row['name']]
+        row['refine_launches'] = refine_launches[row['name']]
     gens = make_generators(gen_kwargs, sd)
     generator_vs_plain(gens)
+    refine_passes_vs_plain(gens)
+    refine_gradient_vs_plain(gens)
+    refine_step_split(gens['bf16', 'cuda'])
     throughput(gens, card_line)
     log(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {

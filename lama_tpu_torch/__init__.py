@@ -2,24 +2,30 @@
 
 The JAX package `lama_tpu` stays the reference; this package grows beside it
 one slice at a time and is checked against it (tests/test_torch_*.py). It
-imports torch and never jax. The first slice serves big-lama: the FFC
-generator, its serving forward and the predict CLI, with the TPU's Pallas
-kernels on that path rewritten by hand in CUDA for Hopper (sm_90a).
+imports torch, never jax, and nothing of lama_tpu. The first slice serves
+big-lama: the FFC generator, its serving forward and the predict CLI; the
+second adds the multiscale refiner (`refine=true`), which runs Adam through
+the generator's rear stage. The TPU's Pallas kernels on those paths are
+rewritten by hand in CUDA for Hopper (sm_90a).
 
 Component map (counterparts in lama_tpu):
   lama_tpu_torch.ops           — pad, activations, eval BatchNorm, convs with
-                                 the kernel dispatch, plain spectral (lama_tpu.ops)
+                                 the kernel dispatch, plain spectral, resize,
+                                 gaussian blur (lama_tpu.ops)
   lama_tpu_torch.ops.kernels   — reflect-conv and FourierUnit CUDA kernels,
-                                 each beside its plain version (lama_tpu.ops.pallas)
+                                 each beside its plain version and wrapped
+                                 for autograd (lama_tpu.ops.pallas)
   lama_tpu_torch/csrc          — the CUDA sources, built with nvcc at first use
   lama_tpu_torch.models        — FFCResNetGenerator and its parts (lama_tpu.models)
   lama_tpu_torch.convert       — flax variables / reference .ckpt -> state_dict
                                  (lama_tpu.training.convert)
   lama_tpu_torch.serving       — model loading and the inpainting forward
                                  (lama_tpu.serving)
+  lama_tpu_torch.evaluation.refinement — the multiscale refiner
+                                 (lama_tpu.evaluation.refinement)
   lama_tpu_torch.predict       — `python -m lama_tpu_torch.predict` (bin/predict.py)
-Host-only modules are shared with lama_tpu, not copied: lama_tpu.config,
-lama_tpu.data.datasets and lama_tpu.data.io, none of which imports jax.
+  lama_tpu_torch.config, .data — copies of the host-only parts of
+                                 lama_tpu.config and lama_tpu.data it uses
 """
 
 __version__ = "0.1.0"

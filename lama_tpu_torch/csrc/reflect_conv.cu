@@ -1,10 +1,12 @@
-// Reflect-padded stride-1 convolutions for the FFC generator, hand-written
-// for Hopper (sm_90a). Bound to Python through the extern "C" launchers at
-// the bottom (ctypes; see lama_tpu_torch/ops/kernels/reflect_conv.py).
+// Reflect-padded convolutions for the FFC generator, hand-written for Hopper
+// (sm_90a). Bound to Python through the extern "C" launchers at the bottom
+// (ctypes; see lama_tpu_torch/ops/kernels/reflect_conv.py).
 //
 // Replaces the TPU kernels of lama_tpu/ops/pallas/reflect_conv.py:
 //   reflect_conv3x3_cols  (3x3, C = C_out = 128; the 36 l2l convs)
 //   reflect_conv3x3_taps  (3x3, C and C_out multiples of 128; l2g and g2l)
+//   reflect_down_conv3x3  (3x3 stride 2, 2C and C_out multiples of 128; the
+//                          four downsample convs of the generator's front)
 //   reflect_out_conv7x7   (7x7, C_out <= 8; the 64->3 RGB head)
 //
 // What the TPU kernels keep out of HBM, these keep out too: the reflect
@@ -17,15 +19,19 @@
 // 3x3 kernel (conv3x3_kernel): an implicit GEMM per block over an 8x16
 // output-pixel tile (M = 128) and 128 output channels (N), with K = 9 taps x
 // C input channels walked in chunks of CK channels. Each chunk stages the
-// (8+2)x(16+2) halo tile and the chunk's 9 x CK x 128 weights in shared
-// memory (weights in [tap][ci][co] order, the order the loop reads). The
-// nine tap windows are read straight off the halo tile: for tap (ky, kx) a
-// row of 16 output pixels is a 16 x CK matrix at halo[(row+ky)*18 + kx]
-// with row pitch CKP, which is exactly a row-major WMMA A operand. So the
-// TPU's two variants (im2col GEMM vs nine per-tap GEMMs, a Mosaic layout
-// choice) are two instantiations of the same kernel here: cols fixes
-// C = 128 at compile time (CFIX), so its whole K = 9 x 128 walk and the
-// pixel stride are constants; taps takes C at run time (CFIX = 0).
+// input halo tile and the chunk's 9 x CK x 128 weights in shared memory
+// (weights in [tap][ci][co] order, the order the loop reads). The nine tap
+// windows are read straight off the halo tile: at stride S the halo is
+// (8S + 3 - S) x (16S + 3 - S) pixels, and for tap (ky, kx) a row of 16
+// output pixels is a 16 x CK matrix at halo[(S*row + ky) * HC + kx] whose
+// rows are S pixels apart (leading dimension S * CKP), which is exactly a
+// row-major WMMA A operand. So the TPU's three variants (im2col GEMM, nine
+// per-tap GEMMs, and the stride-2 width-pair view with a shifted left-tap
+// add, all Mosaic layout choices) are three instantiations of one kernel
+// here: cols fixes C = 128 at compile time (CFIX), so its whole K = 9 x 128
+// walk and the pixel stride are constants; taps takes C at run time
+// (CFIX = 0); down is taps at S = 2, where the 17 x 33 halo tile holds
+// every input pixel the 8 x 16 outputs read, each loaded once per chunk.
 //   bf16: tensor cores through nvcuda::wmma (16x16x16, fp32 accumulate);
 //         8 warps, each 32 pixels x 64 channels.
 //   fp32: full-precision FMA (no TF32), each thread an 8-pixel x 8-channel
@@ -33,7 +39,11 @@
 // Bound: at the bottleneck shape (B,64,64,128)->384 the work is 2*9*C*Co
 // FLOP per pixel against (C + Co) * bytes in and out, ~1000 FLOP/byte in
 // bf16, so compute. The halo tile is loaded once per 9 taps, which is what
-// keeps the operand traffic in shared memory rather than L2.
+// keeps the operand traffic in shared memory rather than L2. The stride-2
+// downsamples do a quarter of the FLOP per input byte: down1 (64 -> 128 at
+// 512^2) is bound by its bytes in bf16 and by the FMA rate in fp32; at
+// S = 2 the bf16 tile needs 134 KB of shared memory (54 KB halo, 81 KB
+// weights), so one block of 8 warps runs per SM.
 //
 // 7x7 head (conv7_thin_kernel): C_out = 3 wastes any GEMM tile, so each
 // thread owns one column of R = 4 output pixels and all C_out channels
@@ -43,6 +53,10 @@
 // channel planes, so a warp reads 32 consecutive columns without bank
 // conflicts; weights sit in [ci][kx][ky][co] order. Bound: 49 * C * C_out
 // FMA per pixel against C inputs read once, FMA-bound on the SIMT units.
+//
+// No backward kernels: the TPU kernels have none either (their custom_vjp
+// takes the VJP of the plain reflect pad + conv), and the port does the
+// same in a torch.autograd.Function.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -73,7 +87,10 @@ __device__ __forceinline__ int reflect_idx(int i, int n) {
 
 // ---------------------------------------------------------------- 3x3
 constexpr int C3_TH = 8, C3_TW = 16, C3_BN = 128, C3_THREADS = 256;
-constexpr int C3_HR = C3_TH + 2, C3_HC = C3_TW + 2;
+// halo tile rows and columns at stride S: (tile - 1) * S + 3
+template <int S> struct Halo3 {
+  static constexpr int R = (C3_TH - 1) * S + 3, C = (C3_TW - 1) * S + 3;
+};
 
 template <typename T> struct Conv3Cfg;
 template <> struct Conv3Cfg<float> {
@@ -87,16 +104,18 @@ template <> struct Conv3Cfg<bf16> {
   static constexpr int BNP = C3_BN + 16;
 };
 
-template <typename T>
+template <typename T, int S>
 constexpr size_t conv3_smem_bytes() {
-  return sizeof(T) * (size_t(C3_HR) * C3_HC * Conv3Cfg<T>::CKP +
+  return sizeof(T) * (size_t(Halo3<S>::R) * Halo3<S>::C * Conv3Cfg<T>::CKP +
                       size_t(9) * Conv3Cfg<T>::CK * Conv3Cfg<T>::BNP);
 }
 
 // x: (B, H, W, C) NHWC; w: (3, 3, C, Co) HWIO; bias: (Co,) or null;
-// out: (B, H, W, Co). Requires C % CK == 0 and Co % 128 == 0; C == CFIX
-// when CFIX is not 0.
-template <typename T, int CFIX>
+// out: (B, H/S, W/S, Co). Requires C % CK == 0 and Co % 128 == 0; C == CFIX
+// when CFIX is not 0; H and W even when S == 2 (the last output row and
+// column then read input rows/cols up to H-1, W-1: only the top and left
+// borders reflect).
+template <typename T, int CFIX, int S>
 __global__ void __launch_bounds__(C3_THREADS)
 conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
                const T* __restrict__ bias, T* __restrict__ out,
@@ -105,13 +124,15 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
   constexpr int CK = Conv3Cfg<T>::CK, CKP = Conv3Cfg<T>::CKP;
   constexpr int BNP = Conv3Cfg<T>::BNP;
   constexpr int VEC = 16 / sizeof(T);
+  constexpr int HR = Halo3<S>::R, HC = Halo3<S>::C;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* halo = reinterpret_cast<T*>(smem_raw);
-  T* wts = halo + C3_HR * C3_HC * CKP;
+  T* wts = halo + HR * HC * CKP;
 
+  const int Ho = H / S, Wo = W / S;
   const int tid = threadIdx.x;
-  const int tiles_w = (W + C3_TW - 1) / C3_TW;
-  const int r0 = (blockIdx.x / tiles_w) * C3_TH;
+  const int tiles_w = (Wo + C3_TW - 1) / C3_TW;
+  const int r0 = (blockIdx.x / tiles_w) * C3_TH;   // output tile origin
   const int c0 = (blockIdx.x % tiles_w) * C3_TW;
   const int n0 = blockIdx.y * C3_BN;
   const int b = blockIdx.z;
@@ -139,10 +160,10 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
   for (int ci0 = 0; ci0 < C; ci0 += CK) {
     // halo tile, reflect-mapped at load time
     constexpr int VPP = CK / VEC;
-    for (int i = tid; i < C3_HR * C3_HC * VPP; i += C3_THREADS) {
+    for (int i = tid; i < HR * HC * VPP; i += C3_THREADS) {
       const int pix = i / VPP, v = i % VPP;
-      const int gr = reflect_idx(r0 - 1 + pix / C3_HC, H);
-      const int gc = reflect_idx(c0 - 1 + pix % C3_HC, W);
+      const int gr = reflect_idx(S * r0 - 1 + pix / HC, H);
+      const int gc = reflect_idx(S * c0 - 1 + pix % HC, W);
       const uint4 val = __ldg(reinterpret_cast<const uint4*>(
           xb + (size_t(gr) * W + gc) * C + ci0 + v * VEC));
       *reinterpret_cast<uint4*>(halo + pix * CKP + v * VEC) = val;
@@ -162,13 +183,13 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll 1
       for (int tap = 0; tap < 9; ++tap) {
         const int ky = tap / 3, kx = tap % 3;
-        const float* hp = halo + ((prow + ky) * C3_HC + pcol0 + kx) * CKP;
+        const float* hp = halo + ((S * prow + ky) * HC + S * pcol0 + kx) * CKP;
         const float* wp = wts + tap * CK * BNP + tn * 4;
 #pragma unroll 4
         for (int ci = 0; ci < CK; ++ci) {
           float a[8];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) a[j] = hp[j * CKP + ci];
+          for (int j = 0; j < 8; ++j) a[j] = hp[j * S * CKP + ci];
           const float4 b0 = *reinterpret_cast<const float4*>(wp + ci * BNP);
           const float4 b1 = *reinterpret_cast<const float4*>(wp + ci * BNP + 64);
 #pragma unroll
@@ -191,7 +212,8 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
             const int pr = wm * 2 + i;
-            wmma::load_matrix_sync(fa[i], halo + ((pr + ky) * C3_HC + kx) * CKP + kk, CKP);
+            wmma::load_matrix_sync(fa[i], halo + ((S * pr + ky) * HC + kx) * CKP + kk,
+                                   S * CKP);
           }
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
@@ -214,12 +236,12 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int n = n0 + tn * 4 + (j < 4 ? j : 60 + j);
       bv[j] = bias ? bias[n] : 0.f;
     }
-    if (r < H) {
+    if (r < Ho) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = c0 + pcol0 + j;
-        if (c < W) {
-          float* o = out + ((size_t(b) * H + r) * W + c) * Co + n0 + tn * 4;
+        if (c < Wo) {
+          float* o = out + ((size_t(b) * Ho + r) * Wo + c) * Co + n0 + tn * 4;
           *reinterpret_cast<float4*>(o) = make_float4(
               acc[j][0] + bv[0], acc[j][1] + bv[1], acc[j][2] + bv[2], acc[j][3] + bv[3]);
           *reinterpret_cast<float4*>(o + 64) = make_float4(
@@ -244,7 +266,7 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int i = tid; i < C3_TH * C3_TW * VPO; i += C3_THREADS) {
       const int m = i / VPO, v = i % VPO;
       const int r = r0 + m / C3_TW, c = c0 + m % C3_TW;
-      if (r >= H || c >= W) continue;
+      if (r >= Ho || c >= Wo) continue;
       __align__(16) bf16 pk[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
@@ -252,7 +274,7 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
         pk[e] = __float2bfloat16(stage[m * SP + v * 8 + e] +
                                  (bias ? __bfloat162float(bias[n]) : 0.f));
       }
-      *reinterpret_cast<uint4*>(out + ((size_t(b) * H + r) * W + c) * Co + n0 + v * 8) =
+      *reinterpret_cast<uint4*>(out + ((size_t(b) * Ho + r) * Wo + c) * Co + n0 + v * 8) =
           *reinterpret_cast<const uint4*>(pk);
     }
   }
@@ -349,19 +371,21 @@ conv7_thin_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T, int CFIX>
+template <typename T, int CFIX, int S>
 int launch_conv3(const void* x, const void* w, const void* bias, void* out,
                  int B, int H, int W, int C, int Co, cudaStream_t stream) {
-  if (C % Conv3Cfg<T>::CK || Co % C3_BN || (CFIX && C != CFIX))
+  if (C % Conv3Cfg<T>::CK || Co % C3_BN || (CFIX && C != CFIX) ||
+      H % S || W % S)
     return int(cudaErrorInvalidValue);
-  const size_t smem = conv3_smem_bytes<T>();
+  const size_t smem = conv3_smem_bytes<T, S>();
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_kernel<T, CFIX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      conv3x3_kernel<T, CFIX, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return int(err);
-  const int tiles = ((H + C3_TH - 1) / C3_TH) * ((W + C3_TW - 1) / C3_TW);
+  const int Ho = H / S, Wo = W / S;
+  const int tiles = ((Ho + C3_TH - 1) / C3_TH) * ((Wo + C3_TW - 1) / C3_TW);
   dim3 grid(tiles, Co / C3_BN, B);
-  conv3x3_kernel<T, CFIX><<<grid, C3_THREADS, smem, stream>>>(
+  conv3x3_kernel<T, CFIX, S><<<grid, C3_THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const T*>(bias), static_cast<T*>(out), H, W, C, Co);
   return int(cudaGetLastError());
@@ -407,8 +431,8 @@ extern "C" int lama_reflect_conv3x3_cols(const void* x, const void* w,
                                          int H, int W, int C, int Co,
                                          int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype ? launch_conv3<bf16, 128>(x, w, bias, out, B, H, W, C, Co, s)
-               : launch_conv3<float, 128>(x, w, bias, out, B, H, W, C, Co, s);
+  return dtype ? launch_conv3<bf16, 128, 1>(x, w, bias, out, B, H, W, C, Co, s)
+               : launch_conv3<float, 128, 1>(x, w, bias, out, B, H, W, C, Co, s);
 }
 
 extern "C" int lama_reflect_conv3x3_taps(const void* x, const void* w,
@@ -416,8 +440,18 @@ extern "C" int lama_reflect_conv3x3_taps(const void* x, const void* w,
                                          int H, int W, int C, int Co,
                                          int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype ? launch_conv3<bf16, 0>(x, w, bias, out, B, H, W, C, Co, s)
-               : launch_conv3<float, 0>(x, w, bias, out, B, H, W, C, Co, s);
+  return dtype ? launch_conv3<bf16, 0, 1>(x, w, bias, out, B, H, W, C, Co, s)
+               : launch_conv3<float, 0, 1>(x, w, bias, out, B, H, W, C, Co, s);
+}
+
+// H, W: the input's; out is (B, H/2, W/2, Co).
+extern "C" int lama_reflect_down_conv3x3(const void* x, const void* w,
+                                         const void* bias, void* out, int B,
+                                         int H, int W, int C, int Co,
+                                         int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  return dtype ? launch_conv3<bf16, 0, 2>(x, w, bias, out, B, H, W, C, Co, s)
+               : launch_conv3<float, 0, 2>(x, w, bias, out, B, H, W, C, Co, s);
 }
 
 extern "C" int lama_reflect_out_conv7x7(const void* x, const void* w,

@@ -2,8 +2,8 @@
 
 Counterpart of lama_tpu/models/ffc.py (FourierUnit :136, SpectralTransform
 :333, FFC :377, FFC_BN_ACT :480, FFCResnetBlock :557, concat_tuple :606,
-FFCResNetGenerator :618), eval mode, stage 'full'. The module tree mirrors
-the reference key-space (`model.N.*`, e.g.
+FFCResNetGenerator :618), eval mode, stages 'full', 'front' and 'rear'. The
+module tree mirrors the reference key-space (`model.N.*`, e.g.
 `model.5.conv1.ffc.convg2g.conv1.0.weight`), so a reference-format state_dict
 loads with `load_state_dict(strict=True)`.
 
@@ -285,6 +285,7 @@ class FFCResNetGenerator(nn.Module):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f'dtype={dtype}: expected float32 or bfloat16')
         self.dtype = dtype
+        self.n_downsampling = n_downsampling
         init_kw = dict(init_conv_kwargs or {})
         down_kw = dict(downsample_conv_kwargs or {})
         res_kw = dict(resnet_conv_kwargs or {})
@@ -333,8 +334,22 @@ class FFCResNetGenerator(nn.Module):
                 'tanh' if add_out_act is True else add_out_act, float32=True))
         self.model = nn.Sequential(*layers)
 
-    def forward(self, x):
-        """(B, input_nc, H, W) -> (B, output_nc, H, W); float32 when an
-        output activation is set, else `dtype`. Works channels-last."""
-        x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
-        return self.model(x)
+    def _cast(self, x):
+        return x.to(self.dtype).contiguous(memory_format=torch.channels_last)
+
+    def forward(self, x, stage='full'):
+        """stage 'full': (B, input_nc, H, W) -> (B, output_nc, H, W), float32
+        when an output activation is set, else `dtype`. 'front': the stem and
+        the downsamples, returning the (local, global) tuple after the last
+        downsample. 'rear': that tuple through the blocks, the upsampling and
+        the head. As in lama_tpu (models/ffc.py:658-701), the three stages
+        share one set of parameters. Works channels-last."""
+        split = 2 + self.n_downsampling
+        if stage == 'rear':
+            return self.model[split:](tuple(
+                None if t is None else self._cast(t) for t in x))
+        if stage == 'front':
+            return self.model[:split](self._cast(x))
+        if stage != 'full':
+            raise ValueError(f'stage={stage!r}: expected full, front or rear')
+        return self.model(self._cast(x))

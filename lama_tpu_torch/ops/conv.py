@@ -1,14 +1,16 @@
 """Convolutions with torch init and semantics, plus the kernel dispatch
 (counterpart of lama_tpu/ops/conv.py).
 
-`conv2d` sends a reflect-padded stride-1 conv whose shape is in a kernel's
-envelope to that kernel (ops/kernels/reflect_conv.py):
-  3x3, C = C_out = 128                     -> reflect_conv3x3_cols
-  3x3, C and C_out multiples of 128        -> reflect_conv3x3_taps
-  7x7, C_out <= 8, C <= 128, C % 8 == 0    -> reflect_out_conv7x7
-Everything else is `F.pad` + `F.conv2d`: the 7x7 4->64 stem, the stride-2
-downsamples, the 1x1 convs. In the JAX package these are XLA convs outside
-any Pallas kernel (conv.py:285-301), so they stay stock here.
+`conv2d` sends a reflect-padded conv whose shape is in a kernel's envelope
+to that kernel (ops/kernels/reflect_conv.py):
+  3x3 s1, C = C_out = 128                          -> reflect_conv3x3_cols
+  3x3 s1, C and C_out multiples of 128             -> reflect_conv3x3_taps
+  3x3 s2, 2C and C_out multiples of 128, H, W even -> reflect_down_conv3x3
+  7x7 s1, C_out <= 8, C <= 128, C % 8 == 0         -> reflect_out_conv7x7
+So the generator's four stride-2 downsample convs run on a kernel.
+Everything else is `F.pad` + `F.conv2d`: the 7x7 4->64 stem and the 1x1
+convs. In the JAX package these are XLA convs outside any Pallas kernel
+(conv.py:285-301), so they stay stock here.
 `kernels='plain'` sends the kernels' shapes to their plain version too; it
 is how the tests and chip_smoke.py compare the two.
 """
@@ -39,11 +41,14 @@ def kernel_for(x, weight, stride, padding, dilation, groups, padding_mode):
     stride, padding, dilation = _pair(stride), _pair(padding), _pair(dilation)
     kh, kw = weight.shape[-2:]
     shape = (x.shape[2], x.shape[3], x.shape[1], weight.shape[0])
-    if not (padding_mode == 'reflect' and groups == 1 and stride == (1, 1)
-            and dilation == (1, 1) and kh == kw
+    if not (padding_mode == 'reflect' and groups == 1
+            and stride in ((1, 1), (2, 2)) and dilation == (1, 1) and kh == kw
             and padding == (kh // 2, kw // 2)
             and x.dtype in (torch.float32, torch.bfloat16)):
         return None
+    if stride == (2, 2):
+        return (rc.reflect_down_conv3x3 if kh == 3
+                and rc.reflect_down_conv3x3_supported(*shape) else None)
     if kh == 3 and rc.reflect_conv3x3_cols_supported(*shape):
         return rc.reflect_conv3x3_cols
     if kh == 3 and rc.reflect_conv3x3_taps_supported(*shape):

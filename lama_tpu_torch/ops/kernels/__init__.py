@@ -2,4 +2,6 @@
 
 `reflect_conv` and `fourier_unit` wrap the CUDA sources under
 `lama_tpu_torch/csrc/`, which `_build` compiles with nvcc at first use.
+`_autograd.differentiable` gives every kernel a backward pass: the VJP of
+its plain version.
 """

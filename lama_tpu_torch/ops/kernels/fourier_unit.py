@@ -14,6 +14,13 @@ cuFFT or cuBLAS. `_stage_plan` holds every stage's shapes and strides, so
 the CPU tests can replay the plan in numpy. Input NCHW float32 or bfloat16
 (any memory format); output float32, channels-last, as the TPU kernel's
 output is float32; the arithmetic is fp32 for either input type.
+
+When a gradient is needed, the kernel runs inside
+`_autograd.differentiable`: its backward is the VJP of
+`fourier_unit_plain` recomputed on the saved inputs, with respect to x and
+the conv and BN parameters. The TPU kernel has no VJP at all (the JAX
+package runs it only outside training, models/ffc.py:196-210), so there is
+no backward kernel to port.
 """
 import ctypes
 import functools
@@ -24,7 +31,7 @@ import torch.nn.functional as F
 
 from .. import spectral
 from . import _build
-from .reflect_conv import check_no_grad
+from ._autograd import differentiable
 
 MAX_SIDE = 256   # the TPU kernel's envelope, max(H, W) <= 256
 _NO_SPLIT = 1 << 30
@@ -177,12 +184,21 @@ def fused_fourier_unit(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var,
                        eps: float = 1e-5, planar=None):
     """Eval-mode FourierUnit (ortho norm). x: (B, C, H, W); conv_weight:
     (2C', 2C, 1, 1) in the reference's interleaved order; BN over 2C'.
-    `planar`: the (W, bias) of `planar_params`, when the caller keeps them.
-    Returns float32 (B, C', H, W)."""
+    `planar`: the (W, bias) of `planar_params`, when the caller keeps them
+    (the forward reads them; a gradient flows through the plain version's
+    parameters). Returns float32 (B, C', H, W)."""
     if not x.is_cuda:
         return fourier_unit_plain(x, conv_weight, bn_weight, bn_bias, bn_mean,
                                   bn_var, eps)
-    check_no_grad('fused_fourier_unit', x, conv_weight, bn_weight, bn_bias)
+    out = differentiable(
+        functools.partial(_launch, eps=eps, planar=planar),
+        functools.partial(fourier_unit_plain, eps=eps),
+        x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var)
+    fused_fourier_unit.launches += 1
+    return out
+
+
+def _launch(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var, eps, planar):
     b, c, h, w = x.shape
     co = conv_weight.shape[0] // 2
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -230,7 +246,6 @@ def fused_fourier_unit(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var,
             if err != 0:
                 raise RuntimeError(f'fused_fourier_unit: CUDA launch failed '
                                    f'with error {err}')
-    fused_fourier_unit.launches += 1
     return bufs['out']
 
 

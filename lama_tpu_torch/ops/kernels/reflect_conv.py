@@ -1,53 +1,53 @@
-"""Reflect-padded stride-1 convolutions: CUDA kernels and their plain versions.
+"""Reflect-padded convolutions: CUDA kernels and their plain versions.
 
 Counterparts of the TPU kernels in lama_tpu/ops/pallas/reflect_conv.py:
 
   reflect_conv3x3_cols   <- reflect_conv3x3_cols  (reflect_conv.py:130)
   reflect_conv3x3_taps   <- reflect_conv3x3_taps  (reflect_conv.py:465)
+  reflect_down_conv3x3   <- reflect_down_conv3x3  (reflect_conv.py:230)
   reflect_out_conv7x7    <- reflect_out_conv7x7   (reflect_conv.py:327)
 
-Each computes `F.conv2d(F.pad(x, (p,)*4, mode='reflect'), weight, bias)` with
-p = k // 2 on NCHW tensors (any memory format) and an OIHW weight, and keeps
-the TPU kernel's envelope. The kernels (lama_tpu_torch/csrc/reflect_conv.cu)
-build the reflect halo while loading an input tile into shared memory, so
-no padded tensor reaches HBM. Inside, the layout is channels-last: the
-wrapper passes a channels-last view of `x` (a copy only if `x` is not
-channels-last already), an HWIO copy of the weight in `x`'s dtype, and
-returns a channels-last output. Types: float32 (full fp32 arithmetic, no
-TF32) and bfloat16 (tensor cores, fp32 accumulation, bf16 output).
+Each computes `F.conv2d(F.pad(x, (p,)*4, mode='reflect'), weight, bias,
+stride)` with p = k // 2 on NCHW tensors (any memory format) and an OIHW
+weight, and keeps the TPU kernel's envelope; the down conv has stride 2, the
+others stride 1. The kernels (lama_tpu_torch/csrc/reflect_conv.cu) build the
+reflect halo while loading an input tile into shared memory, so no padded
+tensor reaches HBM. Inside, the layout is channels-last: the wrapper passes
+a channels-last view of `x` (a copy only if `x` is not channels-last
+already), an HWIO copy of the weight in `x`'s dtype, and returns a
+channels-last output. Types: float32 (full fp32 arithmetic, no TF32) and
+bfloat16 (tensor cores, fp32 accumulation, bf16 output).
 
 On a CPU tensor a wrapper computes its plain version; on a CUDA tensor it
-launches its kernel or raises. The kernels have no backward yet, so a call
-that would need gradients raises. Each wrapper counts its launches in its
-`launches` attribute.
+launches its kernel or raises. When a gradient is needed, the launch runs
+inside `_autograd.differentiable`: the forward is the kernel, the backward
+the VJP of the plain version recomputed on the saved inputs, as the TPU
+kernels' `_diff_wrap` (reflect_conv.py:59-87) takes the XLA VJP. Neither
+has a backward kernel. Each wrapper counts its launches in its `launches`
+attribute.
 """
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._autograd import differentiable
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def reflect_conv_plain(x, weight, bias=None):
+def reflect_conv_plain(x, weight, bias=None, stride=1):
     """Plain version of every kernel here: reflect pad by k // 2, then a
-    stride-1 conv in `x`'s dtype."""
+    conv with `stride` in `x`'s dtype."""
     p = weight.shape[-1] // 2
     return F.conv2d(F.pad(x, (p, p, p, p), mode='reflect'),
                     weight.to(x.dtype),
-                    None if bias is None else bias.to(x.dtype))
+                    None if bias is None else bias.to(x.dtype), stride)
 
 
-def check_no_grad(name, *tensors):
-    """The kernels have no backward yet: refuse to drop gradients."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in tensors):
-        raise NotImplementedError(
-            f'{name}: gradients through the CUDA kernels are not ported yet '
-            '(ROADMAP queue 1 item 8); run under torch.no_grad() or '
-            'torch.inference_mode()')
+reflect_down_conv3x3_plain = functools.partial(reflect_conv_plain, stride=2)
 
 
 def reflect_conv3x3_cols_supported(h: int, w: int, c: int, c_out: int) -> bool:
@@ -62,6 +62,14 @@ def reflect_conv3x3_taps_supported(h: int, w: int, c: int, c_out: int) -> bool:
             and h >= 8 and w >= 8)
 
 
+def reflect_down_conv3x3_supported(h: int, w: int, c: int, c_out: int) -> bool:
+    """The TPU kernel's envelope (reflect_conv.py:176) without its row-tile
+    divisibility and VMEM budget, which this kernel does not need: 2C and
+    C_out multiples of 128, H and W even and at least 8."""
+    return ((2 * c) % 128 == 0 and c_out % 128 == 0 and h % 2 == 0
+            and w % 2 == 0 and h >= 8 and w >= 8)
+
+
 def reflect_out_conv7x7_supported(h: int, w: int, c: int, c_out: int) -> bool:
     """The TPU kernel's envelope (reflect_conv.py:291) without its row-tile
     divisibility, which this kernel does not need: C_out <= 8, C <= 128,
@@ -69,8 +77,7 @@ def reflect_out_conv7x7_supported(h: int, w: int, c: int, c_out: int) -> bool:
     return 1 <= c_out <= 8 and c <= 128 and c % 8 == 0 and h >= 8 and w >= 8
 
 
-def _launch(symbol, supported, x, weight, bias):
-    check_no_grad(symbol, x, weight, bias)
+def _launch(symbol, supported, stride, x, weight, bias):
     ksize = weight.shape[-1]
     b, c, h, w = x.shape
     c_out = weight.shape[0]
@@ -89,8 +96,8 @@ def _launch(symbol, supported, x, weight, bias):
     x = x.contiguous(memory_format=torch.channels_last)
     wk = weight.to(x.dtype).permute(2, 3, 1, 0).contiguous()   # HWIO
     bk = None if bias is None else bias.to(x.dtype).contiguous()
-    out = torch.empty((b, c_out, h, w), dtype=x.dtype, device=x.device,
-                      memory_format=torch.channels_last)
+    out = torch.empty((b, c_out, h // stride, w // stride), dtype=x.dtype,
+                      device=x.device, memory_format=torch.channels_last)
     fn = getattr(_build.load('reflect_conv'), symbol)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -104,36 +111,49 @@ def _launch(symbol, supported, x, weight, bias):
     return out
 
 
+def _kernel(wrapper, symbol, supported, stride, x, weight, bias):
+    """The common body of the wrappers below, for a CUDA tensor."""
+    plain = functools.partial(reflect_conv_plain, stride=stride)
+    out = differentiable(
+        functools.partial(_launch, symbol, supported, stride), plain,
+        x, weight, bias)
+    wrapper.launches += 1
+    return out
+
+
 def reflect_conv3x3_cols(x, weight, bias=None):
     """3x3 stride-1 reflect conv for C = C_out = 128 (the FFC l2l convs)."""
     if not x.is_cuda:
         return reflect_conv_plain(x, weight, bias)
-    out = _launch('lama_reflect_conv3x3_cols', reflect_conv3x3_cols_supported,
-                  x, weight, bias)
-    reflect_conv3x3_cols.launches += 1
-    return out
+    return _kernel(reflect_conv3x3_cols, 'lama_reflect_conv3x3_cols',
+                   reflect_conv3x3_cols_supported, 1, x, weight, bias)
 
 
 def reflect_conv3x3_taps(x, weight, bias=None):
     """3x3 stride-1 reflect conv for wide channels (the FFC l2g/g2l convs)."""
     if not x.is_cuda:
         return reflect_conv_plain(x, weight, bias)
-    out = _launch('lama_reflect_conv3x3_taps', reflect_conv3x3_taps_supported,
-                  x, weight, bias)
-    reflect_conv3x3_taps.launches += 1
-    return out
+    return _kernel(reflect_conv3x3_taps, 'lama_reflect_conv3x3_taps',
+                   reflect_conv3x3_taps_supported, 1, x, weight, bias)
+
+
+def reflect_down_conv3x3(x, weight, bias=None):
+    """3x3 stride-2 reflect conv (the generator's downsamples)."""
+    if not x.is_cuda:
+        return reflect_down_conv3x3_plain(x, weight, bias)
+    return _kernel(reflect_down_conv3x3, 'lama_reflect_down_conv3x3',
+                   reflect_down_conv3x3_supported, 2, x, weight, bias)
 
 
 def reflect_out_conv7x7(x, weight, bias=None):
     """7x7 stride-1 reflect conv with at most 8 output channels (the head)."""
     if not x.is_cuda:
         return reflect_conv_plain(x, weight, bias)
-    out = _launch('lama_reflect_out_conv7x7', reflect_out_conv7x7_supported,
-                  x, weight, bias)
-    reflect_out_conv7x7.launches += 1
-    return out
+    return _kernel(reflect_out_conv7x7, 'lama_reflect_out_conv7x7',
+                   reflect_out_conv7x7_supported, 1, x, weight, bias)
 
 
 reflect_conv3x3_cols.launches = 0
 reflect_conv3x3_taps.launches = 0
+reflect_down_conv3x3.launches = 0
 reflect_out_conv7x7.launches = 0

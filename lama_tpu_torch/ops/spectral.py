@@ -12,6 +12,19 @@ def rfft2(x):
 
 
 def irfft2(re, im, s):
-    """Inverse of `rfft2`: (B, C, H, W//2+1) re/im -> (B, C, *s) float32."""
-    return torch.fft.irfft2(torch.complex(re.float(), im.float()), s=tuple(s),
-                            norm='ortho')
+    """Inverse of `rfft2`: (B, C, H, W//2+1) re/im -> (B, C, *s) float32.
+    The inverse DFT along H, then the inverse real DFT along W with the
+    imaginary parts of its DC and (W even) Nyquist columns dropped, as
+    numpy's irfft2 and the JAX package's DFT matmuls (spectral.py:131-143)
+    drop them. A FourierUnit's spectrum is not Hermitian, and cuFFT's
+    one-call 2-D C2R transform, which assumes it is, returns other values
+    for it at some sizes (W = 128 among them, a 1024^2 refine scale's)."""
+    h, w = s
+    z = torch.fft.ifft(torch.complex(re.float(), im.float()), n=h, dim=-2,
+                       norm='ortho')
+    keep = torch.ones(z.shape[-1], device=z.device)
+    keep[0] = 0.0
+    if w % 2 == 0:
+        keep[w // 2] = 0.0
+    return torch.fft.irfft(torch.complex(z.real, z.imag * keep), n=w, dim=-1,
+                           norm='ortho')

@@ -4,7 +4,7 @@ counterpart of bin/predict.py.
 Usage:
   python -m lama_tpu_torch.predict model.path=<run_dir> indir=<images+masks> \
       outdir=<out> [device=cuda] [precision=bf16|fp32] [batch_size=N] \
-      [wire=fp32|uint8] [out_key=inpainted|predicted_image]
+      [wire=fp32|uint8] [out_key=inpainted|predicted_image] [refine=true]
 
 It takes the same key=value overrides of configs/prediction/default.yaml.
 <run_dir>/config.yaml names the generator; <run_dir>/models/<checkpoint>
@@ -12,8 +12,11 @@ is a reference-format .ckpt. Images are padded to `dataset.pad_out_to_modulo`
 and then to `pad_to_bucket` (numpy 'symmetric'), grouped `batch_size` at a
 time by padded shape, and cropped back on write. `device` defaults to cuda
 (the YAML's `tpu` reads as cuda here) and the run fails without a card
-unless device=cpu is asked for. refine, spatial_shards, quant_calibration
-and precision=int8 are later ROADMAP items and raise.
+unless device=cpu is asked for. refine=true runs the multiscale refiner
+(evaluation/refinement.py) one image at a time with the YAML's `refiner:`
+options, and writes the refined size, which px_budget may have scaled down;
+it refuses precision=int8, as bin/predict.py does. spatial_shards,
+quant_calibration and precision=int8 are later ROADMAP items and raise.
 """
 import logging
 import os
@@ -23,10 +26,10 @@ import traceback
 import numpy as np
 import torch
 
-from lama_tpu.config import compose
-from lama_tpu.data.datasets import make_default_val_dataset
-from lama_tpu.data.io import save_image
-
+from .config import compose
+from .data.datasets import make_default_val_dataset
+from .data.io import save_image
+from .evaluation.refinement import refine_predict
 from .serving import bucket_shape, load_serving_model, make_inpaint_forward
 
 LOGGER = logging.getLogger(__name__)
@@ -50,12 +53,18 @@ def resolve_device(name: str) -> torch.device:
 def main(argv):
     logging.basicConfig(level=logging.INFO, force=True)
     cfg = compose(CONFIG_DIR, 'default', argv)
-    for key, later in (('refine', 'queue 1 item 8'),
-                       ('spatial_shards', 'queue 1 item 11'),
+    for key, later in (('spatial_shards', 'queue 1 item 11'),
                        ('quant_calibration', 'queue 1 item 7')):
         if cfg.get(key):
             raise NotImplementedError(f'{key}={cfg.get(key)} is not ported '
                                       f'yet (ROADMAP {later})')
+    use_refine = bool(cfg.get('refine', False))
+    if use_refine and str(cfg.get('precision', 'bf16')) == 'int8':
+        # the refiner differentiates through the rear of the generator;
+        # int8's rounding has no gradient (bin/predict.py:61-68)
+        raise ValueError('refine=true is incompatible with precision=int8 '
+                         '(quantization blocks the refinement gradients); '
+                         'use precision=bf16 or fp32')
     model_path = cfg.model.path
     if not isinstance(model_path, str) or model_path in ('', 'no'):
         raise ValueError('model.path must be given (model.path=<run dir>)')
@@ -80,7 +89,7 @@ def main(argv):
     bucket = int(cfg.get('pad_to_bucket', 64))
     indir = cfg.indir if cfg.indir.endswith('/') else cfg.indir + '/'
     dataset = make_default_val_dataset(indir, **dict(cfg.dataset))
-    batch_size = max(1, int(cfg.get('batch_size', 1)))
+    batch_size = 1 if use_refine else max(1, int(cfg.get('batch_size', 1)))
     # CUDA runs asynchronously: keep up to depth-1 batches queued so host
     # reads, padding and PNG writes overlap device work (depth 1: in order)
     depth = max(1, int(cfg.get('pipeline_depth', 2)))
@@ -125,6 +134,13 @@ def main(argv):
             pads = ((0, pad_h), (0, pad_w), (0, 0))
             image = np.pad(image, pads, mode='symmetric')
             mask = np.pad(mask, pads, mode='symmetric')
+        if use_refine:
+            res = refine_predict(
+                image[None], (mask[None] > 0).astype(np.float32), generator,
+                unpad_to_size=(int(orig_h), int(orig_w)), **dict(cfg.refiner))
+            # the written size is the refined one: px_budget may scale down
+            save_image(out_fname, res[0].cpu().numpy())
+            continue
         pending = groups.setdefault((bh, bw), [])
         pending.append(dict(image=image, mask=mask, out_fname=out_fname,
                             orig_h=int(orig_h), orig_w=int(orig_w)))

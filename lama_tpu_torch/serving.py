@@ -5,11 +5,9 @@ from typing import Tuple
 
 import torch
 
-from lama_tpu.config import load_yaml
-from lama_tpu.config.node import resolve_interpolations, to_dict
-from lama_tpu.data.io import ceil_modulo
-
+from .config import load_yaml, resolve_interpolations, to_dict
 from .convert import load_checkpoint
+from .data.io import ceil_modulo
 from .models import make_generator
 
 _DTYPES = {'fp32': torch.float32, 'bf16': torch.bfloat16}

@@ -7,6 +7,10 @@ never at import). Run on a machine with one:
 does not need.)
 Bounds: fp32 kernel vs fp32 plain rtol 1e-4 / atol 1e-4 (summation order);
 bf16 kernel vs the fp32 plain output rtol 2e-2 / atol 2e-2 (bf16 operands).
+Gradients through a kernel's autograd wrapper (backward: the plain
+version's VJP) vs plain autograd, fp32, under a linear loss, so both
+backwards see the same output gradient: rtol 1e-4 / atol 1e-5 times the
+largest gradient (cuDNN's algorithm choice only).
 chip_smoke.py holds the same kernels at the big-lama shapes.
 """
 import pytest
@@ -42,6 +46,12 @@ def _close(out, ref, dtype):
     ('reflect_conv3x3_taps', 128, 384, 8, 40, 3, True),
     ('reflect_out_conv7x7', 64, 3, 37, 70, 7, True),
     ('reflect_out_conv7x7', 16, 8, 8, 8, 7, False),
+    ('reflect_down_conv3x3', 64, 128, 16, 24, 3, False),
+    ('reflect_down_conv3x3', 128, 256, 26, 10, 3, True),    # partial tiles
+    ('reflect_down_conv3x3', 256, 384, 8, 8, 3, False),
+    # the refiner's odd bottleneck sides (1000x760 / 8) and partial tiles
+    ('reflect_conv3x3_taps', 128, 384, 25, 19, 3, False),
+    ('reflect_down_conv3x3', 64, 128, 50, 38, 3, False),
 ])
 def test_reflect_conv_kernel(device, dtype, name, c, co, h, w, k, bias):
     g = torch.Generator().manual_seed(0)
@@ -49,7 +59,7 @@ def test_reflect_conv_kernel(device, dtype, name, c, co, h, w, k, bias):
     wt = ((torch.rand(co, c, k, k, generator=g) * 2 - 1)
           * (c * k * k) ** -0.5).to(device)
     b = torch.rand(co, generator=g).to(device) if bias else None
-    ref = rc.reflect_conv_plain(x, wt, b)
+    ref = rc.reflect_conv_plain(x, wt, b, stride=2 if 'down' in name else 1)
     fn = getattr(rc, name)
     before = fn.launches
     out = fn(x.to(dtype), wt, b)
@@ -61,7 +71,13 @@ def test_reflect_conv_kernel(device, dtype, name, c, co, h, w, k, bias):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('b,c,co,h,w', [(2, 192, 192, 16, 16),
-                                        (1, 8, 4, 12, 10)])
+                                        (1, 8, 4, 12, 10),
+                                        # odd sides, as the refiner's bottleneck
+                                        # at 1000x760 (125x95) and 504x384 (63x48)
+                                        (1, 192, 192, 125, 95),
+                                        (1, 8, 4, 63, 48), (2, 16, 16, 13, 11),
+                                        # the 1024^2 refine scale's, 128x128
+                                        (1, 16, 16, 128, 128)])
 def test_fourier_unit_kernel(device, dtype, b, c, co, h, w):
     g = torch.Generator().manual_seed(1)
     x = torch.rand(b, c, h, w, generator=g).to(device)
@@ -80,6 +96,72 @@ def test_fourier_unit_kernel(device, dtype, b, c, co, h, w):
     _close(out, ref, dtype)
 
 
+@pytest.mark.parametrize('h,w', [(128, 128), (256, 256), (127, 128),
+                                 (64, 64), (125, 95)])
+def test_irfft2_of_a_non_hermitian_spectrum_on_the_card(device, h, w):
+    """The plain FourierUnit's inverse on the card equals the CPU's (numpy's
+    semantics): cuFFT's one-call 2-D C2R transform differed at W = 128 and
+    256 for such spectra."""
+    from lama_tpu_torch.ops import spectral
+    g = torch.Generator().manual_seed(h + w)
+    re, im = (torch.randn(1, 4, h, w // 2 + 1, generator=g) for _ in range(2))
+    ref = spectral.irfft2(re, im, s=(h, w))
+    out = spectral.irfft2(re.to(device), im.to(device), s=(h, w))
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-4, atol=1e-5)
+
+
+def _grad_close(ours, ref):
+    for a, b in zip(ours, ref):
+        assert a.shape == b.shape
+        atol = 1e-5 * float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=atol)
+
+
+@pytest.mark.parametrize('name,c,co,h,k,bias', [
+    ('reflect_conv3x3_cols', 128, 128, 16, 3, True),
+    ('reflect_conv3x3_taps', 128, 384, 16, 3, False),
+    ('reflect_down_conv3x3', 64, 128, 32, 3, True),
+    ('reflect_out_conv7x7', 64, 3, 24, 7, True),
+])
+def test_reflect_conv_gradients(device, name, c, co, h, k, bias):
+    g = torch.Generator().manual_seed(3)
+    stride = 2 if 'down' in name else 1
+    x = torch.rand(2, c, h, h, generator=g).to(device).requires_grad_()
+    wt = ((torch.rand(co, c, k, k, generator=g) * 2 - 1)
+          * (c * k * k) ** -0.5).to(device).requires_grad_()
+    b = (torch.rand(co, generator=g).to(device).requires_grad_() if bias
+         else None)
+    r = torch.rand(2, co, h // stride, h // stride, generator=g).to(device)
+    inputs = [t for t in (x, wt, b) if t is not None]
+    fn = getattr(rc, name)
+    before = fn.launches
+    ours = torch.autograd.grad((fn(x, wt, b) * r).sum(), inputs)
+    assert fn.launches == before + 1
+    ref = torch.autograd.grad(
+        (rc.reflect_conv_plain(x, wt, b, stride) * r).sum(), inputs)
+    _grad_close(ours, ref)
+
+
+def test_fourier_unit_gradients(device):
+    g = torch.Generator().manual_seed(4)
+    c = co = 16
+    x = torch.rand(2, c, 16, 16, generator=g).to(device).requires_grad_()
+    params = [((torch.rand(2 * co, 2 * c, 1, 1, generator=g) * 2 - 1) * 0.1),
+              1 + 0.2 * torch.rand(2 * co, generator=g),
+              0.1 * torch.rand(2 * co, generator=g)]
+    params = [p.to(device).requires_grad_() for p in params]
+    stats = [0.1 * torch.rand(2 * co, generator=g).to(device),
+             (1 + 0.3 * torch.rand(2 * co, generator=g)).to(device)]
+    r = torch.rand(2, co, 16, 16, generator=g).to(device)
+    before = fu.fused_fourier_unit.launches
+    ours = torch.autograd.grad(
+        (fu.fused_fourier_unit(x, *params, *stats) * r).sum(), [x] + params)
+    assert fu.fused_fourier_unit.launches == before + 1
+    ref = torch.autograd.grad(
+        (fu.fourier_unit_plain(x, *params, *stats) * r).sum(), [x] + params)
+    _grad_close(ours, ref)
+
+
 def test_generator_kernels_match_plain(device):
     from lama_tpu_torch.models import make_generator
     # ngf 64 gives the bottleneck big-lama's 128 local / 384 global channels,
@@ -96,12 +178,13 @@ def test_generator_kernels_match_plain(device):
     ours = make_generator('ffc_resnet', **kw).eval()
     ours.load_state_dict(plain.state_dict())
     x = torch.rand(2, 4, 128, 128, generator=torch.Generator().manual_seed(2))
-    before = (rc.reflect_conv3x3_cols.launches, rc.reflect_conv3x3_taps.launches,
-              fu.fused_fourier_unit.launches, rc.reflect_out_conv7x7.launches)
+    fns = (rc.reflect_conv3x3_cols, rc.reflect_conv3x3_taps,
+           fu.fused_fourier_unit, rc.reflect_out_conv7x7,
+           rc.reflect_down_conv3x3)
+    before = [fn.launches for fn in fns]
     with torch.inference_mode():
         ref = plain.to(device)(x.to(device))
         out = ours.to(device)(x.to(device))
-    after = (rc.reflect_conv3x3_cols.launches, rc.reflect_conv3x3_taps.launches,
-             fu.fused_fourier_unit.launches, rc.reflect_out_conv7x7.launches)
-    assert [a - b for a, b in zip(after, before)] == [2, 4, 2, 1]
+    after = [fn.launches for fn in fns]
+    assert [a - b for a, b in zip(after, before)] == [2, 4, 2, 1, 4]
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)

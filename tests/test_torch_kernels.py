@@ -17,7 +17,7 @@ import torch
 
 from lama_tpu.ops.pallas import fourier_unit as jfu
 from lama_tpu.ops.pallas import reflect_conv as jrc
-from lama_tpu_torch.ops.kernels import _build
+from lama_tpu_torch.ops.kernels import _autograd, _build
 from lama_tpu_torch.ops.kernels import fourier_unit as tfu
 from lama_tpu_torch.ops.kernels import reflect_conv as trc
 
@@ -147,7 +147,8 @@ def _replay_plan(plan, bufs):
             flat[idx] = acc
 
 
-@pytest.mark.parametrize('b,h,w,c,co', [(2, 8, 8, 3, 3), (1, 6, 10, 4, 2)])
+@pytest.mark.parametrize('b,h,w,c,co', [(2, 8, 8, 3, 3), (1, 6, 10, 4, 2),
+                                        (1, 7, 5, 3, 2), (2, 9, 6, 2, 3)])
 def test_fourier_unit_stage_plan_matches_plain(b, h, w, c, co):
     rng = np.random.RandomState(2)
     x = rng.rand(b, h, w, c).astype(np.float32)
@@ -177,9 +178,17 @@ def test_cuda_sources_and_build_flags():
 
 
 def test_kernels_refuse_to_drop_gradients():
-    w = torch.zeros(4, 4, 3, 3, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        trc.check_no_grad('k', torch.zeros(1), w)
-    with torch.no_grad():
-        trc.check_no_grad('k', torch.zeros(1), w)
-    trc.check_no_grad('k', torch.zeros(1), None)
+    """The kernels' autograd wrapper gives first-order gradients (the plain
+    version's VJP) and refuses a second order rather than dropping it."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand(1, 4, 8, 8, generator=g, requires_grad=True)
+    w = torch.rand(4, 4, 3, 3, generator=g, requires_grad=True)
+    out = _autograd.differentiable(trc.reflect_conv_plain,
+                                   trc.reflect_conv_plain, x, w, None)
+    gx, = torch.autograd.grad(out.square().sum(), x, create_graph=True)
+    with pytest.raises(RuntimeError, match='differentiate twice'):
+        gx.sum().backward()
+    with torch.no_grad():   # no gradient needed: the kernel's output as is
+        assert not _autograd.differentiable(trc.reflect_conv_plain,
+                                            trc.reflect_conv_plain,
+                                            x, w, None).requires_grad

@@ -114,6 +114,21 @@ def test_rfft2_irfft2(h, w):
     np.testing.assert_allclose(_nhwc(out), x, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize('h,w', [(8, 8), (7, 9), (16, 12)])
+def test_irfft2_of_a_non_hermitian_spectrum_matches_jax(h, w):
+    """A FourierUnit's spectrum (after its 1x1 conv and ReLU) is not
+    Hermitian: the DC and Nyquist columns' imaginary parts are dropped after
+    the inverse DFT along H, as the JAX package's DFT matmuls drop them."""
+    rng = np.random.RandomState(h + w)
+    re, im = (rng.randn(2, h, w // 2 + 1, 3).astype(np.float32)
+              for _ in range(2))
+    ref = jspec.irfft2_dft(jnp.asarray(re), jnp.asarray(im), s=(h, w),
+                           dtype=jnp.float32)
+    out = spectral.irfft2(_nchw(re), _nchw(im), s=(h, w))
+    np.testing.assert_allclose(_nhwc(out), np.asarray(ref), rtol=RTOL,
+                               atol=ATOL)
+
+
 @pytest.mark.parametrize('kind', ['tanh', 'sigmoid', 'relu', 'leaky_relu',
                                   'identity'])
 def test_activations(kind):

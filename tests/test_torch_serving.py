@@ -3,9 +3,9 @@
 One model dir (config.yaml + a reference-format .ckpt exported from a flax
 generator) served by both CLIs on three tiny PNG pairs, one of odd size:
 the written PNGs differ by at most one level, and known pixels are
-bit-equal to the input. Also: the port's wires write the same files,
-out_key=predicted_image works, the port imports no jax, and the options of
-later slices raise.
+bit-equal to the input. Also: refine=true serves like bin/predict.py, the
+port's wires write the same files, out_key=predicted_image works, the port
+imports neither jax nor lama_tpu, and the options of later slices raise.
 """
 import importlib.util
 import os
@@ -127,6 +127,36 @@ def test_bucket_shape_matches_jax():
                     == jax_bucket_shape(*hw, modulo, bucket))
 
 
+def test_refine_serves_like_bin_predict(served):
+    """refine=true through both CLIs, two pyramid scales for the 64^2 and
+    50x70 images (min_side 32) and 2 Adam steps: PNGs within one level,
+    known pixels bit-equal to the input."""
+    root, common = served
+    refine = ['refine=true', 'refiner.min_side=32', 'refiner.n_iters=3']
+    spec = importlib.util.spec_from_file_location(
+        'bin_predict_refine_test', os.path.join(REPO, 'bin', 'predict.py'))
+    jax_predict = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_predict)
+    jax_predict.main(common + refine + [f'outdir={root / "jax_refine"}'])
+    port_predict.main(common + refine + [f'outdir={root / "port_refine"}',
+                                         'batch_size=4'])
+    for i, (h, w) in enumerate(SIZES):
+        ours, theirs = _read(root, 'port_refine', i), _read(root, 'jax_refine', i)
+        assert ours.shape == theirs.shape == (h, w, 3)
+        assert np.abs(ours.astype(int) - theirs.astype(int)).max() <= 1
+        img = load_image(str(root / 'in' / f'img{i}.png'), return_orig=True)[1]
+        mask = load_image(str(root / 'in' / f'img{i}_mask.png'),
+                          mode='L', return_orig=True)[1][..., 0]
+        np.testing.assert_array_equal(ours[mask == 0], img[mask == 0])
+
+
+def test_refine_with_int8_is_refused(served):
+    root, common = served
+    with pytest.raises(ValueError, match='int8'):
+        port_predict.main(common + [f'outdir={root / "never"}', 'refine=true',
+                                    'precision=int8'])
+
+
 def test_port_imports_no_jax():
     code = ('import sys; import lama_tpu_torch, lama_tpu_torch.serving, '
             'lama_tpu_torch.predict; '
@@ -138,7 +168,21 @@ def test_port_imports_no_jax():
     assert res.stdout.strip() == 'False'
 
 
-@pytest.mark.parametrize('override', ['precision=int8', 'refine=true',
+def test_port_and_chip_smoke_import_nothing_of_lama_tpu():
+    """The port and chip_smoke.py load no module of lama_tpu, jax or flax,
+    also while chip_smoke.py reads the big-lama config."""
+    code = ('import sys; import lama_tpu_torch, lama_tpu_torch.serving, '
+            'lama_tpu_torch.predict, lama_tpu_torch.evaluation.refinement, '
+            'chip_smoke; chip_smoke.big_lama_kwargs(); '
+            'print(sorted(m for m in sys.modules if m.split(".")[0] in '
+            '("lama_tpu", "jax", "flax", "jaxlib")))')
+    res = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip() == '[]'
+
+
+@pytest.mark.parametrize('override', ['precision=int8',
                                       'spatial_shards=2',
                                       'quant_calibration=4',
                                       'spectral_bf16_store=true'])
