@@ -6,44 +6,58 @@
 Phases, each fatal on failure (nothing falls back to the CPU or to a plain
 version):
   1. card: nvidia-smi name and power limit, torch's device name;
-  2. build: nvcc builds every CUDA source of the port (lama_tpu_torch/csrc);
+  2. build: nvcc builds every CUDA source of the port (lama_tpu_torch/csrc),
+     one process each, all started together;
   3. kernels: each hand-written kernel at its big-lama shapes (batch 4;
-     the bottleneck at 64^2, the downsamples at 512^2 to 128^2, the head at
-     512^2) and at the refine phase's (batch 1; the 1024^2 image's 128x128
-     bottleneck, the 1000x760 image's odd 125x95 and 63x48 bottlenecks,
-     its 1000x760 and 504x384 inputs), fp32
-     (TF32 off) and bf16, against its plain PyTorch version on the same
-     inputs, with the median time of each (CUDA events) and its bound (the
-     least time for its bytes or its FLOP on an H100); then, in fp32, each
-     kernel's gradients through its autograd wrapper against plain
-     autograd;
+     the bottleneck at 64^2, the downsamples at 512^2 to 128^2, the head
+     and the stem at 512^2), at the refine phase's (batch 1; the 1024^2
+     image's 128x128 bottleneck, the 1000x760 image's odd 125x95 and 63x48
+     bottlenecks, its 1000x760 and 504x384 inputs; the stem at 1024^2 and
+     1000x760), at the train phase's (the stem at batch 10, 256^2) and, for
+     the tiled halo conv, at each kernel size and stride; fp32 (TF32 off)
+     and bf16, against its plain PyTorch version on the same inputs, with
+     the median time of each (CUDA events) and its bound (the least time
+     for its bytes or its FLOP on an H100); then, in fp32, each kernel's
+     gradients through its autograd wrapper against plain autograd;
   4. serve: big-lama (ngf 64, 18 blocks, random weights from a seed) served
      by `python -m lama_tpu_torch.predict` (run in this process, as `-m`
      runs it) on synthetic PNGs: bf16 and fp32, wire fp32 and uint8. Checks
      sizes, known pixels, bit-equal wires, and that every forward launched
      each kernel its expected number of times (cols 36, taps 72, FU 36,
-     head 1, down 4);
+     head 1, down 4, stem 1);
   5. refine: `python -m lama_tpu_torch.predict refine=true precision=bf16`
      on 1024^2 and 1000x760 images (two pyramid scales each, n_iters 15;
      each size twice, the first a warm-up). Checks sizes, known pixels, the
-     hole, finite outputs, the launches (down 4 per front pass; the others
-     per rear forward: 1 at the first scale, n_iters at the second) and
-     that the loss falls at each refined scale; prints seconds per image
-     (refine_predict's call, timed) and the forward/backward split and
-     device profile of one Adam step; one front and one rear pass of the
-     kernels generator, fp32 and bf16, vs the fp32 plain one on the
-     padded 1024^2, 1000x760 and 504x384 inputs; then, fp32 at 512^2, the
-     gradient of one scale's loss w.r.t. z through the kernels vs through
-     the plain path, against the plain path's own spread, with planted
-     faults as controls (a dropped gradient must be rejected);
-  6. generator: kernels vs plain path at 512^2, batch 2, fp32;
-  7. throughput: img/s at 512^2, batch 16, bf16 and fp32, kernels vs plain,
+     hole, finite outputs, the launches (down 4 and stem 1 per front pass;
+     the others per rear forward: 1 at the first scale, n_iters at the
+     second) and that the loss falls at each refined scale; prints seconds
+     per image (refine_predict's call, timed);
+  6. train: `python -m lama_tpu_torch.train -cn big-lama` (in this process)
+     on synthetic JPEGs at batch 10, 256^2, bf16 and fp32, ResNetPL with
+     random weights, 6 steps each (2 warm up). Checks that every loss term
+     is finite at every step, that each step launched stem 2, cols 72, taps
+     144, down 8, head 2 and FourierUnit 0, that the G and D weights and BN
+     statistics moved, and that the run dir's last.ckpt serves; prints ms
+     per step, the phase split and device profile of a step and the peak
+     memory; then one fp32 G step, kernels vs kernels='plain' (losses within
+     1e-4; the gradient within the plain path's own spread, which a dropped
+     stem gradient must fall outside);
+  7. generator: kernels vs plain path at 512^2, batch 2, fp32;
+  8. refine checks: one front and one rear pass of the kernels generator,
+     fp32 and bf16, vs the fp32 plain one on the padded 1024^2, 1000x760
+     and 504x384 inputs; fp32 at 512^2, the gradient of one scale's loss
+     w.r.t. z through the kernels vs through the plain path, against the
+     plain path's own spread, with planted faults as controls; the
+     forward/backward split and device profile of one Adam step;
+  9. throughput: img/s at 512^2, batch 16, bf16 and fp32, kernels vs plain,
      and one profiled forward of each (idle share, top device kernels).
 Prints the `kernels` JSON line, then, as its last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device, and
 when run outside a checkout of the repository.
 """
+import functools
 import json
+import math
 import os
 import runpy
 import subprocess
@@ -57,8 +71,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH = 4
 PER_FORWARD = {'reflect_conv3x3_cols': 36, 'reflect_conv3x3_taps': 72,
                'fused_fourier_unit': 36, 'reflect_out_conv7x7': 1,
-               'reflect_down_conv3x3': 4}
-FRONT_KERNELS = ('reflect_down_conv3x3',)   # the rest run in the rear stage
+               'reflect_down_conv3x3': 4, 'halo_conv_reflect_tiled': 1}
+# the rest run in the rear stage
+FRONT_KERNELS = ('reflect_down_conv3x3', 'halo_conv_reflect_tiled')
+# per train step: two generator forwards in train mode (the G step and the
+# D step's re-forward), where the FourierUnit takes its plain path
+PER_TRAIN_STEP = dict({k: 2 * v for k, v in PER_FORWARD.items()},
+                      fused_fourier_unit=0)
 # bounds: fp32 kernel vs fp32 plain (summation order only); bf16 kernel on
 # bf16-rounded operands vs the fp32 plain output on the fp32 operands
 TOL = {'fp32': (1e-4, 1e-4), 'bf16': (2e-2, 2e-2)}
@@ -85,6 +104,11 @@ REFINE_CONTROL_EPS = (1e-3, 1e-2, 1e-1)
 # kernels generator vs kernels='plain' fp32, at the TOL bounds
 REFINE_PASS_SIZES = ((1024, 1024), (1000, 760), (504, 384))
 N_ITERS = 15      # the refiner's default (configs/prediction/default.yaml)
+SOURCES = {'fused_fourier_unit': 'lama_tpu_torch/csrc/fourier_unit.cu',
+           'halo_conv_reflect_tiled': 'lama_tpu_torch/csrc/halo_conv.cu'}
+SOURCES.update({k: 'lama_tpu_torch/csrc/reflect_conv.cu' for k in (
+    'reflect_conv3x3_cols', 'reflect_conv3x3_taps', 'reflect_out_conv7x7',
+    'reflect_down_conv3x3')})
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core
 # FLOP/s, fp32 FMA FLOP/s outside the tensor cores
 HBM_BPS, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
@@ -146,6 +170,7 @@ def kernel_cases(gen):
     big-lama 512^2 shapes, batch BATCH, and at the refine phase's."""
     import torch
     from lama_tpu_torch.ops.kernels import fourier_unit as fu
+    from lama_tpu_torch.ops.kernels import halo_conv as hc
     from lama_tpu_torch.ops.kernels import reflect_conv as rc
 
     def u(*shape, scale=1.0, shift=0.0):
@@ -157,6 +182,10 @@ def kernel_cases(gen):
         wt = u(co, c, k, k, scale=(c * k * k) ** -0.5)
         bias = u(co, scale=0.1) if bias else None
         return x, wt, bias
+
+    def stem_case(h, b, w=None):
+        # the generator's stem: masked image + mask, 7x7 4 -> 64, bias
+        return conv_case(4, 64, h, 7, True, b=b, w=w)
 
     def fu_case(b, h, w):
         return ((u(b, 192, h, w) + 1) / 2, u(384, 384, 1, 1, scale=0.05),
@@ -197,8 +226,22 @@ def kernel_cases(gen):
          conv_case(64, 128, 504, 3, False, b=1, w=384)),
         ('reflect_down_conv3x3', 'refine_down3_l2g',
          conv_case(256, 384, 250, 3, False, b=1, w=190)),
+        # kernel 7: the stem at serving (b4 512^2), training (b10 256^2)
+        # and the refiner's inputs (1024^2, 1000x760), then each (k, s)
+        ('halo_conv_reflect_tiled', 'stem', stem_case(512, BATCH)),
+        ('halo_conv_reflect_tiled', 'train_stem', stem_case(256, 10)),
+        ('halo_conv_reflect_tiled', 'refine_stem_1024', stem_case(1024, 1)),
+        ('halo_conv_reflect_tiled', 'refine_stem', stem_case(1000, 1, 760)),
+        ('halo_conv_reflect_tiled', 'k3s1', conv_case(16, 32, 96, 3, True)),
+        ('halo_conv_reflect_tiled', 'k3s2',
+         conv_case(32, 64, 255, 3, True, b=2, w=129)),
+        ('halo_conv_reflect_tiled', 'k7s2', conv_case(8, 24, 128, 7, True)),
     ]
     src = 'lama_tpu/ops/pallas/'
+
+    def halo(x, w, b=None, s=1):
+        return hc.halo_conv_reflect_tiled(x, w, b, stride=s)
+
     fns = {'reflect_conv3x3_cols': ('reflect_conv.py:130',
                                     rc.reflect_conv3x3_cols,
                                     rc.reflect_conv_plain),
@@ -213,12 +256,25 @@ def kernel_cases(gen):
                                   fu.fourier_unit_plain),
            'reflect_down_conv3x3': ('reflect_conv.py:230',
                                     rc.reflect_down_conv3x3,
-                                    rc.reflect_down_conv3x3_plain)}
-    return [(name, src + fns[name][0], role, fns[name][1], fns[name][2], args)
-            for name, role, args in cases]
+                                    rc.reflect_down_conv3x3_plain),
+           'halo_conv_reflect_tiled': ('halo_conv.py:158', halo,
+                                       rc.reflect_conv_plain)}
+    out = []
+    for name, role, args in cases:
+        tpu, kfn, pfn = fns[name]
+        s = case_stride(name, role)
+        if s != 1 and name == 'halo_conv_reflect_tiled':
+            kfn = functools.partial(halo, s=s)
+            pfn = functools.partial(rc.reflect_conv_plain, stride=s)
+        out.append((name, src + tpu, role, kfn, pfn, args))
+    return out
 
 
-def bound(name, args, dtype):
+def case_stride(name, role):
+    return 2 if 'down' in name or role.endswith('s2') else 1
+
+
+def bound(name, role, args, dtype):
     """(least ms for the work on an H100, 'bytes' or 'operations'): each
     input read once, each output written once, over HBM_BPS; the FLOP the
     kernel does over the peak of its arithmetic (bf16 tensor cores for the
@@ -238,8 +294,8 @@ def bound(name, args, dtype):
     else:
         wt, bias = args[1], args[2]
         co, k = wt.shape[0], wt.shape[-1]
-        s = 2 if 'down' in name else 1
-        out_px = b * (h // s) * (w // s)
+        s = case_stride(name, role)
+        out_px = b * ((h - 1) // s + 1) * ((w - 1) // s + 1)
         nbytes = (b * c * h * w + out_px * co + wt.numel()
                   + (0 if bias is None else bias.numel())) * xsize
         flop = 2 * out_px * co * c * k * k
@@ -263,11 +319,9 @@ def kernels_vs_plain(gen):
             ok = bool(torch.all(err <= atol + rtol * ref.abs()))
             k_ms = median_ms(lambda: kfn(*kargs))
             p_ms = median_ms(lambda: pfn(*kargs))
-            b_ms, b_by = bound(name, args, dtype)
+            b_ms, b_by = bound(name, role, args, dtype)
             row = dict(name=name, role=role, route='cuda',
-                       source=('lama_tpu_torch/csrc/fourier_unit.cu'
-                               if 'fourier' in name else
-                               'lama_tpu_torch/csrc/reflect_conv.cu'),
+                       source=SOURCES[name],
                        replaces=tpu, tpu_kernel=tpu,
                        shape=list(args[0].shape), dtype=dtype,
                        max_abs_err=float(err.max()),
@@ -285,22 +339,26 @@ def kernels_vs_plain(gen):
 
 def kernel_gradients(gen, rows):
     """fp32 gradients of a linear loss through each kernel's wrapper vs
-    plain autograd, on the first case of each kernel."""
+    plain autograd, on the first case of each kernel (of each kernel size
+    and stride, for the tiled halo conv)."""
     import torch
     seen = set()
     for name, _, role, kfn, pfn, args in kernel_cases(gen):
-        if name in seen:
+        key = (name, args[1].shape[-1], case_stride(name, role))
+        if key in seen:   # the first case of each kernel (and k, stride)
             continue
-        seen.add(name)
+        seen.add(key)
         # x, then the weight and bias (conv) or the conv/BN affine
         # parameters (FourierUnit; the BN statistics are buffers)
         n_diff = 4 if name == 'fused_fourier_unit' else 3
         leaves = [a.clone().requires_grad_() if i < n_diff and a is not None
                   else a for i, a in enumerate(args)]
         wrt = [a for a in leaves[:n_diff] if a is not None]
-        before = kfn.launches
+        counter = kernel_wrappers()[name]
+        before = counter.launches
         out = kfn(*leaves)
-        check(kfn.launches == before + 1, f'{name}: no launch with gradients')
+        check(counter.launches == before + 1,
+              f'{name}: no launch with gradients')
         r = torch.rand(out.shape, generator=gen).to(out.device)
         ours = torch.autograd.grad((out * r).sum(), wrt)
         ref = torch.autograd.grad((pfn(*leaves) * r).sum(), wrt)
@@ -393,28 +451,28 @@ def write_images(root, rng):
 
 def run_predict(args):
     """`python -m lama_tpu_torch.predict <args>`, in this process."""
-    argv = sys.argv
-    sys.argv = ['lama_tpu_torch.predict'] + args
-    try:
-        runpy.run_module('lama_tpu_torch.predict', run_name='__main__',
-                         alter_sys=True)
-    except SystemExit as e:
-        check(e.code in (0, None), f'predict exited with {e.code}')
-    finally:
-        sys.argv = argv
+    run_module('lama_tpu_torch.predict', args)
 
 
 def reset_counts():
-    from lama_tpu_torch.ops.kernels import fourier_unit as fu
-    from lama_tpu_torch.ops.kernels import reflect_conv as rc
-    fns = dict(reflect_conv3x3_cols=rc.reflect_conv3x3_cols,
-               reflect_conv3x3_taps=rc.reflect_conv3x3_taps,
-               reflect_out_conv7x7=rc.reflect_out_conv7x7,
-               fused_fourier_unit=fu.fused_fourier_unit,
-               reflect_down_conv3x3=rc.reflect_down_conv3x3)
+    """Set every kernel wrapper's launch count to 0; returns them by name."""
+    fns = kernel_wrappers()
     for fn in fns.values():
         fn.launches = 0
     return fns
+
+
+def kernel_wrappers():
+    """The wrapper of each kernel, by name; its `launches` counts it."""
+    from lama_tpu_torch.ops.kernels import fourier_unit as fu
+    from lama_tpu_torch.ops.kernels import halo_conv as hc
+    from lama_tpu_torch.ops.kernels import reflect_conv as rc
+    return dict(reflect_conv3x3_cols=rc.reflect_conv3x3_cols,
+                reflect_conv3x3_taps=rc.reflect_conv3x3_taps,
+                reflect_out_conv7x7=rc.reflect_out_conv7x7,
+                fused_fourier_unit=fu.fused_fourier_unit,
+                reflect_down_conv3x3=rc.reflect_down_conv3x3,
+                halo_conv_reflect_tiled=hc.halo_conv_reflect_tiled)
 
 
 def serve(work, model_dir):
@@ -588,10 +646,12 @@ def _signs(shape, gen):
 
 
 def _grad_diff(a, b):
-    """(max |a - b| / max |b|, ||a - b|| / ||b||, cosine) over z's tensors."""
+    """(max |a - b| / max |b|, ||a - b|| / ||b||, cosine) over a list of
+    gradient tensors, in float64 (so the cosine of tens of millions of
+    elements is not lost to float32 rounding)."""
     import torch
-    a = torch.cat([t.flatten() for t in a])
-    b = torch.cat([t.flatten() for t in b])
+    a = torch.cat([t.flatten() for t in a]).double()
+    b = torch.cat([t.flatten() for t in b]).double()
     return (float((a - b).abs().max() / b.abs().max()),
             float((a - b).norm() / b.norm()),
             float((a * b).sum() / (a.norm() * b.norm())))
@@ -851,6 +911,312 @@ def throughput(gens, card_line, iters=3):
     return res
 
 
+# ---------------------------------------------------------------- training
+TRAIN_BATCH, TRAIN_SIZE = 10, 256   # configs/training/data/abl-04-256-mh-dist
+TRAIN_STEPS, TRAIN_WARMUP = 6, 2    # steps per run; the first ones warm up
+# one fp32 G step, kernels vs kernels='plain': the losses within
+# TRAIN_LOSS_RTOL; the G gradient within TRAIN_FLOOR_FACTOR times the plain
+# path's own spread when the images move by TRAIN_X_EPS (relative, gaussian;
+# the largest of TRAIN_DRAWS draws), by three measures: max |d| / max |g|,
+# the norm of d with each tensor divided by its own gradient norm (so a
+# small tensor's fault weighs as much as a large one's), and 1 - cosine
+TRAIN_LOSS_RTOL, TRAIN_X_EPS, TRAIN_DRAWS, TRAIN_FLOOR_FACTOR = 1e-4, 1e-6, 8, 2.0
+
+
+def write_train_images(root, n, rng):
+    """n synthetic 8-bit JPEGs of 288x320 under root/train (the train
+    dataset reads **/*.jpg, as the reference's does)."""
+    import cv2
+    os.makedirs(os.path.join(root, 'train'))
+    h, w = 288, 320
+    yy, xx = np.mgrid[0:h, 0:w] / 40.0
+    for i in range(n):
+        img = np.stack([np.sin(yy + i), np.cos(xx - i), np.sin(xx + yy)], -1)
+        img = np.clip(0.5 + 0.4 * img + 0.05 * rng.randn(h, w, 3), 0, 1)
+        cv2.imwrite(os.path.join(root, 'train', f'{i:03d}.jpg'),
+                    np.rint(img[..., ::-1] * 255).astype(np.uint8))
+
+
+def _params_and_stats(trainer):
+    out = {}
+    for prefix, mod in (('G.', trainer.state.generator),
+                        ('D.', trainer.state.discriminator)):
+        out.update({prefix + k: v.detach().clone()
+                    for k, v in mod.state_dict().items()})
+    return out
+
+
+def train_run(work, precision):
+    """`python -m lama_tpu_torch.train -cn big-lama` (in this process, as
+    `-m` runs it) at batch TRAIN_BATCH, TRAIN_SIZE^2, for TRAIN_STEPS steps
+    of one epoch. The trainer's step is wrapped for the run: each step is
+    synchronised before and after and timed, its metrics read, and its
+    launches counted. Returns the run's record and the trainer."""
+    import torch
+    from lama_tpu_torch.training import step as step_mod
+    from lama_tpu_torch.training import trainer as trainer_mod
+    rec = dict(step_ms=[], metrics=[], counts=[])
+    call, fit = step_mod.InpaintingTrainStep.__call__, trainer_mod.InpaintingTrainer.fit
+
+    def timed_call(self, state, image, mask):
+        fns = kernel_wrappers()
+        before = {k: f.launches for k, f in fns.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in call(self, state, image, mask).items()}
+        torch.cuda.synchronize()
+        rec['step_ms'].append((time.perf_counter() - t0) * 1e3)
+        rec['counts'].append({k: f.launches - before[k] for k, f in fns.items()})
+        rec['metrics'].append(metrics)
+        rec['batch'] = (image, mask)
+        return metrics
+
+    def recording_fit(self, resume_from=None):
+        rec['trainer'], rec['before'] = self, _params_and_stats(self)
+        torch.cuda.reset_peak_memory_stats()
+        return fit(self, resume_from)
+
+    data = os.path.join(work, 'train_data')
+    run_dir = os.path.join(work, f'train_{precision}')
+    argv = ['-cn', 'big-lama', f'location.data_root_dir={data}',
+            f'location.out_root_dir={work}', f'location.tb_dir={work}',
+            f'location.pretrained_models={work}', f'run_dir={run_dir}',
+            f'data.batch_size={TRAIN_BATCH}', f'data.train.out_size={TRAIN_SIZE}',
+            'data.num_workers=4', 'trainer.kwargs.max_epochs=1',
+            f'trainer.kwargs.limit_train_batches={TRAIN_STEPS}',
+            'trainer.kwargs.log_every_n_steps=1',
+            f'trainer.kwargs.precision={"bf16" if precision == "bf16" else 32}',
+            'losses.resnet_pl.allow_random_weights=true', 'device=cuda']
+    step_mod.InpaintingTrainStep.__call__ = timed_call
+    trainer_mod.InpaintingTrainer.fit = recording_fit
+    fns = reset_counts()
+    t0 = time.perf_counter()
+    try:
+        run_module('lama_tpu_torch.train', argv)
+    finally:
+        step_mod.InpaintingTrainStep.__call__ = call
+        trainer_mod.InpaintingTrainer.fit = fit
+    rec['seconds'] = time.perf_counter() - t0
+    rec['launches'] = {k: fn.launches for k, fn in fns.items()}
+    rec['peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec['run_dir'] = run_dir
+    trainer = rec.pop('trainer')
+    n = len(rec['step_ms'])
+    check(n == TRAIN_STEPS, f'train {precision}: {n} steps, expected {TRAIN_STEPS}')
+    for i, (m, c) in enumerate(zip(rec['metrics'], rec['counts'])):
+        check(all(math.isfinite(v) for v in m.values()),
+              f'train {precision} step {i}: non-finite loss {m}')
+        check(c == PER_TRAIN_STEP,
+              f'train {precision} step {i}: launches {c}, expected {PER_TRAIN_STEP}')
+    after = _params_and_stats(trainer)
+    for group in ('G.', 'D.'):
+        for kind in ('weight', 'running_mean', 'running_var'):
+            keys = [k for k in after if k.startswith(group) and k.endswith(kind)]
+            moved = sum(not torch.equal(after[k], rec['before'][k]) for k in keys)
+            check(keys and moved == len(keys),
+                  f'train {precision}: {len(keys) - moved} of {len(keys)} '
+                  f'{group}*{kind} unchanged')
+    timed = rec['step_ms'][TRAIN_WARMUP:]
+    rec['ms_per_step'] = float(np.mean(timed))
+    log(f'train big-lama {precision} b{TRAIN_BATCH} {TRAIN_SIZE}^2: '
+        f'{n} steps in {rec["seconds"]:.1f} s (run incl. setup), '
+        f'{rec["ms_per_step"]:.1f} ms per step (mean of {len(timed)} after '
+        f'{TRAIN_WARMUP} warm-up; all: '
+        + ', '.join(f'{t:.1f}' for t in rec['step_ms'])
+        + f'), peak memory {rec["peak_gib"]:.2f} GiB, launches per step '
+        f'{rec["counts"][-1]}')
+    first, last = rec['metrics'][0], rec['metrics'][-1]
+    log(f'train {precision} losses, step 0 -> {n - 1}: ' + ', '.join(
+        f'{k} {first[k]:.4f} -> {last[k]:.4f}' for k in sorted(first)))
+    log(f'train {precision}: G and D weights and BN statistics all moved')
+    del rec['before']
+    return rec, trainer
+
+
+def run_module(name, argv):
+    """`python -m <name> <argv>`, in this process."""
+    saved = sys.argv
+    sys.argv = [name] + list(argv)
+    try:
+        runpy.run_module(name, run_name='__main__', alter_sys=True)
+    except SystemExit as e:
+        check(e.code in (0, None), f'{name} exited with {e.code}')
+    finally:
+        sys.argv = saved
+
+
+def train_step_split(trainer, image, mask, precision, iters=3):
+    """Host ms of each phase of a train step (synchronised between phases),
+    the mean over `iters` after one warm-up; then one whole step under
+    torch.profiler."""
+    import torch
+    from lama_tpu_torch.ops.precision import widen
+    st, step = trainer.state, trainer.step_fn
+    gen, disc = st.generator, st.discriminator
+    names = ('G forward + losses', 'G backward', 'G optimizer',
+             'G re-forward', 'D forward + R1 + losses', 'D backward',
+             'D optimizer')
+    times = {k: [] for k in names}
+
+    def tick():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    for i in range(iters + 1):
+        t = [tick()]
+        disc.requires_grad_(False)
+        total, _ = step.generator_loss(gen, disc, image, mask)
+        t.append(tick())
+        total.backward()
+        disc.requires_grad_(True)
+        t.append(tick())
+        st.g_opt.step()
+        st.g_opt.zero_grad(set_to_none=True)
+        t.append(tick())
+        with torch.no_grad():
+            pred = widen(gen(step.generator_input(image, mask)))
+        t.append(tick())
+        d_total, _ = step.discriminator_loss(disc, image, pred, mask)
+        t.append(tick())
+        d_total.backward()
+        t.append(tick())
+        st.d_opt.step()
+        st.d_opt.zero_grad(set_to_none=True)
+        t.append(tick())
+        if i:
+            for k, a, b in zip(names, t, t[1:]):
+                times[k].append((b - a) * 1e3)
+    ms = {k: float(np.mean(v)) for k, v in times.items()}
+    fwd = ms['G forward + losses'] + ms['G re-forward'] + ms['D forward + R1 + losses']
+    bwd = ms['G backward'] + ms['D backward']
+    log(f'train step split {precision}: ' + ', '.join(
+        f'{k} {v:.1f} ms' for k, v in ms.items())
+        + f'; forward {fwd:.1f} ms, backward {bwd:.1f} ms, backward share '
+        f'{bwd / (fwd + bwd):.3f}')
+    device_profile(lambda: step(st, image, mask),
+                   f'train step {precision} b{TRAIN_BATCH} {TRAIN_SIZE}^2', top=12)
+    return dict(ms, forward_ms=fwd, backward_ms=bwd)
+
+
+def _normed_diff(a, b):
+    """|| (a_t - b_t) / ||b_t|| || over the tensors t whose gradient norm is
+    at least 1e-4 of the largest: the biases of the convs a train-mode BN
+    follows have a zero gradient but for rounding, which this leaves out."""
+    norms = [float(y.norm()) for y in b]
+    keep = 1e-4 * max(norms)
+    return math.sqrt(sum(float((x - y).norm()) ** 2 / n ** 2
+                         for x, y, n in zip(a, b, norms) if n >= keep))
+
+
+def train_gradient_vs_plain(trainer, image, mask):
+    """fp32, one G step's objective and its gradient w.r.t. the generator,
+    kernels vs kernels='plain' (the same weights, discriminator and batch),
+    against the plain path's own spread; the stem's gradient dropped (its
+    output detached) is the planted control that must be rejected."""
+    import torch
+    from lama_tpu_torch.models import make_generator
+    st, step = trainer.state, trainer.step_fn
+    gen, disc = st.generator, st.discriminator
+    kw = dict(trainer.config.generator)
+    plain = make_generator(kw.pop('kind'), dtype=torch.float32, kernels='plain', **kw)
+    plain.load_state_dict(gen.state_dict())
+    plain = plain.cuda().train()
+    g = torch.Generator().manual_seed(9)
+
+    def grads(model, eps=0.0, drop_stem=False):
+        img = image * (1 + eps * torch.randn(image.shape, generator=g).cuda()) \
+            if eps else image
+        handle = (model.model[1].ffc.convl2l.register_forward_hook(
+            lambda m, i, o: o.detach()) if drop_stem else None)
+        disc.requires_grad_(False)
+        try:
+            total, metrics = step.generator_loss(model, disc, img, mask)
+            params = list(model.parameters())
+            out = torch.autograd.grad(total, params, allow_unused=True)
+        finally:
+            disc.requires_grad_(True)
+            if handle is not None:
+                handle.remove()
+        metrics = dict({k: float(v) for k, v in metrics.items()},
+                       total=float(total.detach()))
+        return metrics, [torch.zeros_like(p) if o is None else o
+                         for p, o in zip(params, out)]
+
+    ref_m, ref = grads(plain)
+    ours_m, ours = grads(gen)
+    for k, v in ref_m.items():
+        check(abs(ours_m[k] - v) <= TRAIN_LOSS_RTOL * abs(v),
+              f'train G step {k}: kernels {ours_m[k]} vs plain {v}')
+
+    def diff(a):
+        d = _grad_diff(a, ref)
+        return (d[0], _normed_diff(a, ref), 1 - d[2])
+
+    draws = [diff(grads(plain, TRAIN_X_EPS)[1]) for _ in range(TRAIN_DRAWS)]
+    floor = [max(d[i] for d in draws) for i in range(3)]
+
+    def passes(d):   # the slack covers a floor of exactly 0 (1 - cos)
+        return all(x <= TRAIN_FLOOR_FACTOR * f + 1e-9 for x, f in zip(d, floor))
+
+    ours_d = diff(ours)
+    control = diff(grads(gen, drop_stem=True)[1])
+    log('train G step fp32 kernels vs plain: losses ' + ', '.join(
+        f'{k} {ours_m[k]:.6f}/{ref_m[k]:.6f}' for k in sorted(ref_m))
+        + f'; gradient max|d|/max|g| {ours_d[0]:.3e}, per-tensor-normed '
+        f'||d|| {ours_d[1]:.3e}, 1-cos {ours_d[2]:.3e}; plain vs plain with '
+        f'images x (1 + {TRAIN_X_EPS} noise), largest of {TRAIN_DRAWS}: '
+        + ', '.join(f'{f:.3e}' for f in floor)
+        + f'; control (stem gradient dropped): '
+        + ', '.join(f'{c:.3e}' for c in control)
+        + (': passes the check' if passes(control) else ': rejected'))
+    check(passes(ours_d), 'train G step: kernels vs plain beyond the plain '
+          "path's spread")
+    check(not passes(control), 'train G step: the check let a dropped stem '
+          'gradient pass')
+    return dict(ours=ours_d, floor=floor, control=control)
+
+
+def serve_checkpoint(work, run_dir):
+    """The trained run dir served by `python -m lama_tpu_torch.predict`
+    (its last.ckpt) on the serve phase's images."""
+    indir = os.path.join(work, 'in')
+    outdir = os.path.join(work, 'out_trained')
+    run_predict([f'model.path={run_dir}', 'model.checkpoint=last.ckpt',
+                 f'indir={indir}', f'outdir={outdir}', 'device=cuda',
+                 f'batch_size={BATCH}', 'precision=bf16'])
+    n = 0
+    for name in sorted(os.listdir(indir)):
+        if name.endswith('_mask.png'):
+            img = read_png(os.path.join(indir, name.replace('_mask', '')))
+            mask = read_png(os.path.join(indir, name), 'L')
+            out = read_png(os.path.join(outdir, name))
+            check(out.shape == img.shape, f'trained serve {name}: {out.shape}')
+            check(np.array_equal(out[mask == 0], img[mask == 0]),
+                  f'trained serve {name}: known pixels changed')
+            n += 1
+    check(n > 0, 'trained serve: no images')
+    log(f'train: {run_dir}/models/last.ckpt served {n} images')
+
+
+def train(work):
+    """The train phase: bf16 and fp32 runs, each step's losses finite and
+    its launches counted, the weights moved; the phase split and a profiled
+    step; the fp32 G step against the plain path; the checkpoint served."""
+    write_train_images(os.path.join(work, 'train_data'),
+                       TRAIN_BATCH * TRAIN_STEPS, np.random.RandomState(3))
+    out = {}
+    for precision in ('bf16', 'fp32'):
+        rec, trainer = train_run(work, precision)
+        image, mask = rec.pop('batch')
+        rec['split'] = train_step_split(trainer, image, mask, precision)
+        if precision == 'fp32':
+            rec['gradient'] = train_gradient_vs_plain(trainer, image, mask)
+        out[precision] = rec
+        del trainer
+    serve_checkpoint(work, out['bf16']['run_dir'])
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -875,9 +1241,11 @@ def main():
         write_model_dir(model_dir, dict(kind='ffc_resnet', **gen_kwargs), sd)
         launches = serve(work, model_dir)
         refine_launches = refine(work, model_dir)
+        trained = train(work)
     for row in rows:
         row['launches'] = launches[row['dtype']][row['name']]
         row['refine_launches'] = refine_launches[row['name']]
+        row['train_launches'] = trained[row['dtype']]['launches'][row['name']]
     gens = make_generators(gen_kwargs, sd)
     generator_vs_plain(gens)
     refine_passes_vs_plain(gens)

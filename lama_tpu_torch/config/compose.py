@@ -2,8 +2,8 @@
 list of group entries composed from `configs/<context>/<group>/<name>.yaml`,
 `# @package` headers, `${...}` interpolation and `a.b.c=value` overrides.
 
-A copy of lama_tpu/config/compose.py (without save_config), so the port
-imports nothing of lama_tpu.
+A copy of lama_tpu/config/compose.py, so the port imports nothing of
+lama_tpu.
 """
 import os
 import re
@@ -116,3 +116,7 @@ def compose(config_dir: str, config_name: str,
     resolve_interpolations(result)
     return result
 
+
+def save_config(config: ConfigNode, path: str):
+    with open(path, 'w') as f:
+        yaml.safe_dump(to_dict(config), f, sort_keys=False)

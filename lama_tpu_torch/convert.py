@@ -2,10 +2,11 @@
 lama_tpu/training/convert.py).
 
 `state_dict_from_flax` turns the JAX package's {'params', 'batch_stats'}
-tree into reference-format tensors: conv kernels HWIO -> OIHW, the
-generator's ConvTranspose kernels HWIO -> IOHW, and a zero
-`num_batches_tracked` beside every BatchNorm, as bin/export_torch_checkpoint.py
-writes them. `load_checkpoint` reads a reference-format `.ckpt`.
+tree of the FFC generator, the N-layer discriminator or the ResNet encoder
+into reference-format tensors: conv kernels HWIO -> OIHW, the generator's
+ConvTranspose kernels HWIO -> IOHW, and a zero `num_batches_tracked` beside
+every BatchNorm, as bin/export_torch_checkpoint.py writes them.
+`load_checkpoint` reads a reference-format `.ckpt`.
 """
 import re
 from typing import Any, Dict, Iterable, Sequence, Set, Tuple
@@ -42,10 +43,13 @@ def _flatten(tree: Dict, prefix=()) -> Iterable[Tuple[Tuple[str, ...], Any]]:
             yield prefix + (k,), v
 
 
-def state_dict_from_flax(variables: Dict, n_downsampling: int,
-                         n_blocks: int) -> Dict[str, torch.Tensor]:
-    """{'params', 'batch_stats'} of lama_tpu's FFCResNetGenerator (numpy or
-    array leaves) -> the port's state_dict, float32 CPU tensors."""
+def state_dict_from_flax(variables: Dict, n_downsampling: int = 0,
+                         n_blocks: int = 0) -> Dict[str, torch.Tensor]:
+    """{'params', 'batch_stats'} of a lama_tpu model (numpy or array
+    leaves) -> the port's state_dict, float32 CPU tensors. For the
+    FFCResNetGenerator give its n_downsampling and n_blocks, which place
+    its ConvTranspose layers; the discriminator and the ResNet encoder
+    have none (the defaults)."""
     tconv = transposed_conv_paths(n_downsampling, n_blocks)
     out: Dict[str, torch.Tensor] = {}
     for path, val in _flatten(dict(variables.get('params', {}))):

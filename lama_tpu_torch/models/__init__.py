@@ -1,6 +1,7 @@
-"""Model factory (counterpart of lama_tpu/models/__init__.py:14-31); this
-slice ports the FFC generator only."""
+"""Model factories (counterpart of lama_tpu/models/__init__.py:14-42); the
+port has the FFC generator and the pix2pixHD N-layer discriminator."""
 from .ffc import FFCResNetGenerator
+from .pix2pixhd import NLayerDiscriminator
 
 
 def make_generator(kind, **kwargs):
@@ -10,3 +11,12 @@ def make_generator(kind, **kwargs):
         return FFCResNetGenerator(**kwargs)
     raise NotImplementedError(f'generator kind {kind!r} is not ported yet '
                               '(ROADMAP queue 1 item 12)')
+
+
+def make_discriminator(kind, **kwargs):
+    """`kind` from a config's `discriminator:` section; the rest are the
+    discriminator's keyword arguments (plus `dtype`)."""
+    if kind == 'pix2pixhd_nlayer':
+        return NLayerDiscriminator(**kwargs)
+    raise NotImplementedError(f'discriminator kind {kind!r} is not ported '
+                              'yet (ROADMAP queue 1 items 10 and 12)')

@@ -2,7 +2,10 @@
 
 Counterpart of lama_tpu/models/ffc.py (FourierUnit :136, SpectralTransform
 :333, FFC :377, FFC_BN_ACT :480, FFCResnetBlock :557, concat_tuple :606,
-FFCResNetGenerator :618), eval mode, stages 'full', 'front' and 'rear'. The
+FFCResNetGenerator :618), stages 'full', 'front' and 'rear', in eval mode
+and in train mode (batch-statistics BN; the FourierUnit takes its plain
+path there, as the JAX package runs its fused kernel only outside
+training, ffc.py:196). The
 module tree mirrors the reference key-space (`model.N.*`, e.g.
 `model.5.conv1.ffc.convg2g.conv1.0.weight`), so a reference-format state_dict
 loads with `load_state_dict(strict=True)`.
@@ -24,8 +27,10 @@ import torch.nn as nn
 from ..ops.activations import get_activation
 from ..ops.conv import Conv2d, ConvTranspose2d, check_kernels
 from ..ops.kernels.fourier_unit import (fourier_unit_plain,
+                                        fourier_unit_with_norm,
                                         fused_fourier_unit, planar_params)
 from ..ops.norm import BatchNorm2d
+from ..ops.precision import check_dtype, widen
 
 _LATER = 'not ported yet (ROADMAP queue 1 item 4)'
 
@@ -36,9 +41,10 @@ def _unsupported(name, value):
 
 class FourierUnit(nn.Module):
     """rfft2 -> 1x1 conv over interleaved re/im channels -> BN -> ReLU ->
-    irfft2 (reference ffc.py:49-113), eval mode. Keys: conv_layer.weight,
-    bn.*. The kernel path folds BN into the conv once per set of weights
-    (`planar_params`) and keeps the result."""
+    irfft2 (reference ffc.py:49-113). Keys: conv_layer.weight, bn.*. In
+    eval mode the kernel path folds BN into the conv once per set of
+    weights (`planar_params`) and keeps the result; train mode runs the
+    plain unit with batch-statistics BN."""
 
     def __init__(self, in_channels, out_channels, groups=1,
                  spatial_scale_factor=None, spectral_pos_encoding=False,
@@ -66,10 +72,12 @@ class FourierUnit(nn.Module):
 
     def planar(self):
         """(W, bias) of `planar_params`, recomputed only when a parameter
-        changed: an in-place update (a load) bumps a tensor's version, a
-        move to another device changes its storage. Inference tensors (made
-        under torch.inference_mode) keep no version; for them only the
-        storage counts."""
+        changed: an in-place update (a load, an optimizer step) bumps a
+        tensor's version, a move to another device changes its storage.
+        Inference tensors (made under torch.inference_mode) keep no version;
+        for them only the storage counts. Train mode drops the cache (see
+        `train`), since a train-mode forward moves the BN statistics inside
+        PyTorch's batch norm."""
         key = tuple((t.data_ptr(), -1 if t.is_inference() else t._version)
                     for t in self._params())
         if key != self._planar_key:
@@ -77,10 +85,16 @@ class FourierUnit(nn.Module):
             self._planar_key = key
         return self._planar
 
+    def train(self, mode=True):
+        self._planar_key = None
+        return super().train(mode)
+
     def forward(self, x):
         if self.training:
-            raise NotImplementedError('FourierUnit train mode is not ported '
-                                      'yet (ROADMAP queue 1 item 10)')
+            # as the JAX package, which runs its fused kernel only outside
+            # training (models/ffc.py:196): the plain unit, train-mode BN
+            return fourier_unit_with_norm(x, self.conv_layer.weight,
+                                          self.bn).to(x.dtype)
         if self.kernels == 'plain':
             out = fourier_unit_plain(x, *self._params(), eps=self.bn.eps)
         else:
@@ -253,7 +267,7 @@ class _Activation(nn.Module):
         self.float32 = float32
 
     def forward(self, x):
-        return self.fn(x.float() if self.float32 else x)
+        return self.fn(widen(x) if self.float32 else x)
 
 
 class FFCResNetGenerator(nn.Module):
@@ -282,9 +296,7 @@ class FFCResNetGenerator(nn.Module):
                 f'{_LATER}')
         if out_ffc:
             raise _unsupported('out_ffc', out_ffc)
-        if dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f'dtype={dtype}: expected float32 or bfloat16')
-        self.dtype = dtype
+        self.dtype = check_dtype(dtype)
         self.n_downsampling = n_downsampling
         init_kw = dict(init_conv_kwargs or {})
         down_kw = dict(downsample_conv_kwargs or {})

@@ -2,22 +2,27 @@
 (counterpart of lama_tpu/ops/conv.py).
 
 `conv2d` sends a reflect-padded conv whose shape is in a kernel's envelope
-to that kernel (ops/kernels/reflect_conv.py):
+to that kernel (ops/kernels/reflect_conv.py, ops/kernels/halo_conv.py):
   3x3 s1, C = C_out = 128                          -> reflect_conv3x3_cols
   3x3 s1, C and C_out multiples of 128             -> reflect_conv3x3_taps
   3x3 s2, 2C and C_out multiples of 128, H, W even -> reflect_down_conv3x3
   7x7 s1, C_out <= 8, C <= 128, C % 8 == 0         -> reflect_out_conv7x7
-So the generator's four stride-2 downsample convs run on a kernel.
-Everything else is `F.pad` + `F.conv2d`: the 7x7 4->64 stem and the 1x1
-convs. In the JAX package these are XLA convs outside any Pallas kernel
-(conv.py:285-301), so they stay stock here.
+  other 7x7 (s1, s2) and 3x3 s2, H, W > k // 2     -> halo_conv_reflect_tiled
+So every reflect conv of the generator runs on a kernel: the 7x7 4->64 stem
+on the tiled halo conv, the four stride-2 downsamples on the down conv. A
+3x3 stride-1 conv outside cols/taps (kernel 6's place, not on big-lama's
+path) and the 1x1 convs are `F.pad` + `F.conv2d`, as the JAX package leaves
+them to XLA (conv.py:285-301).
 `kernels='plain'` sends the kernels' shapes to their plain version too; it
 is how the tests and chip_smoke.py compare the two.
 """
+import functools
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .kernels import halo_conv as hc
 from .kernels import reflect_conv as rc
 from .pad import pad2d
 
@@ -36,8 +41,9 @@ def check_kernels(kernels: str) -> str:
 
 
 def kernel_for(x, weight, stride, padding, dilation, groups, padding_mode):
-    """The kernel wrapper of ops/kernels/reflect_conv.py that takes this
-    conv, or None when it goes to the stock conv."""
+    """The kernel wrapper (ops/kernels/reflect_conv.py or halo_conv.py,
+    the latter with its stride bound) that takes this conv, or None when it
+    goes to the stock conv."""
     stride, padding, dilation = _pair(stride), _pair(padding), _pair(dilation)
     kh, kw = weight.shape[-2:]
     shape = (x.shape[2], x.shape[3], x.shape[1], weight.shape[0])
@@ -47,14 +53,18 @@ def kernel_for(x, weight, stride, padding, dilation, groups, padding_mode):
             and x.dtype in (torch.float32, torch.bfloat16)):
         return None
     if stride == (2, 2):
-        return (rc.reflect_down_conv3x3 if kh == 3
-                and rc.reflect_down_conv3x3_supported(*shape) else None)
-    if kh == 3 and rc.reflect_conv3x3_cols_supported(*shape):
-        return rc.reflect_conv3x3_cols
-    if kh == 3 and rc.reflect_conv3x3_taps_supported(*shape):
-        return rc.reflect_conv3x3_taps
-    if kh == 7 and rc.reflect_out_conv7x7_supported(*shape):
+        if kh == 3 and rc.reflect_down_conv3x3_supported(*shape):
+            return rc.reflect_down_conv3x3
+    elif kh == 3:   # 3x3 stride 1 outside cols/taps: kernel 6's place, stock
+        if rc.reflect_conv3x3_cols_supported(*shape):
+            return rc.reflect_conv3x3_cols
+        if rc.reflect_conv3x3_taps_supported(*shape):
+            return rc.reflect_conv3x3_taps
+        return None
+    elif kh == 7 and rc.reflect_out_conv7x7_supported(*shape):
         return rc.reflect_out_conv7x7
+    if hc.halo_conv_reflect_tiled_supported(*shape, kh, stride[0]):
+        return functools.partial(hc.halo_conv_reflect_tiled, stride=stride[0])
     return None
 
 

@@ -1,4 +1,5 @@
-"""Eval-mode FourierUnit: CUDA kernel and its plain version.
+"""Eval-mode FourierUnit: CUDA kernel and its plain version (and the plain
+unit with any BN, which train mode uses).
 
 Counterpart of the TPU kernel lama_tpu/ops/pallas/fourier_unit.py::
 fused_fourier_unit (fourier_unit.py:130), with `planar_params` for its
@@ -42,13 +43,18 @@ def fourier_unit_plain(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var,
     """Plain version, in the reference's form (reference ffc.py:76-113):
     rfft2 (ortho) -> interleave re/im per channel -> 1x1 conv -> eval BN ->
     ReLU -> irfft2, all in float32. Returns float32 NCHW."""
+    return fourier_unit_with_norm(x, conv_weight, lambda y: F.batch_norm(
+        y, bn_mean.float(), bn_var.float(), bn_weight.float(),
+        bn_bias.float(), False, 0.0, eps))
+
+
+def fourier_unit_with_norm(x, conv_weight, norm):
+    """The plain FourierUnit with `norm` (a callable on the float32
+    spectrum, e.g. a BatchNorm module in train mode) as its BN."""
     b, c, h, w = x.shape
     re, im = spectral.rfft2(x)                                    # (b,c,h,wf)
     y = torch.stack([re, im], dim=2).reshape(b, 2 * c, h, -1)
-    y = F.conv2d(y, conv_weight.float())
-    y = F.batch_norm(y, bn_mean.float(), bn_var.float(), bn_weight.float(),
-                     bn_bias.float(), False, 0.0, eps)
-    y = torch.relu(y)
+    y = torch.relu(norm(F.conv2d(y, conv_weight.to(y.dtype))))
     y = y.reshape(b, -1, 2, h, y.shape[-1])
     return spectral.irfft2(y[:, :, 0], y[:, :, 1], s=(h, w))
 

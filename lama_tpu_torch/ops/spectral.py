@@ -4,10 +4,12 @@ float32 stores. Through torch.fft; the plain FourierUnit uses them, the
 port's FourierUnit kernel does its own DFTs as matmuls."""
 import torch
 
+from .precision import widen
+
 
 def rfft2(x):
     """(B, C, H, W) real -> (re, im), each (B, C, H, W//2+1) float32."""
-    f = torch.fft.rfft2(x.float(), norm='ortho')
+    f = torch.fft.rfft2(widen(x), norm='ortho')
     return f.real, f.imag
 
 
@@ -20,9 +22,9 @@ def irfft2(re, im, s):
     one-call 2-D C2R transform, which assumes it is, returns other values
     for it at some sizes (W = 128 among them, a 1024^2 refine scale's)."""
     h, w = s
-    z = torch.fft.ifft(torch.complex(re.float(), im.float()), n=h, dim=-2,
+    z = torch.fft.ifft(torch.complex(widen(re), widen(im)), n=h, dim=-2,
                        norm='ortho')
-    keep = torch.ones(z.shape[-1], device=z.device)
+    keep = torch.ones(z.shape[-1], dtype=z.real.dtype, device=z.device)
     keep[0] = 0.0
     if w % 2 == 0:
         keep[w // 2] = 0.0

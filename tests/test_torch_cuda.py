@@ -70,6 +70,35 @@ def test_reflect_conv_kernel(device, dtype, name, c, co, h, w, k, bias):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('c,co,h,w,k,s,bias', [
+    (4, 64, 64, 64, 7, 1, True),       # the generator's stem
+    (4, 64, 37, 70, 7, 1, True),       # partial tiles
+    (3, 5, 9, 13, 7, 2, False),        # odd sides: ceil(H / 2) outputs
+    (6, 40, 20, 33, 3, 1, True),       # channel chunk and block tails
+    (16, 32, 21, 18, 3, 2, True),
+    (1, 1, 4, 4, 7, 1, False),         # the smallest input a pad of 3 takes
+    (4, 80, 20, 20, 7, 1, True),       # two output-channel blocks
+    # k * k * C > 256: bf16 takes the SIMT kernel too
+    (32, 48, 19, 23, 3, 2, True),
+    (8, 16, 30, 40, 7, 1, False),
+])
+def test_halo_conv_kernel(device, dtype, c, co, h, w, k, s, bias):
+    from lama_tpu_torch.ops.kernels import halo_conv as hc
+    g = torch.Generator().manual_seed(5)
+    x = torch.rand(2, c, h, w, generator=g).to(device)
+    wt = ((torch.rand(co, c, k, k, generator=g) * 2 - 1)
+          * (c * k * k) ** -0.5).to(device)
+    b = torch.rand(co, generator=g).to(device) if bias else None
+    ref = rc.reflect_conv_plain(x, wt, b, stride=s)
+    before = hc.halo_conv_reflect_tiled.launches
+    out = hc.halo_conv_reflect_tiled(x.to(dtype), wt, b, stride=s)
+    torch.cuda.synchronize()
+    assert hc.halo_conv_reflect_tiled.launches == before + 1
+    assert out.dtype == dtype and out.shape == ref.shape
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('b,c,co,h,w', [(2, 192, 192, 16, 16),
                                         (1, 8, 4, 12, 10),
                                         # odd sides, as the refiner's bottleneck
@@ -142,6 +171,24 @@ def test_reflect_conv_gradients(device, name, c, co, h, k, bias):
     _grad_close(ours, ref)
 
 
+@pytest.mark.parametrize('k,s', [(7, 1), (3, 2)])
+def test_halo_conv_gradients(device, k, s):
+    from lama_tpu_torch.ops.kernels import halo_conv as hc
+    g = torch.Generator().manual_seed(6)
+    x = torch.rand(2, 4, 32, 32, generator=g).to(device).requires_grad_()
+    wt = ((torch.rand(64, 4, k, k, generator=g) * 2 - 1)
+          * (4 * k * k) ** -0.5).to(device).requires_grad_()
+    b = torch.rand(64, generator=g).to(device).requires_grad_()
+    r = torch.rand(2, 64, 32 // s, 32 // s, generator=g).to(device)
+    before = hc.halo_conv_reflect_tiled.launches
+    ours = torch.autograd.grad(
+        (hc.halo_conv_reflect_tiled(x, wt, b, stride=s) * r).sum(), [x, wt, b])
+    assert hc.halo_conv_reflect_tiled.launches == before + 1
+    ref = torch.autograd.grad(
+        (rc.reflect_conv_plain(x, wt, b, s) * r).sum(), [x, wt, b])
+    _grad_close(ours, ref)
+
+
 def test_fourier_unit_gradients(device):
     g = torch.Generator().manual_seed(4)
     c = co = 16
@@ -178,13 +225,14 @@ def test_generator_kernels_match_plain(device):
     ours = make_generator('ffc_resnet', **kw).eval()
     ours.load_state_dict(plain.state_dict())
     x = torch.rand(2, 4, 128, 128, generator=torch.Generator().manual_seed(2))
+    from lama_tpu_torch.ops.kernels import halo_conv as hc
     fns = (rc.reflect_conv3x3_cols, rc.reflect_conv3x3_taps,
            fu.fused_fourier_unit, rc.reflect_out_conv7x7,
-           rc.reflect_down_conv3x3)
+           rc.reflect_down_conv3x3, hc.halo_conv_reflect_tiled)
     before = [fn.launches for fn in fns]
     with torch.inference_mode():
         ref = plain.to(device)(x.to(device))
         out = ours.to(device)(x.to(device))
     after = [fn.launches for fn in fns]
-    assert [a - b for a, b in zip(after, before)] == [2, 4, 2, 1, 4]
+    assert [a - b for a, b in zip(after, before)] == [2, 4, 2, 1, 4, 1]
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)

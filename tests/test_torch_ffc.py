@@ -123,6 +123,16 @@ def test_gated_ffc_raises():
 
 
 def test_train_mode_raises(jax_model):
+    """Train mode runs (tests/test_torch_train_parts.py holds it to the JAX
+    generator) and moves the BN statistics; what raises in train mode is a
+    batch with one value per channel, by PyTorch's batch-norm rule."""
+    from lama_tpu_torch.ops.norm import BatchNorm2d
     _, variables = jax_model
-    with pytest.raises(NotImplementedError):
-        _port(variables).train()(torch.rand(1, 4, 64, 64))
+    port = _port(variables).train()
+    before = port.model[1].bn_l.running_mean.clone()
+    with torch.no_grad():
+        out = port(torch.rand(1, 4, 64, 64))
+    assert out.shape == (1, 3, 64, 64)
+    assert not torch.equal(port.model[1].bn_l.running_mean, before)
+    with pytest.raises(ValueError, match='more than 1 value'):
+        BatchNorm2d(3).train()(torch.rand(1, 3, 1, 1))

@@ -103,3 +103,107 @@ def test_dataset_kind_online_raises(tmp_path):
         tdatasets.make_default_val_dataset(str(tmp_path), kind='online')
     with pytest.raises(ValueError):
         tdatasets.make_default_val_dataset(str(tmp_path), kind='nope')
+
+
+# ------------------------------------------------------------ training data
+from lama_tpu.data import masks as jmasks          # noqa: E402
+from lama_tpu.data import transforms as jtransforms  # noqa: E402
+from lama_tpu.utils import ramps as jramps          # noqa: E402
+from lama_tpu_torch.data import masks as tmasks     # noqa: E402
+from lama_tpu_torch.data import transforms as ttransforms  # noqa: E402
+from lama_tpu_torch.utils import ramps as tramps    # noqa: E402
+
+BIG_LAMA_MASKS = dict(   # configs/training/data/abl-04-256-mh-dist.yaml
+    irregular_proba=1, irregular_kwargs=dict(
+        max_angle=4, max_len=200, max_width=100, max_times=5, min_times=1),
+    box_proba=1, box_kwargs=dict(margin=10, bbox_min_size=30,
+                                 bbox_max_size=150, max_times=4, min_times=1),
+    segm_proba=0)
+
+
+@pytest.mark.parametrize('kind,kwargs', [
+    ('mixed', BIG_LAMA_MASKS),
+    ('mixed', dict(irregular_proba=1, irregular_kwargs=dict(
+        ramp_kwargs=dict(start_iter=0, end_iter=10)), box_proba=0,
+        segm_proba=0, squares_proba=1, superres_proba=1, outpainting_proba=1,
+        invert_proba=0.5)),
+    ('outpainting', dict()),
+    ('dumb', dict(is_training=True)),
+])
+def test_mask_generators_match_jax(kind, kwargs):
+    ours = tmasks.get_mask_generator(kind, dict(kwargs))
+    theirs = jmasks.get_mask_generator(kind, dict(kwargs))
+    for i in range(12):
+        a = ours((256, 200), iter_i=i, rng=np.random.RandomState(i))
+        b = theirs((256, 200), iter_i=i, rng=np.random.RandomState(i))
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(NotImplementedError, match='segmentation'):
+        tmasks.get_mask_generator('mixed', dict(segm_proba=1))
+
+
+@pytest.mark.parametrize('variant', ['default', 'distortions',
+                                     'distortions_light', 'no_augs'])
+def test_transforms_match_jax(variant):
+    rng = np.random.RandomState(2)
+    img = (rng.rand(90, 110, 3) * 255).astype(np.uint8)
+    ours = ttransforms.get_transforms(variant, 64)
+    theirs = jtransforms.get_transforms(variant, 64)
+    for i in range(8):
+        np.testing.assert_array_equal(
+            ours(image=img, rng=np.random.RandomState(i))['image'],
+            theirs(image=img, rng=np.random.RandomState(i))['image'])
+
+
+def test_ramps_match_jax():
+    for kw in (dict(kind='linear', start_value=1, end_value=3, start_iter=2,
+                    end_iter=10),
+               dict(kind='ladder', start_iters=[3, 7], values=[1, 2, 4])):
+        ours, theirs = tramps.get_ramp(**dict(kw)), jramps.get_ramp(**dict(kw))
+        assert [ours(i) for i in range(12)] == [theirs(i) for i in range(12)]
+
+
+def _write_train_jpegs(root, n):
+    import cv2
+    os.makedirs(root)
+    rng = np.random.RandomState(3)
+    for i in range(n):
+        img = (rng.rand(70 + 3 * i, 90, 3) * 255).astype(np.uint8)
+        cv2.imwrite(os.path.join(root, f'im{i}.jpg'), img)
+
+
+@pytest.mark.parametrize('num_workers', [1, 3])
+def test_train_loader_batches_match_jax(tmp_path, num_workers):
+    """make_default_train_dataloader with big-lama's masks and transforms:
+    the same batches, bit for bit, over two epochs (the JAX dataset decodes
+    with its native libjpeg where built, the port with cv2)."""
+    _write_train_jpegs(str(tmp_path / 'train'), 7)
+    kw = dict(indir=str(tmp_path / 'train'), out_size=64,
+              mask_gen_kwargs=BIG_LAMA_MASKS, transform_variant='distortions',
+              seed=5, dataloader_kwargs=dict(batch_size=3, shuffle=True,
+                                             num_workers=num_workers, seed=5))
+    ours = tdatasets.make_default_train_dataloader(**kw)
+    theirs = jdatasets.make_default_train_dataloader(**kw)
+    assert len(ours) == len(theirs) == 2
+    for epoch in range(2):
+        ours.set_epoch(epoch)
+        theirs.set_epoch(epoch)
+        pairs = list(zip(ours, theirs))
+        assert len(pairs) == 2
+        for a, b in pairs:
+            assert sorted(a) == sorted(b) == ['image', 'mask']
+            for k in a:
+                assert a[k].shape == b[k].shape and a[k].dtype == b[k].dtype
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    with pytest.raises(NotImplementedError, match='default_web'):
+        tdatasets.make_default_train_dataloader(kind='default_web', **kw)
+
+
+def test_save_config_matches_jax(tmp_path):
+    config_dir = os.path.join(REPO, 'configs', 'training')
+    overrides = ['location.data_root_dir=/d', 'data.batch_size=10']
+    tconfig.save_config(tconfig.compose(config_dir, 'big-lama', overrides),
+                        str(tmp_path / 'ours.yaml'))
+    jconfig.save_config(jconfig.compose(config_dir, 'big-lama', overrides),
+                        str(tmp_path / 'theirs.yaml'))
+    assert (tmp_path / 'ours.yaml').read_text() == \
+        (tmp_path / 'theirs.yaml').read_text()

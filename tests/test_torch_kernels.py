@@ -65,6 +65,74 @@ def test_reflect_conv_plain_matches_pallas_interpret(name, shape, c_out,
                                atol=ATOL)
 
 
+@pytest.mark.parametrize('k,s,h,w,c,co', [
+    (3, 1, 32, 128, 8, 16),
+    (3, 2, 64, 128, 8, 16),
+    (7, 1, 32, 128, 8, 16),
+])
+def test_halo_conv_plain_matches_pallas_interpret(k, s, h, w, c, co):
+    """Kernel 7's plain version (its wrapper on a CPU tensor) against
+    halo_conv_reflect_tiled in interpret mode, in the TPU envelope."""
+    from lama_tpu.ops.pallas import halo_conv as jhc
+    from lama_tpu_torch.ops.kernels import halo_conv as thc
+    rng = np.random.RandomState(k + s)
+    x = rng.randn(1, h, w, c).astype(np.float32)
+    kern = (rng.randn(k, k, c, co) * 0.1).astype(np.float32)
+    bias = rng.randn(co).astype(np.float32)
+    ref = jhc.halo_conv_reflect_tiled(jnp.asarray(x), jnp.asarray(kern),
+                                      bias=jnp.asarray(bias), stride=s,
+                                      dtype=jnp.float32, interpret=True)
+    weight = torch.from_numpy(np.ascontiguousarray(
+        np.transpose(kern, (3, 2, 0, 1))))
+    before = thc.halo_conv_reflect_tiled.launches
+    out = thc.halo_conv_reflect_tiled(_nchw(x), weight, torch.from_numpy(bias),
+                                      stride=s)
+    assert thc.halo_conv_reflect_tiled.launches == before   # CPU: plain
+    np.testing.assert_allclose(_nhwc(out), np.asarray(ref), rtol=RTOL,
+                               atol=1e-4)
+
+
+def test_halo_conv_envelope_drops_the_tpu_tiling():
+    """Every TPU-envelope shape is in the port's; the stem (C = 4) and odd
+    sides, outside the TPU's C % 8, W % 128 and H % (16 s), are in it too."""
+    from lama_tpu.ops.pallas import halo_conv as jhc
+    from lama_tpu_torch.ops.kernels import halo_conv as thc
+    for k, s, h, w, c, co in [(3, 1, 32, 128, 8, 16), (7, 2, 64, 256, 16, 8)]:
+        assert jhc.halo_conv_reflect_tiled_supported(h, w, c, co, k, s)
+        assert thc.halo_conv_reflect_tiled_supported(h, w, c, co, k, s)
+    assert not jhc.halo_conv_reflect_tiled_supported(512, 512, 4, 64, 7, 1)
+    assert thc.halo_conv_reflect_tiled_supported(512, 512, 4, 64, 7, 1)
+    assert thc.halo_conv_reflect_tiled_supported(1000, 761, 4, 64, 7, 1)
+    assert not thc.halo_conv_reflect_tiled_supported(3, 64, 4, 64, 7, 1)
+    assert not thc.halo_conv_reflect_tiled_supported(64, 64, 4, 64, 5, 1)
+
+
+def test_stem_dispatches_to_the_tiled_halo_conv():
+    """ops/conv.py sends the 7x7 4 -> 64 stem and 3x3 stride-2 convs
+    outside kernel 4's envelope to kernel 7, keeps kernels 2-5 on their
+    shapes, and leaves 3x3 stride-1 convs outside cols/taps stock."""
+    from lama_tpu_torch.ops import conv
+    from lama_tpu_torch.ops.kernels import halo_conv as thc
+
+    def pick(c, co, h, k, s):
+        x = torch.empty(1, c, h, h)
+        return conv.kernel_for(x, torch.empty(co, c, k, k), s, k // 2, 1, 1,
+                               'reflect')
+
+    stem = pick(4, 64, 256, 7, 1)
+    assert stem.func is thc.halo_conv_reflect_tiled and stem.keywords == {'stride': 1}
+    small_down = pick(8, 16, 64, 3, 2)
+    assert small_down.func is thc.halo_conv_reflect_tiled
+    assert small_down.keywords == {'stride': 2}
+    assert pick(64, 128, 64, 3, 2) is trc.reflect_down_conv3x3
+    assert pick(64, 3, 64, 7, 1) is trc.reflect_out_conv7x7
+    assert pick(128, 128, 64, 3, 1) is trc.reflect_conv3x3_cols
+    assert pick(128, 384, 64, 3, 1) is trc.reflect_conv3x3_taps
+    assert pick(8, 16, 64, 3, 1) is None
+    assert conv.kernel_for(torch.empty(1, 4, 64, 64), torch.empty(64, 4, 7, 7),
+                           1, 3, 1, 1, 'zeros') is None
+
+
 @pytest.mark.parametrize('h,w,c,c_out', [(64, 64, 128, 128), (64, 64, 384, 128),
                                          (64, 64, 128, 384), (64, 48, 128, 128),
                                          (64, 64, 192, 128), (512, 512, 64, 3)])

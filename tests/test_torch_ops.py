@@ -94,8 +94,12 @@ def test_batchnorm_eval(dtype):
     tol = dict(rtol=RTOL, atol=ATOL) if dtype == torch.float32 else \
         dict(rtol=1e-2, atol=1e-2)   # the bf16 input and output roundings
     np.testing.assert_allclose(_nhwc(out.float()), np.asarray(ref), **tol)
-    with pytest.raises(NotImplementedError):
-        bn.train()(_nchw(x))
+    # train mode (held to the JAX function in tests/test_torch_train_parts.py)
+    # normalises with the batch's statistics, not these
+    with torch.no_grad():
+        y = bn.train()(_nchw(x)).float()
+    assert float((y - out.float()).abs().max()) > 0.1
+    np.testing.assert_allclose(y.mean(dim=(0, 2, 3)).numpy(), bias, atol=1e-5)
 
 
 @pytest.mark.parametrize('h,w', [(8, 8), (12, 10), (7, 9)])

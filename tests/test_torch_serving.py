@@ -169,10 +169,20 @@ def test_port_imports_no_jax():
 
 
 def test_port_and_chip_smoke_import_nothing_of_lama_tpu():
-    """The port and chip_smoke.py load no module of lama_tpu, jax or flax,
-    also while chip_smoke.py reads the big-lama config."""
+    """The port (its serving, refining and training entry points and
+    modules) and chip_smoke.py load no module of lama_tpu, jax or flax, also
+    while chip_smoke.py reads the big-lama config."""
     code = ('import sys; import lama_tpu_torch, lama_tpu_torch.serving, '
             'lama_tpu_torch.predict, lama_tpu_torch.evaluation.refinement, '
+            'lama_tpu_torch.train, lama_tpu_torch.training.trainer, '
+            'lama_tpu_torch.training.step, lama_tpu_torch.training.state, '
+            'lama_tpu_torch.training.checkpoint, '
+            'lama_tpu_torch.training.visualizers, '
+            'lama_tpu_torch.losses.perceptual, lama_tpu_torch.losses.adversarial, '
+            'lama_tpu_torch.losses.feature_matching, '
+            'lama_tpu_torch.models.pix2pixhd, lama_tpu_torch.models.aux.resnet, '
+            'lama_tpu_torch.data.masks, lama_tpu_torch.data.transforms, '
+            'lama_tpu_torch.utils.ramps, lama_tpu_torch.ops.kernels.halo_conv, '
             'chip_smoke; chip_smoke.big_lama_kwargs(); '
             'print(sorted(m for m in sys.modules if m.split(".")[0] in '
             '("lama_tpu", "jax", "flax", "jaxlib")))')
