@@ -13,12 +13,14 @@ version):
      and the stem at 512^2), at the refine phase's (batch 1; the 1024^2
      image's 128x128 bottleneck, the 1000x760 image's odd 125x95 and 63x48
      bottlenecks, its 1000x760 and 504x384 inputs; the stem at 1024^2 and
-     1000x760), at the train phase's (the stem at batch 10, 256^2) and, for
-     the tiled halo conv, at each kernel size and stride; fp32 (TF32 off)
-     and bf16, against its plain PyTorch version on the same inputs, with
-     the median time of each (CUDA events) and its bound (the least time
-     for its bytes or its FLOP on an H100); then, in fp32, each kernel's
-     gradients through its autograd wrapper against plain autograd;
+     1000x760), at the train phase's (the stem at batch 10, 256^2), for
+     the tiled halo conv at each kernel size and stride, and for the 3x3
+     halo conv (kernel 6) at big-lama-regular's block convs (512 -> 512 at
+     b4 64^2 and b10 32^2) and a tiny odd shape; fp32 (TF32 off) and bf16,
+     against its plain PyTorch version on the same inputs, with the median
+     time of each (CUDA events) and its bound (the least time for its bytes
+     or its FLOP on an H100); then, in fp32, each kernel's gradients
+     through its autograd wrapper against plain autograd;
   4. serve: big-lama (ngf 64, 18 blocks, random weights from a seed) served
      by `python -m lama_tpu_torch.predict` (run in this process, as `-m`
      runs it) on synthetic PNGs: bf16 and fp32, wire fp32 and uint8. Checks
@@ -50,7 +52,17 @@ version):
      plain path's own spread, with planted faults as controls; the
      forward/backward split and device profile of one Adam step;
   9. throughput: img/s at 512^2, batch 16, bf16 and fp32, kernels vs plain,
-     and one profiled forward of each (idle share, top device kernels).
+     and one profiled forward of each (idle share, top device kernels);
+ 10. regular serve: big-lama-regular (the pix2pixHD GlobalGenerator, ngf 64,
+     18 ResnetBlocks, random weights from a seed) served by the predict
+     CLI as in phase 4, each forward launching kernel 6 36 times, the stem
+     and the head once and no other kernel; refine=true on its model dir
+     refused;
+ 11. regular generator: phases 7 and 9 for big-lama-regular;
+ 12. regular train: `python -m lama_tpu_torch.train -cn big-lama-regular`
+     as in phase 6 (bf16 and fp32, 4 steps each, 2 warm up; per step
+     kernel 6 72, stem 2, head 2, the others 0), its checkpoint served, and
+     the fp32 G-step check with the stem's gradient dropped as the control.
 Prints the `kernels` JSON line, then, as its last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device, and
 when run outside a checkout of the repository.
@@ -71,13 +83,21 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH = 4
 PER_FORWARD = {'reflect_conv3x3_cols': 36, 'reflect_conv3x3_taps': 72,
                'fused_fourier_unit': 36, 'reflect_out_conv7x7': 1,
-               'reflect_down_conv3x3': 4, 'halo_conv_reflect_tiled': 1}
+               'reflect_down_conv3x3': 4, 'halo_conv_reflect_tiled': 1,
+               'halo_conv3x3_reflect': 0}
 # the rest run in the rear stage
 FRONT_KERNELS = ('reflect_down_conv3x3', 'halo_conv_reflect_tiled')
 # per train step: two generator forwards in train mode (the G step and the
 # D step's re-forward), where the FourierUnit takes its plain path
 PER_TRAIN_STEP = dict({k: 2 * v for k, v in PER_FORWARD.items()},
                       fused_fourier_unit=0)
+# big-lama-regular (configs/training/big-lama-regular.yaml): two 3x3 reflect
+# 512 -> 512 convs in each of its 18 ResnetBlocks on kernel 6, the stem and
+# the head; its stride-2 downsamples are zero-padded (stock cuDNN)
+REGULAR_PER_FORWARD = dict({k: 0 for k in PER_FORWARD},
+                           halo_conv3x3_reflect=36, halo_conv_reflect_tiled=1,
+                           reflect_out_conv7x7=1)
+REGULAR_PER_TRAIN_STEP = {k: 2 * v for k, v in REGULAR_PER_FORWARD.items()}
 # bounds: fp32 kernel vs fp32 plain (summation order only); bf16 kernel on
 # bf16-rounded operands vs the fp32 plain output on the fp32 operands
 TOL = {'fp32': (1e-4, 1e-4), 'bf16': (2e-2, 2e-2)}
@@ -105,7 +125,8 @@ REFINE_CONTROL_EPS = (1e-3, 1e-2, 1e-1)
 REFINE_PASS_SIZES = ((1024, 1024), (1000, 760), (504, 384))
 N_ITERS = 15      # the refiner's default (configs/prediction/default.yaml)
 SOURCES = {'fused_fourier_unit': 'lama_tpu_torch/csrc/fourier_unit.cu',
-           'halo_conv_reflect_tiled': 'lama_tpu_torch/csrc/halo_conv.cu'}
+           'halo_conv_reflect_tiled': 'lama_tpu_torch/csrc/halo_conv.cu',
+           'halo_conv3x3_reflect': 'lama_tpu_torch/csrc/halo_conv.cu'}
 SOURCES.update({k: 'lama_tpu_torch/csrc/reflect_conv.cu' for k in (
     'reflect_conv3x3_cols', 'reflect_conv3x3_taps', 'reflect_out_conv7x7',
     'reflect_down_conv3x3')})
@@ -236,6 +257,14 @@ def kernel_cases(gen):
         ('halo_conv_reflect_tiled', 'k3s2',
          conv_case(32, 64, 255, 3, True, b=2, w=129)),
         ('halo_conv_reflect_tiled', 'k7s2', conv_case(8, 24, 128, 7, True)),
+        # kernel 6: big-lama-regular's ResnetBlock convs at serving (b4
+        # 64^2, with bias) and training (b10 32^2), then tiny odd widths
+        # and sides (channel tails, partial tiles)
+        ('halo_conv3x3_reflect', 'block', conv_case(512, 512, 64, 3, True)),
+        ('halo_conv3x3_reflect', 'train_block',
+         conv_case(512, 512, 32, 3, False, b=10)),
+        ('halo_conv3x3_reflect', 'tiny_odd',
+         conv_case(24, 40, 37, 3, True, b=2, w=29)),
     ]
     src = 'lama_tpu/ops/pallas/'
 
@@ -258,7 +287,9 @@ def kernel_cases(gen):
                                     rc.reflect_down_conv3x3,
                                     rc.reflect_down_conv3x3_plain),
            'halo_conv_reflect_tiled': ('halo_conv.py:158', halo,
-                                       rc.reflect_conv_plain)}
+                                       rc.reflect_conv_plain),
+           'halo_conv3x3_reflect': ('halo_conv.py:53', hc.halo_conv3x3_reflect,
+                                    hc.halo_conv3x3_reflect_plain)}
     out = []
     for name, role, args in cases:
         tpu, kfn, pfn = fns[name]
@@ -340,11 +371,13 @@ def kernels_vs_plain(gen):
 def kernel_gradients(gen, rows):
     """fp32 gradients of a linear loss through each kernel's wrapper vs
     plain autograd, on the first case of each kernel (of each kernel size
-    and stride, for the tiled halo conv)."""
+    and stride, for the tiled halo conv; every case of the 3x3 halo
+    conv)."""
     import torch
     seen = set()
     for name, _, role, kfn, pfn, args in kernel_cases(gen):
-        key = (name, args[1].shape[-1], case_stride(name, role))
+        key = (name, args[1].shape[-1], case_stride(name, role),
+               role if name == 'halo_conv3x3_reflect' else '')
         if key in seen:   # the first case of each kernel (and k, stride)
             continue
         seen.add(key)
@@ -379,12 +412,12 @@ def kernel_gradients(gen, rows):
                 row['grad_max_rel_err'] = worst
 
 
-def big_lama_kwargs():
-    """big-lama's generator section (configs/training/big-lama.yaml), read
-    by the port's own config code."""
+def big_lama_kwargs(name='big-lama'):
+    """The generator section of configs/training/<name>.yaml (big-lama,
+    big-lama-regular), read by the port's own config code."""
     from lama_tpu_torch.serving import generator_config
     return generator_config(os.path.join(REPO, 'configs', 'training',
-                                         'big-lama.yaml'))
+                                         name + '.yaml'))
 
 
 def random_state_dict(model, seed):
@@ -472,19 +505,26 @@ def kernel_wrappers():
                 reflect_out_conv7x7=rc.reflect_out_conv7x7,
                 fused_fourier_unit=fu.fused_fourier_unit,
                 reflect_down_conv3x3=rc.reflect_down_conv3x3,
-                halo_conv_reflect_tiled=hc.halo_conv_reflect_tiled)
+                halo_conv_reflect_tiled=hc.halo_conv_reflect_tiled,
+                halo_conv3x3_reflect=hc.halo_conv3x3_reflect)
 
 
-def serve(work, model_dir):
+GENERATOR_CLASSES = ('FFCResNetGenerator', 'GlobalGenerator')
+
+
+def serve(work, model_dir, per_forward=PER_FORWARD, label='big-lama'):
+    """The predict CLI on synthetic PNGs, bf16 and fp32, wire fp32 and
+    uint8: sizes, known pixels, bit-equal wires, and `per_forward` launches
+    of each kernel per generator forward. Returns the launch counts by
+    precision."""
     import torch
-    from lama_tpu_torch.models.ffc import FFCResNetGenerator
 
     indir = os.path.join(work, 'in')
     sizes = write_images(indir, np.random.RandomState(0))
     forwards = [0]
 
     def count_forward(module, inputs, output):
-        if isinstance(module, FFCResNetGenerator):
+        if type(module).__name__ in GENERATOR_CLASSES:
             forwards[0] += 1
 
     hook = torch.nn.modules.module.register_module_forward_hook(count_forward)
@@ -492,7 +532,7 @@ def serve(work, model_dir):
     try:
         for precision, wire in (('bf16', 'fp32'), ('fp32', 'fp32'),
                                 ('bf16', 'uint8')):
-            outdir = os.path.join(work, f'out_{precision}_{wire}')
+            outdir = os.path.join(work, f'out_{label}_{precision}_{wire}')
             fns = reset_counts()
             forwards[0] = 0
             t0 = time.perf_counter()
@@ -502,10 +542,10 @@ def serve(work, model_dir):
             secs = time.perf_counter() - t0
             counts = {k: fn.launches for k, fn in fns.items()}
             n = forwards[0]
-            log(f'serve precision={precision} wire={wire}: {len(sizes)} images '
-                f'in {secs:.1f} s, {n} forwards, launches {counts}')
+            log(f'serve {label} precision={precision} wire={wire}: {len(sizes)} '
+                f'images in {secs:.1f} s, {n} forwards, launches {counts}')
             check(n > 0, 'no generator forward ran')
-            for k, per in PER_FORWARD.items():
+            for k, per in per_forward.items():
                 check(counts[k] == per * n,
                       f'{k}: {counts[k]} launches in {n} forwards, expected '
                       f'{per} per forward')
@@ -522,11 +562,30 @@ def serve(work, model_dir):
     finally:
         hook.remove()
     for i in range(len(sizes)):
-        a = read_png(os.path.join(work, 'out_bf16_fp32', f'img{i}_mask.png'))
-        b = read_png(os.path.join(work, 'out_bf16_uint8', f'img{i}_mask.png'))
+        a, b = (read_png(os.path.join(work, f'out_{label}_bf16_{wire}',
+                                      f'img{i}_mask.png'))
+                for wire in ('fp32', 'uint8'))
         check(np.array_equal(a, b), f'img{i}: uint8 and fp32 wires differ')
-    log('serve: outputs at original size, known pixels kept, wires bit-equal')
+    log(f'serve {label}: outputs at original size, known pixels kept, wires '
+        'bit-equal')
     return launches
+
+
+def refine_refused(work, model_dir):
+    """refine=true on a generator without front and rear stages raises
+    before any image is read (the CLI's main, called directly to see the
+    exception its `-m` entry logs)."""
+    from lama_tpu_torch import predict
+    outdir = os.path.join(work, 'refine_refused')
+    try:
+        predict.main([f'model.path={model_dir}', f'indir={work}/in',
+                      f'outdir={outdir}', 'device=cuda', 'refine=true'])
+    except ValueError as e:
+        check('front and rear' in str(e), f'refine refused with {e}')
+        check(not os.path.exists(outdir), 'refine wrote outputs')
+        log(f'refine=true on big-lama-regular refused: {e}')
+        return
+    raise RuntimeError('refine=true on big-lama-regular was not refused')
 
 
 def write_refine_images(root, rng):
@@ -846,13 +905,13 @@ def refine_step_split(gen, size=1024, iters=3, top=10):
     return dict(forward_ms=f, backward_ms=b, backward_share=b / (f + b))
 
 
-def make_generators(gen_kwargs, sd):
+def make_generators(gen_kwargs, sd, kind='ffc_resnet'):
     import torch
     from lama_tpu_torch.models import make_generator
     gens = {}
     for precision, dtype in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
         for kernels in ('cuda', 'plain'):
-            g = make_generator('ffc_resnet', dtype=dtype, kernels=kernels,
+            g = make_generator(kind, dtype=dtype, kernels=kernels,
                                **gen_kwargs)
             g.load_state_dict(sd, strict=True)
             gens[precision, kernels] = g.cuda().eval().requires_grad_(False)
@@ -868,7 +927,7 @@ def random_batch(b, size, seed):
     return torch.cat([img * (1 - mask), mask], 1).cuda()
 
 
-def generator_vs_plain(gens):
+def generator_vs_plain(gens, label='big-lama'):
     import torch
     x = random_batch(2, 512, 1)
     with torch.inference_mode():
@@ -879,13 +938,14 @@ def generator_vs_plain(gens):
     check(bool(torch.isfinite(out).all()), 'non-finite generator output')
     err = float((out - ref).abs().max())
     err_bf16 = float((bf.float() - ref).abs().max())
-    log(f'generator 512^2 b2 fp32: kernels vs plain max|d| {err:.3e} '
+    log(f'generator {label} 512^2 b2 fp32: kernels vs plain max|d| {err:.3e} '
         f'(atol {GEN_ATOL}); bf16 kernels vs fp32 plain max|d| {err_bf16:.3e}')
-    check(err <= GEN_ATOL, 'generator kernels vs plain outside tolerance')
+    check(err <= GEN_ATOL, f'generator {label} kernels vs plain outside '
+          'tolerance')
     return err
 
 
-def throughput(gens, card_line, iters=3):
+def throughput(gens, card_line, iters=3, label='big-lama'):
     import torch
     x = random_batch(16, 512, 2)
     res = {}
@@ -902,18 +962,19 @@ def throughput(gens, card_line, iters=3):
                 torch.cuda.synchronize()
                 times[kernels].append(16 * iters / (time.perf_counter() - t0))
             res[precision] = {k: float(np.mean(v)) for k, v in times.items()}
-            log(f'throughput big-lama 512^2 b16 {precision}: kernels '
+            log(f'throughput {label} 512^2 b16 {precision}: kernels '
                 f'{res[precision]["cuda"]:.2f} img/s, plain '
                 f'{res[precision]["plain"]:.2f} img/s ({card_line})')
             for kernels in ('cuda', 'plain'):
                 device_profile(lambda: gens[precision, kernels](x),
-                               f'big-lama 512^2 b16 {precision} {kernels}')
+                               f'{label} 512^2 b16 {precision} {kernels}')
     return res
 
 
 # ---------------------------------------------------------------- training
 TRAIN_BATCH, TRAIN_SIZE = 10, 256   # configs/training/data/abl-04-256-mh-dist
 TRAIN_STEPS, TRAIN_WARMUP = 6, 2    # steps per run; the first ones warm up
+REGULAR_TRAIN_STEPS = 4             # big-lama-regular: 2 timed after warm-up
 # one fp32 G step, kernels vs kernels='plain': the losses within
 # TRAIN_LOSS_RTOL; the G gradient within TRAIN_FLOOR_FACTOR times the plain
 # path's own spread when the images move by TRAIN_X_EPS (relative, gaussian;
@@ -946,12 +1007,14 @@ def _params_and_stats(trainer):
     return out
 
 
-def train_run(work, precision):
-    """`python -m lama_tpu_torch.train -cn big-lama` (in this process, as
-    `-m` runs it) at batch TRAIN_BATCH, TRAIN_SIZE^2, for TRAIN_STEPS steps
+def train_run(work, precision, config_name='big-lama', steps=TRAIN_STEPS,
+              per_step=PER_TRAIN_STEP):
+    """`python -m lama_tpu_torch.train -cn <config_name>` (in this process,
+    as `-m` runs it) at batch TRAIN_BATCH, TRAIN_SIZE^2, for `steps` steps
     of one epoch. The trainer's step is wrapped for the run: each step is
     synchronised before and after and timed, its metrics read, and its
-    launches counted. Returns the run's record and the trainer."""
+    launches counted (each must equal `per_step`). Returns the run's record
+    and the trainer."""
     import torch
     from lama_tpu_torch.training import step as step_mod
     from lama_tpu_torch.training import trainer as trainer_mod
@@ -977,13 +1040,13 @@ def train_run(work, precision):
         return fit(self, resume_from)
 
     data = os.path.join(work, 'train_data')
-    run_dir = os.path.join(work, f'train_{precision}')
-    argv = ['-cn', 'big-lama', f'location.data_root_dir={data}',
+    run_dir = os.path.join(work, f'train_{config_name}_{precision}')
+    argv = ['-cn', config_name, f'location.data_root_dir={data}',
             f'location.out_root_dir={work}', f'location.tb_dir={work}',
             f'location.pretrained_models={work}', f'run_dir={run_dir}',
             f'data.batch_size={TRAIN_BATCH}', f'data.train.out_size={TRAIN_SIZE}',
             'data.num_workers=4', 'trainer.kwargs.max_epochs=1',
-            f'trainer.kwargs.limit_train_batches={TRAIN_STEPS}',
+            f'trainer.kwargs.limit_train_batches={steps}',
             'trainer.kwargs.log_every_n_steps=1',
             f'trainer.kwargs.precision={"bf16" if precision == "bf16" else 32}',
             'losses.resnet_pl.allow_random_weights=true', 'device=cuda']
@@ -1002,23 +1065,24 @@ def train_run(work, precision):
     rec['run_dir'] = run_dir
     trainer = rec.pop('trainer')
     n = len(rec['step_ms'])
-    check(n == TRAIN_STEPS, f'train {precision}: {n} steps, expected {TRAIN_STEPS}')
+    label = f'{config_name} {precision}'
+    check(n == steps, f'train {label}: {n} steps, expected {steps}')
     for i, (m, c) in enumerate(zip(rec['metrics'], rec['counts'])):
         check(all(math.isfinite(v) for v in m.values()),
-              f'train {precision} step {i}: non-finite loss {m}')
-        check(c == PER_TRAIN_STEP,
-              f'train {precision} step {i}: launches {c}, expected {PER_TRAIN_STEP}')
+              f'train {label} step {i}: non-finite loss {m}')
+        check(c == per_step,
+              f'train {label} step {i}: launches {c}, expected {per_step}')
     after = _params_and_stats(trainer)
     for group in ('G.', 'D.'):
         for kind in ('weight', 'running_mean', 'running_var'):
             keys = [k for k in after if k.startswith(group) and k.endswith(kind)]
             moved = sum(not torch.equal(after[k], rec['before'][k]) for k in keys)
             check(keys and moved == len(keys),
-                  f'train {precision}: {len(keys) - moved} of {len(keys)} '
+                  f'train {label}: {len(keys) - moved} of {len(keys)} '
                   f'{group}*{kind} unchanged')
     timed = rec['step_ms'][TRAIN_WARMUP:]
     rec['ms_per_step'] = float(np.mean(timed))
-    log(f'train big-lama {precision} b{TRAIN_BATCH} {TRAIN_SIZE}^2: '
+    log(f'train {label} b{TRAIN_BATCH} {TRAIN_SIZE}^2: '
         f'{n} steps in {rec["seconds"]:.1f} s (run incl. setup), '
         f'{rec["ms_per_step"]:.1f} ms per step (mean of {len(timed)} after '
         f'{TRAIN_WARMUP} warm-up; all: '
@@ -1026,9 +1090,9 @@ def train_run(work, precision):
         + f'), peak memory {rec["peak_gib"]:.2f} GiB, launches per step '
         f'{rec["counts"][-1]}')
     first, last = rec['metrics'][0], rec['metrics'][-1]
-    log(f'train {precision} losses, step 0 -> {n - 1}: ' + ', '.join(
+    log(f'train {label} losses, step 0 -> {n - 1}: ' + ', '.join(
         f'{k} {first[k]:.4f} -> {last[k]:.4f}' for k in sorted(first)))
-    log(f'train {precision}: G and D weights and BN statistics all moved')
+    log(f'train {label}: G and D weights and BN statistics all moved')
     del rec['before']
     return rec, trainer
 
@@ -1045,7 +1109,7 @@ def run_module(name, argv):
         sys.argv = saved
 
 
-def train_step_split(trainer, image, mask, precision, iters=3):
+def train_step_split(trainer, image, mask, precision, iters=3, label='big-lama'):
     """Host ms of each phase of a train step (synchronised between phases),
     the mean over `iters` after one warm-up; then one whole step under
     torch.profiler."""
@@ -1089,12 +1153,13 @@ def train_step_split(trainer, image, mask, precision, iters=3):
     ms = {k: float(np.mean(v)) for k, v in times.items()}
     fwd = ms['G forward + losses'] + ms['G re-forward'] + ms['D forward + R1 + losses']
     bwd = ms['G backward'] + ms['D backward']
-    log(f'train step split {precision}: ' + ', '.join(
+    log(f'train step split {label} {precision}: ' + ', '.join(
         f'{k} {v:.1f} ms' for k, v in ms.items())
         + f'; forward {fwd:.1f} ms, backward {bwd:.1f} ms, backward share '
         f'{bwd / (fwd + bwd):.3f}')
     device_profile(lambda: step(st, image, mask),
-                   f'train step {precision} b{TRAIN_BATCH} {TRAIN_SIZE}^2', top=12)
+                   f'train step {label} {precision} b{TRAIN_BATCH} '
+                   f'{TRAIN_SIZE}^2', top=12)
     return dict(ms, forward_ms=fwd, backward_ms=bwd)
 
 
@@ -1112,7 +1177,8 @@ def train_gradient_vs_plain(trainer, image, mask):
     """fp32, one G step's objective and its gradient w.r.t. the generator,
     kernels vs kernels='plain' (the same weights, discriminator and batch),
     against the plain path's own spread; the stem's gradient dropped (its
-    output detached) is the planted control that must be rejected."""
+    conv's output detached: the FFC stem's l2l conv, the GlobalGenerator's
+    `model.1`) is the planted control that must be rejected."""
     import torch
     from lama_tpu_torch.models import make_generator
     st, step = trainer.state, trainer.step_fn
@@ -1126,8 +1192,10 @@ def train_gradient_vs_plain(trainer, image, mask):
     def grads(model, eps=0.0, drop_stem=False):
         img = image * (1 + eps * torch.randn(image.shape, generator=g).cuda()) \
             if eps else image
-        handle = (model.model[1].ffc.convl2l.register_forward_hook(
-            lambda m, i, o: o.detach()) if drop_stem else None)
+        stem = model.model[1]
+        stem = stem.ffc.convl2l if hasattr(stem, 'ffc') else stem
+        handle = (stem.register_forward_hook(lambda m, i, o: o.detach())
+                  if drop_stem else None)
         disc.requires_grad_(False)
         try:
             total, metrics = step.generator_loss(model, disc, img, mask)
@@ -1160,7 +1228,8 @@ def train_gradient_vs_plain(trainer, image, mask):
 
     ours_d = diff(ours)
     control = diff(grads(gen, drop_stem=True)[1])
-    log('train G step fp32 kernels vs plain: losses ' + ', '.join(
+    log(f'train G step {trainer.config.generator.kind} fp32 kernels vs '
+        'plain: losses ' + ', '.join(
         f'{k} {ours_m[k]:.6f}/{ref_m[k]:.6f}' for k in sorted(ref_m))
         + f'; gradient max|d|/max|g| {ours_d[0]:.3e}, per-tensor-normed '
         f'||d|| {ours_d[1]:.3e}, 1-cos {ours_d[2]:.3e}; plain vs plain with '
@@ -1180,7 +1249,7 @@ def serve_checkpoint(work, run_dir):
     """The trained run dir served by `python -m lama_tpu_torch.predict`
     (its last.ckpt) on the serve phase's images."""
     indir = os.path.join(work, 'in')
-    outdir = os.path.join(work, 'out_trained')
+    outdir = f'{run_dir}_served'
     run_predict([f'model.path={run_dir}', 'model.checkpoint=last.ckpt',
                  f'indir={indir}', f'outdir={outdir}', 'device=cuda',
                  f'batch_size={BATCH}', 'precision=bf16'])
@@ -1198,17 +1267,19 @@ def serve_checkpoint(work, run_dir):
     log(f'train: {run_dir}/models/last.ckpt served {n} images')
 
 
-def train(work):
+def train(work, config_name='big-lama', steps=TRAIN_STEPS,
+          per_step=PER_TRAIN_STEP):
     """The train phase: bf16 and fp32 runs, each step's losses finite and
     its launches counted, the weights moved; the phase split and a profiled
     step; the fp32 G step against the plain path; the checkpoint served."""
-    write_train_images(os.path.join(work, 'train_data'),
-                       TRAIN_BATCH * TRAIN_STEPS, np.random.RandomState(3))
+    write_train_images(os.path.join(work, 'train_data'), TRAIN_BATCH * steps,
+                       np.random.RandomState(3))
     out = {}
     for precision in ('bf16', 'fp32'):
-        rec, trainer = train_run(work, precision)
+        rec, trainer = train_run(work, precision, config_name, steps, per_step)
         image, mask = rec.pop('batch')
-        rec['split'] = train_step_split(trainer, image, mask, precision)
+        rec['split'] = train_step_split(trainer, image, mask, precision,
+                                        label=config_name)
         if precision == 'fp32':
             rec['gradient'] = train_gradient_vs_plain(trainer, image, mask)
         out[precision] = rec
@@ -1252,6 +1323,32 @@ def main():
     refine_gradient_vs_plain(gens)
     refine_step_split(gens['bf16', 'cuda'])
     throughput(gens, card_line)
+    del gens
+    torch.cuda.empty_cache()
+
+    # big-lama-regular: the GlobalGenerator, kernel 6 on its block convs
+    reg_kwargs = big_lama_kwargs('big-lama-regular')
+    reg_kind = reg_kwargs.pop('kind')
+    reg_sd = random_state_dict(make_generator(reg_kind, **reg_kwargs), seed=1)
+    with tempfile.TemporaryDirectory() as work:
+        model_dir = os.path.join(work, 'model_regular')
+        write_model_dir(model_dir, dict(kind=reg_kind, **reg_kwargs), reg_sd)
+        reg_launches = serve(work, model_dir, REGULAR_PER_FORWARD,
+                             'big-lama-regular')
+        refine_refused(work, model_dir)
+        reg_trained = train(work, 'big-lama-regular', REGULAR_TRAIN_STEPS,
+                            REGULAR_PER_TRAIN_STEP)
+    gens = make_generators(reg_kwargs, reg_sd, reg_kind)
+    generator_vs_plain(gens, 'big-lama-regular')
+    throughput(gens, card_line, label='big-lama-regular')
+    for row in rows:
+        name = row['name']
+        row['regular_launches'] = reg_launches[row['dtype']][name]
+        row['regular_train_launches'] = \
+            reg_trained[row['dtype']]['launches'][name]
+        if REGULAR_PER_FORWARD[name] and not PER_FORWARD[name]:
+            # kernel 6: its path is big-lama-regular's
+            row['launches'] = row['regular_launches']
     log(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -6,8 +6,10 @@ imports torch, never jax, and nothing of lama_tpu. The first slice serves
 big-lama: the FFC generator, its serving forward and the predict CLI; the
 second adds the multiscale refiner (`refine=true`), which runs Adam through
 the generator's rear stage; the third trains big-lama (`python -m
-lama_tpu_torch.train`). The TPU's Pallas kernels on those paths are
-rewritten by hand in CUDA for Hopper (sm_90a).
+lama_tpu_torch.train`); the fourth serves and trains the pix2pixHD
+GlobalGenerator family (lama-regular, big-lama-regular). The TPU's Pallas
+kernels on those paths, all seven, are rewritten by hand in CUDA for Hopper
+(sm_90a).
 
 Component map (counterparts in lama_tpu):
   lama_tpu_torch.ops           — pad, activations, BatchNorm (eval and
@@ -20,6 +22,7 @@ Component map (counterparts in lama_tpu):
                                  (lama_tpu.ops.pallas)
   lama_tpu_torch/csrc          — the CUDA sources, built with nvcc at first use
   lama_tpu_torch.models        — FFCResNetGenerator and its parts, the
+                                 GlobalGenerator and its ResnetBlock, the
                                  N-layer discriminator, the ResNet50-dilated
                                  encoder (lama_tpu.models)
   lama_tpu_torch.losses        — L1, feature matching, adversarial + R1,

@@ -2,10 +2,11 @@
 lama_tpu/training/convert.py).
 
 `state_dict_from_flax` turns the JAX package's {'params', 'batch_stats'}
-tree of the FFC generator, the N-layer discriminator or the ResNet encoder
-into reference-format tensors: conv kernels HWIO -> OIHW, the generator's
-ConvTranspose kernels HWIO -> IOHW, and a zero `num_batches_tracked` beside
-every BatchNorm, as bin/export_torch_checkpoint.py writes them.
+tree of the FFC generator, the GlobalGenerator, the N-layer discriminator or
+the ResNet encoder into reference-format tensors: conv kernels HWIO -> OIHW,
+the generator's ConvTranspose kernels HWIO -> IOHW, and a zero
+`num_batches_tracked` beside every BatchNorm, as
+bin/export_torch_checkpoint.py writes them.
 `load_checkpoint` reads a reference-format `.ckpt`.
 """
 import re
@@ -35,6 +36,16 @@ def transposed_conv_paths(n_downsampling: int, n_blocks: int) -> Set[str]:
     return {f'model_{base + 3 * i}' for i in range(n_downsampling)}
 
 
+def transposed_conv_paths_global_generator(n_downsampling: int, n_blocks: int,
+                                           extra_blocks: int = 0) -> Set[str]:
+    """Sequential entries of GlobalGenerator that are ConvTranspose2d; the
+    extra blocks are its dilated ResnetBlocks (copy of
+    lama_tpu/training/convert.py:58-63, with its caller's count of
+    :73-76)."""
+    base = 4 + 3 * n_downsampling + n_blocks + extra_blocks
+    return {f'model_{base + 3 * i}' for i in range(n_downsampling)}
+
+
 def _flatten(tree: Dict, prefix=()) -> Iterable[Tuple[Tuple[str, ...], Any]]:
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -44,13 +55,22 @@ def _flatten(tree: Dict, prefix=()) -> Iterable[Tuple[Tuple[str, ...], Any]]:
 
 
 def state_dict_from_flax(variables: Dict, n_downsampling: int = 0,
-                         n_blocks: int = 0) -> Dict[str, torch.Tensor]:
+                         n_blocks: int = 0, kind: str = 'ffc_resnet',
+                         extra_blocks: int = 0) -> Dict[str, torch.Tensor]:
     """{'params', 'batch_stats'} of a lama_tpu model (numpy or array
-    leaves) -> the port's state_dict, float32 CPU tensors. For the
-    FFCResNetGenerator give its n_downsampling and n_blocks, which place
-    its ConvTranspose layers; the discriminator and the ResNet encoder
-    have none (the defaults)."""
-    tconv = transposed_conv_paths(n_downsampling, n_blocks)
+    leaves) -> the port's state_dict, float32 CPU tensors. For a generator
+    give its n_downsampling and n_blocks, which place its ConvTranspose
+    layers, and its `kind` (ffc_resnet or pix2pixhd_global; for the latter
+    also `extra_blocks`, the sum of its dilated_blocks_n*); the
+    discriminator and the ResNet encoder have none (the defaults)."""
+    if kind == 'pix2pixhd_global':
+        tconv = transposed_conv_paths_global_generator(
+            n_downsampling, n_blocks, extra_blocks)
+    elif kind == 'ffc_resnet':
+        tconv = transposed_conv_paths(n_downsampling, n_blocks)
+    else:
+        raise ValueError(f'kind={kind!r}: expected ffc_resnet or '
+                         'pix2pixhd_global')
     out: Dict[str, torch.Tensor] = {}
     for path, val in _flatten(dict(variables.get('params', {}))):
         *mpath, leaf = path

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..models.ffc import FFCResNetGenerator
 from ..ops.blur import gaussian_blur2d
 from ..ops.resize import interpolate
 
@@ -159,6 +160,17 @@ def _get_image_mask_pyramid(image, mask, unpad_to_size, min_side, max_scales,
     return images[::-1], masks[::-1]
 
 
+def check_refinable(generator):
+    """The refiner optimises the features between the generator's front and
+    rear stages (the JAX refiner calls `stage='front'`,
+    lama_tpu/evaluation/refinement.py:106); only the FFC generator has
+    them. Raises ValueError for any other generator."""
+    if not isinstance(generator, FFCResNetGenerator):
+        raise ValueError(
+            f'refine=true needs a generator with front and rear stages '
+            f'(ffc_resnet); {type(generator).__name__} has none')
+
+
 def refine_predict(image, mask, generator, modulo=8, n_iters=15, lr=0.002,
                    min_side=512, max_scales=3, px_budget=1800000,
                    unpad_to_size=None, gpu_ids=None, mesh=None,
@@ -179,6 +191,7 @@ def refine_predict(image, mask, generator, modulo=8, n_iters=15, lr=0.002,
     if mesh is not None:
         raise NotImplementedError('refiner mesh (spatial sharding) is not '
                                   'ported yet (ROADMAP queue 1 item 11)')
+    check_refinable(generator)
     device = next(generator.parameters()).device
     image = torch.as_tensor(image).to(device, torch.float32)
     mask = torch.as_tensor(mask).to(device, torch.float32)

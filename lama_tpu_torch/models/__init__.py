@@ -1,7 +1,8 @@
 """Model factories (counterpart of lama_tpu/models/__init__.py:14-42); the
-port has the FFC generator and the pix2pixHD N-layer discriminator."""
+port has the FFC generator, the pix2pixHD GlobalGenerator and the pix2pixHD
+N-layer discriminator."""
 from .ffc import FFCResNetGenerator
-from .pix2pixhd import NLayerDiscriminator
+from .pix2pixhd import GlobalGenerator, NLayerDiscriminator
 
 
 def make_generator(kind, **kwargs):
@@ -9,6 +10,8 @@ def make_generator(kind, **kwargs):
     generator's keyword arguments (plus `dtype` and `kernels`)."""
     if kind == 'ffc_resnet':
         return FFCResNetGenerator(**kwargs)
+    if kind == 'pix2pixhd_global':
+        return GlobalGenerator(**kwargs)
     raise NotImplementedError(f'generator kind {kind!r} is not ported yet '
                               '(ROADMAP queue 1 item 12)')
 

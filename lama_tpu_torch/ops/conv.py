@@ -4,15 +4,20 @@
 `conv2d` sends a reflect-padded conv whose shape is in a kernel's envelope
 to that kernel (ops/kernels/reflect_conv.py, ops/kernels/halo_conv.py):
   3x3 s1, C = C_out = 128                          -> reflect_conv3x3_cols
-  3x3 s1, C and C_out multiples of 128             -> reflect_conv3x3_taps
+  3x3 s1, C != C_out, both multiples of 128        -> reflect_conv3x3_taps
+  every other 3x3 s1, H, W >= 2                    -> halo_conv3x3_reflect
   3x3 s2, 2C and C_out multiples of 128, H, W even -> reflect_down_conv3x3
   7x7 s1, C_out <= 8, C <= 128, C % 8 == 0         -> reflect_out_conv7x7
   other 7x7 (s1, s2) and 3x3 s2, H, W > k // 2     -> halo_conv_reflect_tiled
-So every reflect conv of the generator runs on a kernel: the 7x7 4->64 stem
-on the tiled halo conv, the four stride-2 downsamples on the down conv. A
-3x3 stride-1 conv outside cols/taps (kernel 6's place, not on big-lama's
-path) and the 1x1 convs are `F.pad` + `F.conv2d`, as the JAX package leaves
-them to XLA (conv.py:285-301).
+The 3x3 stride-1 order is the JAX conv2d's (conv.py:258-281: cols, then the
+halo conv), with taps kept on the FFC's l2g (128 -> 384) and g2l (384 ->
+128) convs it was written for (reflect_conv.py:427); the JAX dispatch never
+routes to taps. So every reflect conv of both generator families runs on a
+kernel: big-lama's on kernels 1-5 and 7 (the 7x7 4->64 stem on the tiled
+halo conv), the GlobalGenerator's ResnetBlock convs (512 -> 512) on the 3x3
+halo conv. Its zero-padded stride-2 downsamples, the ConvTranspose layers
+and the 1x1 convs are `F.conv2d` (after `F.pad` for other pad modes), as the
+JAX package leaves them to XLA (conv.py:285-301).
 `kernels='plain'` sends the kernels' shapes to their plain version too; it
 is how the tests and chip_smoke.py compare the two.
 """
@@ -42,8 +47,8 @@ def check_kernels(kernels: str) -> str:
 
 def kernel_for(x, weight, stride, padding, dilation, groups, padding_mode):
     """The kernel wrapper (ops/kernels/reflect_conv.py or halo_conv.py,
-    the latter with its stride bound) that takes this conv, or None when it
-    goes to the stock conv."""
+    the tiled halo conv with its stride bound) that takes this conv, or None
+    when it goes to the stock conv."""
     stride, padding, dilation = _pair(stride), _pair(padding), _pair(dilation)
     kh, kw = weight.shape[-2:]
     shape = (x.shape[2], x.shape[3], x.shape[1], weight.shape[0])
@@ -55,11 +60,13 @@ def kernel_for(x, weight, stride, padding, dilation, groups, padding_mode):
     if stride == (2, 2):
         if kh == 3 and rc.reflect_down_conv3x3_supported(*shape):
             return rc.reflect_down_conv3x3
-    elif kh == 3:   # 3x3 stride 1 outside cols/taps: kernel 6's place, stock
+    elif kh == 3:
         if rc.reflect_conv3x3_cols_supported(*shape):
             return rc.reflect_conv3x3_cols
-        if rc.reflect_conv3x3_taps_supported(*shape):
+        if shape[2] != shape[3] and rc.reflect_conv3x3_taps_supported(*shape):
             return rc.reflect_conv3x3_taps
+        if hc.halo_conv3x3_reflect_supported(*shape):
+            return hc.halo_conv3x3_reflect
         return None
     elif kh == 7 and rc.reflect_out_conv7x7_supported(*shape):
         return rc.reflect_out_conv7x7

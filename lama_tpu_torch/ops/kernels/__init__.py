@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
-`reflect_conv` and `fourier_unit` wrap the CUDA sources under
+`reflect_conv`, `halo_conv` and `fourier_unit` wrap the CUDA sources under
 `lama_tpu_torch/csrc/`, which `_build` compiles with nvcc at first use.
 `_autograd.differentiable` gives every kernel a backward pass: the VJP of
 its plain version.

@@ -7,15 +7,18 @@ Usage:
       [wire=fp32|uint8] [out_key=inpainted|predicted_image] [refine=true]
 
 It takes the same key=value overrides of configs/prediction/default.yaml.
-<run_dir>/config.yaml names the generator; <run_dir>/models/<checkpoint>
-is a reference-format .ckpt. Images are padded to `dataset.pad_out_to_modulo`
-and then to `pad_to_bucket` (numpy 'symmetric'), grouped `batch_size` at a
-time by padded shape, and cropped back on write. `device` defaults to cuda
-(the YAML's `tpu` reads as cuda here) and the run fails without a card
-unless device=cpu is asked for. refine=true runs the multiscale refiner
-(evaluation/refinement.py) one image at a time with the YAML's `refiner:`
-options, and writes the refined size, which px_budget may have scaled down;
-it refuses precision=int8, as bin/predict.py does. spatial_shards,
+<run_dir>/config.yaml names the generator: ffc_resnet (big-lama) or
+pix2pixhd_global (lama-regular, big-lama-regular). <run_dir>/models/
+<checkpoint> is a reference-format .ckpt. Images are padded to
+`dataset.pad_out_to_modulo` and then to `pad_to_bucket` (numpy
+'symmetric'), grouped `batch_size` at a time by padded shape, and cropped
+back on write. `device` defaults to cuda (the YAML's `tpu` reads as cuda
+here) and the run fails without a card unless device=cpu is asked for.
+refine=true runs the multiscale refiner (evaluation/refinement.py) one image
+at a time with the YAML's `refiner:` options, and writes the refined size,
+which px_budget may have scaled down; it refuses precision=int8, as
+bin/predict.py does, and a generator without front and rear stages (every
+kind but ffc_resnet) before any image is read. spatial_shards,
 quant_calibration and precision=int8 are later ROADMAP items and raise.
 """
 import logging
@@ -29,7 +32,7 @@ import torch
 from .config import compose
 from .data.datasets import make_default_val_dataset
 from .data.io import save_image
-from .evaluation.refinement import refine_predict
+from .evaluation.refinement import check_refinable, refine_predict
 from .serving import bucket_shape, load_serving_model, make_inpaint_forward
 
 LOGGER = logging.getLogger(__name__)
@@ -80,6 +83,8 @@ def main(argv):
         spectral_bf16_store=bool(cfg.get('spectral_bf16_store', False)),
         s2d_out_head=bool(cfg.get('s2d_out_head', False)),
         xfold_stem=bool(cfg.get('xfold_stem', False)))
+    if use_refine:
+        check_refinable(generator)
     wire = str(cfg.get('wire', 'fp32'))
     predict = make_inpaint_forward(generator, wire=wire,
                                    out_key=str(cfg.get('out_key', 'inpainted')))

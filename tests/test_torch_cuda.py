@@ -11,7 +11,8 @@ Gradients through a kernel's autograd wrapper (backward: the plain
 version's VJP) vs plain autograd, fp32, under a linear loss, so both
 backwards see the same output gradient: rtol 1e-4 / atol 1e-5 times the
 largest gradient (cuDNN's algorithm choice only).
-chip_smoke.py holds the same kernels at the big-lama shapes.
+chip_smoke.py holds the same kernels at the big-lama and big-lama-regular
+shapes.
 """
 import pytest
 import torch
@@ -94,6 +95,31 @@ def test_halo_conv_kernel(device, dtype, c, co, h, w, k, s, bias):
     out = hc.halo_conv_reflect_tiled(x.to(dtype), wt, b, stride=s)
     torch.cuda.synchronize()
     assert hc.halo_conv_reflect_tiled.launches == before + 1
+    assert out.dtype == dtype and out.shape == ref.shape
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b,c,co,h,w,bias', [
+    (2, 512, 512, 32, 32, True),       # the GlobalGenerator's block convs
+    (2, 512, 512, 13, 11, False),      # partial tiles
+    (2, 64, 64, 16, 16, True),
+    (2, 24, 40, 37, 29, True),         # channel chunk and block tails
+    (1, 3, 5, 2, 9, False),            # the smallest input a pad of 1 takes
+    (2, 8, 8, 16, 16, False),
+])
+def test_halo_conv3x3_kernel(device, dtype, b, c, co, h, w, bias):
+    from lama_tpu_torch.ops.kernels import halo_conv as hc
+    g = torch.Generator().manual_seed(7)
+    x = torch.rand(b, c, h, w, generator=g).to(device)
+    wt = ((torch.rand(co, c, 3, 3, generator=g) * 2 - 1)
+          * (c * 9) ** -0.5).to(device)
+    bb = torch.rand(co, generator=g).to(device) if bias else None
+    ref = hc.halo_conv3x3_reflect_plain(x, wt, bb)
+    before = hc.halo_conv3x3_reflect.launches
+    out = hc.halo_conv3x3_reflect(x.to(dtype), wt, bb)
+    torch.cuda.synchronize()
+    assert hc.halo_conv3x3_reflect.launches == before + 1
     assert out.dtype == dtype and out.shape == ref.shape
     _close(out, ref, dtype)
 
@@ -189,6 +215,24 @@ def test_halo_conv_gradients(device, k, s):
     _grad_close(ours, ref)
 
 
+@pytest.mark.parametrize('c,co,h', [(512, 512, 16), (24, 40, 13)])
+def test_halo_conv3x3_gradients(device, c, co, h):
+    from lama_tpu_torch.ops.kernels import halo_conv as hc
+    g = torch.Generator().manual_seed(8)
+    x = torch.rand(2, c, h, h, generator=g).to(device).requires_grad_()
+    wt = ((torch.rand(co, c, 3, 3, generator=g) * 2 - 1)
+          * (c * 9) ** -0.5).to(device).requires_grad_()
+    b = torch.rand(co, generator=g).to(device).requires_grad_()
+    r = torch.rand(2, co, h, h, generator=g).to(device)
+    before = hc.halo_conv3x3_reflect.launches
+    ours = torch.autograd.grad(
+        (hc.halo_conv3x3_reflect(x, wt, b) * r).sum(), [x, wt, b])
+    assert hc.halo_conv3x3_reflect.launches == before + 1
+    ref = torch.autograd.grad(
+        (hc.halo_conv3x3_reflect_plain(x, wt, b) * r).sum(), [x, wt, b])
+    _grad_close(ours, ref)
+
+
 def test_fourier_unit_gradients(device):
     g = torch.Generator().manual_seed(4)
     c = co = 16
@@ -228,11 +272,38 @@ def test_generator_kernels_match_plain(device):
     from lama_tpu_torch.ops.kernels import halo_conv as hc
     fns = (rc.reflect_conv3x3_cols, rc.reflect_conv3x3_taps,
            fu.fused_fourier_unit, rc.reflect_out_conv7x7,
-           rc.reflect_down_conv3x3, hc.halo_conv_reflect_tiled)
+           rc.reflect_down_conv3x3, hc.halo_conv_reflect_tiled,
+           hc.halo_conv3x3_reflect)
     before = [fn.launches for fn in fns]
     with torch.inference_mode():
         ref = plain.to(device)(x.to(device))
         out = ours.to(device)(x.to(device))
     after = [fn.launches for fn in fns]
-    assert [a - b for a, b in zip(after, before)] == [2, 4, 2, 1, 4, 1]
+    # kernel 6 takes no conv of the FFC generator
+    assert [a - b for a, b in zip(after, before)] == [2, 4, 2, 1, 4, 1, 0]
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_global_generator_kernels_match_plain(device):
+    """A GlobalGenerator at the family's widths (ngf 64, 3 downsamplings:
+    512-channel blocks), one block: kernels 5, 6 and 7 run, the others
+    not."""
+    from lama_tpu_torch.models import make_generator
+    from lama_tpu_torch.ops.kernels import halo_conv as hc
+    kw = dict(input_nc=4, output_nc=3, ngf=64, n_downsampling=3, n_blocks=1,
+              add_out_act='sigmoid')
+    plain = make_generator('pix2pixhd_global', kernels='plain', **kw).eval()
+    ours = make_generator('pix2pixhd_global', **kw).eval()
+    ours.load_state_dict(plain.state_dict())
+    x = torch.rand(2, 4, 128, 128, generator=torch.Generator().manual_seed(2))
+    fns = (rc.reflect_conv3x3_cols, rc.reflect_conv3x3_taps,
+           fu.fused_fourier_unit, rc.reflect_out_conv7x7,
+           rc.reflect_down_conv3x3, hc.halo_conv_reflect_tiled,
+           hc.halo_conv3x3_reflect)
+    before = [fn.launches for fn in fns]
+    with torch.inference_mode():
+        ref = plain.to(device)(x.to(device))
+        out = ours.to(device)(x.to(device))
+    after = [fn.launches for fn in fns]
+    assert [a - b for a, b in zip(after, before)] == [0, 0, 0, 1, 0, 1, 2]
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)

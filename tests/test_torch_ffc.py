@@ -119,7 +119,7 @@ def test_gated_ffc_raises():
     with pytest.raises(NotImplementedError):
         ffc.FFC(8, 8, 3, 0.5, 0.5, padding=1, gated=True, enable_lfu=False)
     with pytest.raises(NotImplementedError):
-        make_generator('pix2pixhd_global')
+        make_generator('pix2pixhd_multidilated')
 
 
 def test_train_mode_raises(jax_model):

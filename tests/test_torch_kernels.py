@@ -6,7 +6,8 @@ same numpy inputs, at small envelope shapes, rtol 1e-4 / atol 1e-5 (fp32;
 the two differ only in summation order). The FourierUnit kernel's stage
 plan (shapes, strides, twiddle tables) is replayed in numpy and held against
 the plain version, which covers what the CUDA source takes from Python. The
-CUDA sources themselves build and run only on the card (chip_smoke.py).
+CUDA sources themselves build and run only on the card (chip_smoke.py,
+tests/test_torch_cuda.py).
 """
 import os
 
@@ -107,10 +108,71 @@ def test_halo_conv_envelope_drops_the_tpu_tiling():
     assert not thc.halo_conv_reflect_tiled_supported(64, 64, 4, 64, 5, 1)
 
 
+@pytest.mark.parametrize('b,h,w,c,co', [(2, 16, 16, 8, 8), (1, 12, 20, 24, 40),
+                                        (2, 16, 16, 64, 64)])
+def test_halo_conv3x3_plain_matches_pallas_interpret(b, h, w, c, co):
+    """Kernel 6's plain version (its wrapper on a CPU tensor) against
+    halo_conv3x3_reflect's kernel body in interpret mode (the wrapper has
+    no interpret argument: the pallas_call of halo_conv.py:61-76, as
+    tests/test_pallas_kernel.py runs it), the bias added after it as
+    halo_conv.py:77-78 does."""
+    import functools
+
+    import jax
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+    from lama_tpu.ops.pallas import halo_conv as jhc
+    from lama_tpu_torch.ops.kernels import halo_conv as thc
+    rng = np.random.RandomState(c + co)
+    x = rng.rand(b, h, w, c).astype(np.float32)
+    kern = (rng.randn(3, 3, c, co) * 0.1).astype(np.float32)
+    bias = rng.randn(co).astype(np.float32)
+    ref = pl.pallas_call(
+        functools.partial(jhc._kernel, dtype=jnp.float32),
+        grid=(b,),
+        in_specs=[pl.BlockSpec((1, h, w, c), lambda i: (i, 0, 0, 0),
+                               memory_space=pltpu.VMEM),
+                  pl.BlockSpec(memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec((1, h, w, co), lambda i: (i, 0, 0, 0),
+                               memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((b, h, w, co), jnp.float32),
+        interpret=True)(jnp.asarray(x), jnp.asarray(kern))
+    ref = np.asarray(ref + jnp.asarray(bias).reshape((1, 1, 1, -1)))
+    weight = torch.from_numpy(np.ascontiguousarray(
+        np.transpose(kern, (3, 2, 0, 1))))
+    before = thc.halo_conv3x3_reflect.launches
+    out = thc.halo_conv3x3_reflect(_nchw(x), weight, torch.from_numpy(bias))
+    assert thc.halo_conv3x3_reflect.launches == before   # CPU: plain
+    np.testing.assert_allclose(_nhwc(out), ref, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(
+        _nhwc(thc.halo_conv3x3_reflect_plain(_nchw(x), weight,
+                                             torch.from_numpy(bias))),
+        ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize('h,w,c,co', [(32, 32, 512, 512), (16, 16, 8, 8),
+                                      (12, 20, 24, 40), (64, 64, 128, 128),
+                                      (8, 8, 1024, 256)])
+def test_halo_conv3x3_envelope_drops_the_vmem_budget(h, w, c, co):
+    """Every shape in the TPU kernel's envelope (its VMEM budget) is in
+    the port's; serving's (64, 64, 512, 512) is in the port's only, and
+    the port's lower bound is torch's reflect pad of 1 (H, W >= 2)."""
+    from lama_tpu.ops.pallas import halo_conv as jhc
+    from lama_tpu_torch.ops.kernels import halo_conv as thc
+    assert jhc.halo_conv3x3_supported(h, w, c, co)
+    assert thc.halo_conv3x3_reflect_supported(h, w, c, co)
+    assert not jhc.halo_conv3x3_supported(64, 64, 512, 512)
+    assert thc.halo_conv3x3_reflect_supported(64, 64, 512, 512)
+    assert thc.halo_conv3x3_reflect_supported(2, 2, 1, 1)
+    assert not thc.halo_conv3x3_reflect_supported(1, 64, 8, 8)
+    assert not thc.halo_conv3x3_reflect_supported(64, 64, 0, 8)
+
+
 def test_stem_dispatches_to_the_tiled_halo_conv():
     """ops/conv.py sends the 7x7 4 -> 64 stem and 3x3 stride-2 convs
     outside kernel 4's envelope to kernel 7, keeps kernels 2-5 on their
-    shapes, and leaves 3x3 stride-1 convs outside cols/taps stock."""
+    shapes, and sends every other 3x3 stride-1 reflect conv (the
+    GlobalGenerator's 512 -> 512, the tiny widths) to kernel 6."""
     from lama_tpu_torch.ops import conv
     from lama_tpu_torch.ops.kernels import halo_conv as thc
 
@@ -128,7 +190,10 @@ def test_stem_dispatches_to_the_tiled_halo_conv():
     assert pick(64, 3, 64, 7, 1) is trc.reflect_out_conv7x7
     assert pick(128, 128, 64, 3, 1) is trc.reflect_conv3x3_cols
     assert pick(128, 384, 64, 3, 1) is trc.reflect_conv3x3_taps
-    assert pick(8, 16, 64, 3, 1) is None
+    assert pick(8, 16, 64, 3, 1) is thc.halo_conv3x3_reflect
+    assert pick(512, 512, 64, 3, 1) is thc.halo_conv3x3_reflect
+    assert pick(256, 256, 32, 3, 1) is thc.halo_conv3x3_reflect
+    assert pick(8, 8, 1, 3, 1) is None   # below torch's reflect pad of 1
     assert conv.kernel_for(torch.empty(1, 4, 64, 64), torch.empty(64, 4, 7, 7),
                            1, 3, 1, 1, 'zeros') is None
 

@@ -28,6 +28,8 @@ no gate flips, and the BN statistics are held in the fp32 SGD run. SGD keeps fp3
 the gradients, so the fp32 trajectory holds its metrics at the stated
 bounds. Adam itself is held to optax on identical gradients
 (tests/test_torch_train_parts.py).
+`make_setup` and `_run` take the generator's kind: tests/test_torch_pix2pixhd.py
+runs the fp32 SGD trajectory of a tiny GlobalGenerator through them.
 """
 import jax
 import jax.numpy as jnp
@@ -80,9 +82,10 @@ def _nchw(a):
     return torch.from_numpy(np.ascontiguousarray(np.transpose(a, (0, 3, 1, 2))))
 
 
-@pytest.fixture(scope='module')
-def setup():
-    """JAX modules and float32 variables (jitted inits), the batches."""
+def make_setup(kind='ffc_resnet', gen_kw=GEN_KW):
+    """JAX modules and float32 variables (jitted inits) of a `kind`
+    generator with `gen_kw` (2 downsamplings, 2 blocks), the
+    discriminator and the ResNet; the batches."""
     rng = np.random.RandomState(0)
     batches = []
     for _ in range(N_STEPS):
@@ -92,7 +95,7 @@ def setup():
             y, x = rng.randint(0, S // 2, size=2)
             mask[i, y:y + S // 3, x:x + S // 2] = 1
         batches.append((img, mask))
-    g = jax_generator('ffc_resnet', **GEN_KW)
+    g = jax_generator(kind, **gen_kw)
     d = jax_discriminator('pix2pixhd_nlayer', **DISC_KW)
     kg, kd = jax.random.split(jax.random.PRNGKey(0))
     img0, mask0 = (jnp.asarray(a) for a in batches[0])
@@ -101,7 +104,13 @@ def setup():
     dv = jax.jit(d.init, static_argnames='train')(kd, img0, train=False)
     pv = jax.jit(ResNetDilatedEncoder().init, static_argnames='train')(
         jax.random.PRNGKey(1), jnp.zeros((1, S, S, 3)), train=False)
-    return dict(g=g, d=d, gv=gv, dv=dv, pv=pv, batches=batches)
+    return dict(g=g, d=d, gv=gv, dv=dv, pv=pv, batches=batches, kind=kind,
+                gen_kw=gen_kw)
+
+
+@pytest.fixture(scope='module')
+def setup():
+    return make_setup()
 
 
 def _run(setup, opts, dtype):
@@ -134,8 +143,10 @@ def _run(setup, opts, dtype):
             step=state.step)
         return g_grads, d_grads
 
-    gen = make_generator('ffc_resnet', dtype=dtype, **GEN_KW)
-    gen.load_state_dict(state_dict_from_flax(setup['gv'], 2, 2), strict=True)
+    kind = setup['kind']
+    gen = make_generator(kind, dtype=dtype, **setup['gen_kw'])
+    gen.load_state_dict(state_dict_from_flax(setup['gv'], 2, 2, kind=kind),
+                        strict=True)
     disc = make_discriminator('pix2pixhd_nlayer', dtype=dtype, **DISC_KW)
     disc.load_state_dict(state_dict_from_flax(setup['dv']), strict=True)
     pl = ResNetPL(allow_random_weights=True, dtype=dtype)
@@ -161,7 +172,7 @@ def _run(setup, opts, dtype):
         if i == 0 and grads is not None:
             out['jax_grads'] = [
                 state_dict_from_flax({'params': _clipped(t)}, *nd)
-                for t, nd in zip(grads, ((2, 2), (0, 0)))]
+                for t, nd in zip(grads, ((2, 2, kind), (0, 0)))]
         state = state_next
         out['jax'].append({k: float(v) for k, v in m.items()})
         m = port_step(port, _nchw(img).to(dtype), _nchw(mask).to(dtype))
