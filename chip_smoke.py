@@ -16,9 +16,12 @@ version):
      1000x760), at the train phase's (the stem at batch 10, 256^2), for
      the tiled halo conv at each kernel size and stride, and for the 3x3
      halo conv (kernel 6) at big-lama-regular's block convs (512 -> 512 at
-     b4 64^2 and b10 32^2) and a tiny odd shape; fp32 (TF32 off) and bf16,
-     against its plain PyTorch version on the same inputs, with the median
-     time of each (CUDA events) and its bound (the least time for its bytes
+     b4 64^2 and b10 32^2) and a tiny odd shape, and kernels 6 and 3 at
+     the served batch 16 (64^2: 512 -> 512, 128 -> 384, 384 -> 128); fp32
+     (TF32 off) and bf16, against its plain PyTorch version on the same
+     inputs, with the median time of each (CUDA events), of the library
+     call (nn.Conv2d with padding_mode='reflect', for every reflect conv;
+     none for the FourierUnit) and its bound (the least time for its bytes
      or its FLOP on an H100); then, in fp32, each kernel's gradients
      through its autograd wrapper against plain autograd;
   4. serve: big-lama (ngf 64, 18 blocks, random weights from a seed) served
@@ -130,6 +133,9 @@ SOURCES = {'fused_fourier_unit': 'lama_tpu_torch/csrc/fourier_unit.cu',
 SOURCES.update({k: 'lama_tpu_torch/csrc/reflect_conv.cu' for k in (
     'reflect_conv3x3_cols', 'reflect_conv3x3_taps', 'reflect_out_conv7x7',
     'reflect_down_conv3x3')})
+# the bf16 paths of kernels 3 and 6: one wgmma implicit GEMM
+BF16_SOURCES = {k: 'lama_tpu_torch/csrc/conv3x3_wgmma.cu' for k in (
+    'reflect_conv3x3_taps', 'halo_conv3x3_reflect')}
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core
 # FLOP/s, fp32 FMA FLOP/s outside the tensor cores
 HBM_BPS, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
@@ -265,6 +271,14 @@ def kernel_cases(gen):
          conv_case(512, 512, 32, 3, False, b=10)),
         ('halo_conv3x3_reflect', 'tiny_odd',
          conv_case(24, 40, 37, 3, True, b=2, w=29)),
+        # the served batch 16 of both families: big-lama-regular's block
+        # conv and big-lama's l2g and g2l convs
+        ('halo_conv3x3_reflect', 'block_b16',
+         conv_case(512, 512, 64, 3, True, b=16)),
+        ('reflect_conv3x3_taps', 'l2g_b16',
+         conv_case(128, 384, 64, 3, False, b=16)),
+        ('reflect_conv3x3_taps', 'g2l_b16',
+         conv_case(384, 128, 64, 3, False, b=16)),
     ]
     src = 'lama_tpu/ops/pallas/'
 
@@ -335,6 +349,28 @@ def bound(name, role, args, dtype):
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
 
 
+def library_call(name, role, args, tdt):
+    """One PyTorch call that computes the same function as a reflect-conv
+    kernel, for its time only (the port never calls it): nn.Conv2d with
+    padding_mode='reflect' at the kernel's k and stride, the same weight and
+    bias, in the input's dtype; None for the FourierUnit, which no single
+    call computes."""
+    import torch
+    if name == 'fused_fourier_unit':
+        return None
+    wt, bias = args[1], args[2]
+    co, c, k = wt.shape[0], wt.shape[1], wt.shape[-1]
+    conv = torch.nn.Conv2d(c, co, k, stride=case_stride(name, role),
+                           padding=k // 2, padding_mode='reflect',
+                           bias=bias is not None)
+    with torch.no_grad():
+        conv.weight.copy_(wt)
+        if bias is not None:
+            conv.bias.copy_(bias)
+    conv = conv.to(device=wt.device, dtype=tdt).requires_grad_(False)
+    return conv
+
+
 def kernels_vs_plain(gen):
     import torch
     rows = []
@@ -350,18 +386,24 @@ def kernels_vs_plain(gen):
             ok = bool(torch.all(err <= atol + rtol * ref.abs()))
             k_ms = median_ms(lambda: kfn(*kargs))
             p_ms = median_ms(lambda: pfn(*kargs))
+            lib = library_call(name, role, args, tdt)
+            with torch.no_grad():
+                l_ms = None if lib is None else median_ms(lambda: lib(kargs[0]))
             b_ms, b_by = bound(name, role, args, dtype)
-            row = dict(name=name, role=role, route='cuda',
-                       source=SOURCES[name],
+            source = (BF16_SOURCES.get(name, SOURCES[name]) if dtype == 'bf16'
+                      else SOURCES[name])
+            row = dict(name=name, role=role, route='cuda', source=source,
                        replaces=tpu, tpu_kernel=tpu,
                        shape=list(args[0].shape), dtype=dtype,
                        max_abs_err=float(err.max()),
                        tol=dict(rtol=rtol, atol=atol), within_tol=ok,
                        ms=k_ms, kernel_ms=k_ms, plain_ms=p_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                       bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+            lib_text = ('' if l_ms is None else
+                        f' library {l_ms:.3f} ms ({k_ms / l_ms:.2f}x)')
             log(f'kernel {name}/{role} {dtype} {list(args[0].shape)}: '
                 f'max|d| {row["max_abs_err"]:.3e} (rtol {rtol} atol {atol}) '
-                f'kernel {k_ms:.3f} ms plain {p_ms:.3f} ms bound '
+                f'kernel {k_ms:.3f} ms plain {p_ms:.3f} ms{lib_text} bound '
                 f'{b_ms:.3f} ms ({b_by})')
             check(ok, f'{name}/{role} {dtype}: outside tolerance')
             rows.append(row)

@@ -5,7 +5,8 @@
 // Two TPU kernels of lama_tpu/ops/pallas/halo_conv.py are replaced here.
 // halo_conv3x3_reflect (halo_conv.py:53), kernel 6, is the last section
 // before the launchers (halo_conv3x3_kernel): the 3x3 stride-1 conv of any
-// channel counts. The rest of this header is kernel 7's.
+// channel counts, in fp32; its bf16 path is csrc/conv3x3_wgmma.cu. The
+// rest of this header is kernel 7's.
 //
 // Replaces the TPU kernel lama_tpu/ops/pallas/halo_conv.py::
 // halo_conv_reflect_tiled (halo_conv.py:158): conv2d(reflect_pad(x, k // 2),
@@ -306,61 +307,42 @@ halo_conv_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 }
 
 // ------------------------------------------------------ 3x3 s1, any C (k6)
-// Kernel 6: conv2d(reflect_pad(x, 1), w, b), 3x3, stride 1, any C and Co.
+// Kernel 6 in fp32: conv2d(reflect_pad(x, 1), w, b), 3x3, stride 1, any C
+// and Co. (Its bf16 path is csrc/conv3x3_wgmma.cu, a wgmma implicit GEMM.)
 // The TPU kernel holds a whole image per grid step in VMEM (halo_conv.py:
-// 29-32: under 9 MB) and does nine (H*W, C) x (C, C_out) dots; one
-// 64^2 x 512 bf16 image is 4 MB against a Hopper block's 227 KB of shared
-// memory, so here the image is tiled. Bound: at the GlobalGenerator's
-// 512 -> 512 convs, 2 * 9 * 512 * 512 FLOP per pixel against 2 KB read and
-// written per pixel (bf16): ~2300 FLOP per byte, bound by the tensor cores
-// in bf16 and the FMA units in fp32. The design keeps operand
-// traffic in shared memory: each staged halo value is read by 9 taps, each
-// staged weight by 128 pixels. A block owns an 8 x 16 output-pixel tile (M = 128) and 64 output channels
-// (N), and walks K = 9 taps x C input channels in chunks of CK channels.
-// Each chunk stages the tile's reflect-mapped 10 x 18 halo (CK channels per
-// pixel, at a padded pitch CKP) and the chunk's [tap][ci][co] weights once
-// in shared memory; tap (ky, kx)'s A operand for a row of 16 output pixels
-// is then the 16 x CK window at halo[(row + ky) * 18 + kx], rows one pixel
-// apart, so the im2col matrix is never formed. Channel tails (C % CK,
+// 29-32: under 9 MB) and does nine (H*W, C) x (C, C_out) dots; one 64^2 x
+// 512 fp32 image is 8 MB against a Hopper block's 227 KB of shared memory,
+// so here the image is tiled. Bound: at the GlobalGenerator's 512 -> 512
+// convs, 2 * 9 * 512 * 512 FLOP per pixel against 4 KB read and written per
+// pixel: ~1150 FLOP per byte, bound by the FMA units (fp32, no TF32). The
+// design keeps operand traffic in shared memory: each staged halo value is
+// read by 9 taps, each staged weight by 128 pixels. A block owns an 8 x 16
+// output-pixel tile and 64 output channels, and walks K = 9 taps x C input
+// channels in chunks of 16. Each chunk stages the tile's reflect-mapped
+// 10 x 18 halo (16 channels per pixel, at a padded pitch) and the chunk's
+// [tap][ci][co] weights once in shared memory; 128 threads each own 8
+// pixels (one half row) x 8 channels of accumulators. Channel tails (C % 16,
 // Co % 64) are zero-filled in shared memory, so any C, Co and partial edge
-// tiles run; vector loads where C (Co) is a multiple of the 16-byte vector.
-//   bf16: 8 warps, each 2 pixel rows x 32 channels as 2 x 2 WMMA 16x16x16
-//         tiles, fp32 accumulate; bias added in fp32, one rounding at the
-//         store (the TPU kernel adds it after its bf16 cast).
-//   fp32: 128 threads, each 8 pixels (one half row) x 8 channels of full
-//         fp32 FMA (no TF32).
-template <typename T> struct K6Cfg;
+// tiles run; vector loads where C (Co) is a multiple of 4.
 constexpr int K6_TH = 8, K6_TW = 16, K6_BN = 64;
 constexpr int K6_HR = K6_TH + 2, K6_HC = K6_TW + 2;
-// CKP / BNP: halo pixel and weight row pitches (16-byte aligned; 32-byte for
-// the bf16 WMMA loads)
-template <> struct K6Cfg<float> {
-  static constexpr int CK = 16, CKP = 20, BNP = K6_BN + 4, THREADS = 128;
-};
-template <> struct K6Cfg<bf16> {
-  static constexpr int CK = 32, CKP = 48, BNP = K6_BN + 16, THREADS = 256;
-};
-template <typename T>
-constexpr size_t k6_smem_bytes() {
-  return sizeof(T) * (size_t(K6_HR) * K6_HC * K6Cfg<T>::CKP +
-                      size_t(9) * K6Cfg<T>::CK * K6Cfg<T>::BNP);
-}
+// CKP / BNP: halo pixel and weight row pitches (16-byte aligned)
+constexpr int K6_CK = 16, K6_CKP = 20, K6_BNP = K6_BN + 4, K6_THREADS = 128;
+constexpr size_t K6_SMEM = sizeof(float) * (size_t(K6_HR) * K6_HC * K6_CKP +
+                                            size_t(9) * K6_CK * K6_BNP);
 
 // x: (B, H, W, C) NHWC; w: (3, 3, C, Co) HWIO; bias: (Co,) or null;
 // out: (B, H, W, Co). vec_x: C is a multiple of the 16-byte vector and x is
 // 16-byte aligned; vec_w: the same for Co, w and out.
-template <typename T>
-__global__ void __launch_bounds__(K6Cfg<T>::THREADS)
-halo_conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                    const T* __restrict__ bias, T* __restrict__ out,
+__global__ void __launch_bounds__(K6_THREADS)
+halo_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ bias, float* __restrict__ out,
                     int H, int W, int C, int Co, int vec_x, int vec_w) {
-  constexpr int CK = K6Cfg<T>::CK, CKP = K6Cfg<T>::CKP;
-  constexpr int NT = K6Cfg<T>::THREADS, BNP = K6Cfg<T>::BNP;
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int CK = K6_CK, CKP = K6_CKP, NT = K6_THREADS, BNP = K6_BNP;
+  constexpr int VEC = 4;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* halo = reinterpret_cast<T*>(smem_raw);     // [HR * HC][CKP]
-  T* wts = halo + K6_HR * K6_HC * CKP;          // [9 * CK][BNP]
-  const T zero = from_f<T>(0.f);
+  float* halo = reinterpret_cast<float*>(smem_raw);  // [HR * HC][CKP]
+  float* wts = halo + K6_HR * K6_HC * CKP;           // [9 * CK][BNP]
 
   const int tid = threadIdx.x;
   const int tiles_w = (W + K6_TW - 1) / K6_TW;
@@ -368,27 +350,17 @@ halo_conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int c0 = (blockIdx.x % tiles_w) * K6_TW;
   const int n0 = blockIdx.y * K6_BN;
   const int b = blockIdx.z;
-  const T* xb = x + size_t(b) * H * W * C;
+  const float* xb = x + size_t(b) * H * W * C;
 
-  // fp32: thread tile 8 pixels x 8 channels (n0 + tn*4 + {0..3, 32..35});
-  // a warp's 4 pixel groups are 4 rows apart in the halo: no bank conflicts
+  // thread tile 8 pixels x 8 channels (n0 + tn*4 + {0..3, 32..35}); a
+  // warp's 4 pixel groups are 4 rows apart in the halo: no bank conflicts
   const int tn = tid % 8, tm = tid / 8;
   const int prow = tm % K6_TH, pcol0 = (tm / K6_TH) * 8;
   float acc[8][8];
-  // bf16: warp tile 2 pixel rows x 32 channels
-  const int warp = tid / 32, wm = warp % 4, wn = warp / 4;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> facc[2][2];
-  if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(facc[i][j], 0.f);
-  }
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   for (int ci0 = 0; ci0 < C; ci0 += CK) {
     // halo tile, reflect-mapped at load time; channels past C are zeros
@@ -398,13 +370,13 @@ halo_conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int gr = reflect_idx(r0 - 1 + pix / K6_HC, H);
       const int gc = reflect_idx(c0 - 1 + pix % K6_HC, W);
       const int cc = ci0 + v * VEC;
-      const T* src = xb + (size_t(gr) * W + gc) * C + cc;
-      T* dst = halo + pix * CKP + v * VEC;
+      const float* src = xb + (size_t(gr) * W + gc) * C + cc;
+      float* dst = halo + pix * CKP + v * VEC;
       if (vec_x && cc < C) {
         *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
       } else {
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) dst[e] = cc + e < C ? src[e] : zero;
+        for (int e = 0; e < VEC; ++e) dst[e] = cc + e < C ? src[e] : 0.f;
       }
     }
     // weights [tap][ci][co] of this chunk and output block; tails are zeros
@@ -412,147 +384,88 @@ halo_conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int i = tid; i < 9 * CK * VPR; i += NT) {
       const int row = i / VPR, v = i % VPR;
       const int tap = row / CK, ci = ci0 + row % CK, n = n0 + v * VEC;
-      const T* src = w + (size_t(tap) * C + ci) * Co + n;
-      T* dst = wts + row * BNP + v * VEC;
+      const float* src = w + (size_t(tap) * C + ci) * Co + n;
+      float* dst = wts + row * BNP + v * VEC;
       if (vec_w && ci < C && n < Co) {
         *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
       } else {
 #pragma unroll
         for (int e = 0; e < VEC; ++e)
-          dst[e] = (ci < C && n + e < Co) ? src[e] : zero;
+          dst[e] = (ci < C && n + e < Co) ? src[e] : 0.f;
       }
     }
     __syncthreads();
 
-    if constexpr (std::is_same<T, float>::value) {
 #pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap) {
-        const int ky = tap / 3, kx = tap % 3;
-        const float* hp = halo + ((prow + ky) * K6_HC + pcol0 + kx) * CKP;
-        const float* wp = wts + tap * CK * BNP + tn * 4;
+    for (int tap = 0; tap < 9; ++tap) {
+      const int ky = tap / 3, kx = tap % 3;
+      const float* hp = halo + ((prow + ky) * K6_HC + pcol0 + kx) * CKP;
+      const float* wp = wts + tap * CK * BNP + tn * 4;
 #pragma unroll 4
-        for (int ci = 0; ci < CK; ++ci) {
-          float a[8];
+      for (int ci = 0; ci < CK; ++ci) {
+        float a[8];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) a[j] = hp[j * CKP + ci];
-          const float4 b0 = *reinterpret_cast<const float4*>(wp + ci * BNP);
-          const float4 b1 = *reinterpret_cast<const float4*>(wp + ci * BNP + 32);
+        for (int j = 0; j < 8; ++j) a[j] = hp[j * CKP + ci];
+        const float4 b0 = *reinterpret_cast<const float4*>(wp + ci * BNP);
+        const float4 b1 = *reinterpret_cast<const float4*>(wp + ci * BNP + 32);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            acc[j][0] += a[j] * b0.x; acc[j][1] += a[j] * b0.y;
-            acc[j][2] += a[j] * b0.z; acc[j][3] += a[j] * b0.w;
-            acc[j][4] += a[j] * b1.x; acc[j][5] += a[j] * b1.y;
-            acc[j][6] += a[j] * b1.z; acc[j][7] += a[j] * b1.w;
-          }
-        }
-      }
-    } else {
-      using namespace nvcuda;
-#pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap) {
-        const int ky = tap / 3, kx = tap % 3;
-#pragma unroll
-        for (int kk = 0; kk < CK; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            wmma::load_matrix_sync(
-                fa[i], halo + ((wm * 2 + i + ky) * K6_HC + kx) * CKP + kk, CKP);
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-            wmma::load_matrix_sync(fb, wts + (tap * CK + kk) * BNP + wn * 32 + j * 16,
-                                   BNP);
-#pragma unroll
-            for (int i = 0; i < 2; ++i) wmma::mma_sync(facc[i][j], fa[i], fb, facc[i][j]);
-          }
+        for (int j = 0; j < 8; ++j) {
+          acc[j][0] += a[j] * b0.x; acc[j][1] += a[j] * b0.y;
+          acc[j][2] += a[j] * b0.z; acc[j][3] += a[j] * b0.w;
+          acc[j][4] += a[j] * b1.x; acc[j][5] += a[j] * b1.y;
+          acc[j][6] += a[j] * b1.z; acc[j][7] += a[j] * b1.w;
         }
       }
     }
     __syncthreads();
   }
 
-  if constexpr (std::is_same<T, float>::value) {
-    const int r = r0 + prow;
-    if (r >= H) return;
-    float bv[8];
-    int nn[8];
+  const int r = r0 + prow;
+  if (r >= H) return;
+  float bv[8];
+  int nn[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      nn[j] = n0 + tn * 4 + (j < 4 ? j : 28 + j);
-      bv[j] = (bias && nn[j] < Co) ? bias[nn[j]] : 0.f;
-    }
+  for (int j = 0; j < 8; ++j) {
+    nn[j] = n0 + tn * 4 + (j < 4 ? j : 28 + j);
+    bv[j] = (bias && nn[j] < Co) ? bias[nn[j]] : 0.f;
+  }
 #pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      const int c = c0 + pcol0 + p;
-      if (c >= W) break;
-      float* o = out + ((size_t(b) * H + r) * W + c) * Co;
+  for (int p = 0; p < 8; ++p) {
+    const int c = c0 + pcol0 + p;
+    if (c >= W) break;
+    float* o = out + ((size_t(b) * H + r) * W + c) * Co;
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int n = nn[4 * q];
-        if (vec_w && n < Co) {
-          *reinterpret_cast<float4*>(o + n) = make_float4(
-              acc[p][4 * q] + bv[4 * q], acc[p][4 * q + 1] + bv[4 * q + 1],
-              acc[p][4 * q + 2] + bv[4 * q + 2], acc[p][4 * q + 3] + bv[4 * q + 3]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (n + e < Co) o[n + e] = acc[p][4 * q + e] + bv[4 * q + e];
-        }
-      }
-    }
-  } else {
-    // stage the fp32 accumulators (pixel-major) in the freed shared memory,
-    // then add the bias, round to bf16 and store 8 channels per step
-    using namespace nvcuda;
-    constexpr int SP = K6_BN + 4;
-    float* stage = reinterpret_cast<float*>(smem_raw);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(stage + (wm * 2 + i) * 16 * SP + wn * 32 + j * 16,
-                                facc[i][j], SP, wmma::mem_row_major);
-    __syncthreads();
-    constexpr int VPO = K6_BN / 8;
-    for (int i = tid; i < K6_TH * K6_TW * VPO; i += NT) {
-      const int m = i / VPO, v = i % VPO;
-      const int r = r0 + m / K6_TW, c = c0 + m % K6_TW, n = n0 + v * 8;
-      if (r >= H || c >= W || n >= Co) continue;
-      __align__(16) bf16 pk[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        pk[e] = __float2bfloat16(stage[m * SP + v * 8 + e] +
-                                 ((bias && n + e < Co) ? __bfloat162float(bias[n + e]) : 0.f));
-      bf16* o = out + ((size_t(b) * H + r) * W + c) * Co + n;
-      if (vec_w) {
-        *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(pk);
+    for (int q = 0; q < 2; ++q) {
+      const int n = nn[4 * q];
+      if (vec_w && n < Co) {
+        *reinterpret_cast<float4*>(o + n) = make_float4(
+            acc[p][4 * q] + bv[4 * q], acc[p][4 * q + 1] + bv[4 * q + 1],
+            acc[p][4 * q + 2] + bv[4 * q + 2], acc[p][4 * q + 3] + bv[4 * q + 3]);
       } else {
-        for (int e = 0; e < 8 && n + e < Co; ++e) o[e] = pk[e];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (n + e < Co) o[n + e] = acc[p][4 * q + e] + bv[4 * q + e];
       }
     }
   }
 }
 
-template <typename T>
 int launch_k6(const void* x, const void* w, const void* bias, void* out, int B,
               int H, int W, int C, int Co, cudaStream_t stream) {
   if (C < 1 || Co < 1 || H < 2 || W < 2) return int(cudaErrorInvalidValue);
-  constexpr int VEC = 16 / sizeof(T);
-  const int vec_x = C % VEC == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const int vec_w = Co % VEC == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+  const int vec_x = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int vec_w = Co % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const size_t smem = k6_smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
-      halo_conv3x3_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      halo_conv3x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(K6_SMEM));
   if (err != cudaSuccess) return int(err);
   const int tiles = ((H + K6_TH - 1) / K6_TH) * ((W + K6_TW - 1) / K6_TW);
   dim3 grid(tiles, (Co + K6_BN - 1) / K6_BN, B);
-  halo_conv3x3_kernel<T><<<grid, K6Cfg<T>::THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(bias), static_cast<T*>(out), H, W, C, Co, vec_x,
-      vec_w);
+  halo_conv3x3_kernel<<<grid, K6_THREADS, K6_SMEM, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<float*>(out), H, W, C, Co,
+      vec_x, vec_w);
   return int(cudaGetLastError());
 }
 
@@ -609,14 +522,15 @@ int launch_ks(const void* x, const void* w, const void* bias, void* out, int B,
 // dtype code: 0 = float32, 1 = bfloat16. H, W: the input's; out is
 // (B, (H - 1) / S + 1, (W - 1) / S + 1, Co). Returns a cudaError_t value (0
 // on success); the launch is asynchronous on `stream`.
-// Kernel 6: 3x3 stride 1, out is (B, H, W, Co).
+// Kernel 6: 3x3 stride 1, out is (B, H, W, Co); float32 only (bf16 is
+// lama_conv3x3_wgmma of conv3x3_wgmma.cu).
 extern "C" int lama_halo_conv3x3_reflect(const void* x, const void* w,
                                          const void* bias, void* out, int B,
                                          int H, int W, int C, int Co,
                                          int dtype, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  return dtype ? launch_k6<bf16>(x, w, bias, out, B, H, W, C, Co, s)
-               : launch_k6<float>(x, w, bias, out, B, H, W, C, Co, s);
+  if (dtype) return int(cudaErrorInvalidValue);
+  return launch_k6(x, w, bias, out, B, H, W, C, Co,
+                   static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int lama_halo_conv_reflect_tiled(const void* x, const void* w,

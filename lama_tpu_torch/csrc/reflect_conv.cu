@@ -4,7 +4,8 @@
 //
 // Replaces the TPU kernels of lama_tpu/ops/pallas/reflect_conv.py:
 //   reflect_conv3x3_cols  (3x3, C = C_out = 128; the 36 l2l convs)
-//   reflect_conv3x3_taps  (3x3, C and C_out multiples of 128; l2g and g2l)
+//   reflect_conv3x3_taps  (3x3, C and C_out multiples of 128; l2g and g2l;
+//                          fp32 here, bf16 in csrc/conv3x3_wgmma.cu)
 //   reflect_down_conv3x3  (3x3 stride 2, 2C and C_out multiples of 128; the
 //                          four downsample convs of the generator's front)
 //   reflect_out_conv7x7   (7x7, C_out <= 8; the 64->3 RGB head)
@@ -30,10 +31,12 @@
 // add, all Mosaic layout choices) are three instantiations of one kernel
 // here: cols fixes C = 128 at compile time (CFIX), so its whole K = 9 x 128
 // walk and the pixel stride are constants; taps takes C at run time
-// (CFIX = 0); down is taps at S = 2, where the 17 x 33 halo tile holds
-// every input pixel the 8 x 16 outputs read, each loaded once per chunk.
-//   bf16: tensor cores through nvcuda::wmma (16x16x16, fp32 accumulate);
-//         8 warps, each 32 pixels x 64 channels.
+// (CFIX = 0, fp32 only: its bf16 path is the wgmma kernel of
+// conv3x3_wgmma.cu); down is the run-time-C form at S = 2, where the
+// 17 x 33 halo tile holds every input pixel the 8 x 16 outputs read, each
+// loaded once per chunk.
+//   bf16 (cols, down): tensor cores through nvcuda::wmma (16x16x16, fp32
+//         accumulate); 8 warps, each 32 pixels x 64 channels.
 //   fp32: full-precision FMA (no TF32), each thread an 8-pixel x 8-channel
 //         register tile.
 // Bound: at the bottleneck shape (B,64,64,128)->384 the work is 2*9*C*Co
@@ -435,13 +438,14 @@ extern "C" int lama_reflect_conv3x3_cols(const void* x, const void* w,
                : launch_conv3<float, 128, 1>(x, w, bias, out, B, H, W, C, Co, s);
 }
 
+// float32 only: the bf16 taps conv is lama_conv3x3_wgmma (conv3x3_wgmma.cu).
 extern "C" int lama_reflect_conv3x3_taps(const void* x, const void* w,
                                          const void* bias, void* out, int B,
                                          int H, int W, int C, int Co,
                                          int dtype, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  return dtype ? launch_conv3<bf16, 0, 1>(x, w, bias, out, B, H, W, C, Co, s)
-               : launch_conv3<float, 0, 1>(x, w, bias, out, B, H, W, C, Co, s);
+  if (dtype) return int(cudaErrorInvalidValue);
+  return launch_conv3<float, 0, 1>(x, w, bias, out, B, H, W, C, Co,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 // H, W: the input's; out is (B, H/2, W/2, Co).

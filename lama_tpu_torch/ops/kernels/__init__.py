@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
 `reflect_conv`, `halo_conv` and `fourier_unit` wrap the CUDA sources under
-`lama_tpu_torch/csrc/`, which `_build` compiles with nvcc at first use.
+`lama_tpu_torch/csrc/`, which `_build` compiles with nvcc at first use;
+`conv3x3_wgmma` is the bf16 path of the 3x3 taps and halo convs.
 `_autograd.differentiable` gives every kernel a backward pass: the VJP of
 its plain version.
 """

@@ -12,13 +12,16 @@ weight. halo_conv3x3_reflect is the 3x3 stride-1 conv of any channel counts
 (on the pix2pixHD GlobalGenerator's path: its ResnetBlocks' 512 -> 512
 convs); halo_conv_reflect_tiled takes k in {3, 7} and stride 1 or 2 (on the
 generators' paths: the 7x7 4 -> 64 stem). The kernels
-(lama_tpu_torch/csrc/halo_conv.cu) stage each output tile's input rows with
-their reflected halo rows and columns in shared memory. The TPU envelopes are
-its VMEM and tiling limits, which a Hopper kernel that tiles the image does
-not have (see each `_supported`): here any C, C_out >= 1 and H, W > k // 2
-(torch's reflect pad needs no more). Inside, the layout is channels-last, as
-in reflect_conv.py: the wrapper passes a channels-last view of `x`, an HWIO
-copy of the weight in `x`'s dtype, and returns a channels-last output.
+(lama_tpu_torch/csrc/halo_conv.cu; for halo_conv3x3_reflect in bf16, the
+wgmma implicit GEMM of csrc/conv3x3_wgmma.cu, see conv3x3_wgmma.py) stage
+each output tile's input rows with their reflected halo rows and columns
+in shared memory. The TPU envelopes are its VMEM and tiling limits, which
+a Hopper kernel that tiles the image does not have (see each `_supported`):
+here any C, C_out >= 1 and H, W > k // 2 (torch's reflect pad needs no
+more). Inside, the layout is channels-last, as in reflect_conv.py: the
+wrapper passes a channels-last view of `x`, an HWIO copy of the weight in
+`x`'s dtype (bf16 3x3: the packed weight of conv3x3_wgmma.py), and returns
+a channels-last output.
 Types: float32 (fp32 FMA, no TF32) and bfloat16 (fp32 accumulation, bf16
 output).
 
@@ -32,7 +35,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, conv3x3_wgmma
 from ._autograd import differentiable
 from .reflect_conv import reflect_conv_plain
 
@@ -62,10 +65,10 @@ def halo_conv3x3_reflect_supported(h: int, w: int, c: int, c_out: int) -> bool:
     envelope (halo_conv.py:29-32) is a VMEM budget, not a shape rule: one
     program holds a whole image, its padded copy and the fp32 accumulator
     in under 9 MB, which takes (32, 32, 512, 512) but not serving's
-    (64, 64, 512, 512). This kernel tiles the image (128 output pixels x 64
-    output channels per block, input channels a chunk at a time in shared
-    memory), so its memory per block does not grow with the image and the
-    budget is dropped."""
+    (64, 64, 512, 512). The kernels tile the image (bf16: 256 output pixels
+    x 128 output channels per block; fp32: 128 x 64; input channels a chunk
+    at a time in shared memory), so their memory per block does not grow
+    with the image and the budget is dropped."""
     return c >= 1 and c_out >= 1 and h >= 2 and w >= 2
 
 
@@ -73,9 +76,10 @@ def _kernel6_supported(h, w, c, c_out, k, s):
     return k == 3 and s == 1 and halo_conv3x3_reflect_supported(h, w, c, c_out)
 
 
-def _launch(name, supported, extra, stride, x, weight, bias):
+def _launch(name, supported, extra, stride, x, weight, bias, bf16=None):
     """Launch `lama_<name>` of halo_conv.cu: (x, w, bias, out, B, H, W, C,
-    Co, *extra, dtype, stream)."""
+    Co, *extra, dtype, stream), or `bf16` (conv3x3_wgmma.py's launch) for a
+    bfloat16 input when given."""
     b, c, h, w = x.shape
     c_out, k = weight.shape[0], weight.shape[-1]
     if x.dtype not in _DTYPES:
@@ -91,6 +95,8 @@ def _launch(name, supported, extra, stride, x, weight, bias):
             and weight.device == x.device):
         raise ValueError(f'{name}: weight and bias must be on {x.device}')
     x = x.contiguous(memory_format=torch.channels_last)
+    if bf16 is not None and x.dtype == torch.bfloat16:
+        return bf16(x, weight, bias)
     wk = weight.to(x.dtype).permute(2, 3, 1, 0).contiguous()   # HWIO
     bk = None if bias is None else bias.to(x.dtype).contiguous()
     out = torch.empty((b, c_out, (h - 1) // stride + 1, (w - 1) // stride + 1),
@@ -112,12 +118,13 @@ def _launch(name, supported, extra, stride, x, weight, bias):
 
 def halo_conv3x3_reflect(x, weight, bias=None):
     """3x3 stride-1 reflect-'same' conv of any channel counts; on the
-    GlobalGenerator's path: its ResnetBlocks' 512 -> 512 convs."""
+    GlobalGenerator's path: its ResnetBlocks' 512 -> 512 convs. bf16: the
+    wgmma kernel of csrc/conv3x3_wgmma.cu; fp32: halo_conv.cu."""
     if not x.is_cuda:
         return halo_conv3x3_reflect_plain(x, weight, bias)
     out = differentiable(
         functools.partial(_launch, 'halo_conv3x3_reflect', _kernel6_supported,
-                          (), 1),
+                          (), 1, bf16=conv3x3_wgmma.conv3x3_reflect_bf16),
         halo_conv3x3_reflect_plain, x, weight, bias)
     halo_conv3x3_reflect.launches += 1
     return out

@@ -10,13 +10,16 @@ Counterparts of the TPU kernels in lama_tpu/ops/pallas/reflect_conv.py:
 Each computes `F.conv2d(F.pad(x, (p,)*4, mode='reflect'), weight, bias,
 stride)` with p = k // 2 on NCHW tensors (any memory format) and an OIHW
 weight, and keeps the TPU kernel's envelope; the down conv has stride 2, the
-others stride 1. The kernels (lama_tpu_torch/csrc/reflect_conv.cu) build the
-reflect halo while loading an input tile into shared memory, so no padded
-tensor reaches HBM. Inside, the layout is channels-last: the wrapper passes
-a channels-last view of `x` (a copy only if `x` is not channels-last
-already), an HWIO copy of the weight in `x`'s dtype, and returns a
-channels-last output. Types: float32 (full fp32 arithmetic, no TF32) and
-bfloat16 (tensor cores, fp32 accumulation, bf16 output).
+others stride 1. The kernels (lama_tpu_torch/csrc/reflect_conv.cu; for
+reflect_conv3x3_taps in bf16, the wgmma implicit GEMM of
+csrc/conv3x3_wgmma.cu, see conv3x3_wgmma.py) build the reflect halo while
+loading an input tile into shared memory, so no padded tensor reaches HBM.
+Inside, the layout is channels-last: the wrapper passes a channels-last
+view of `x` (a copy only if `x` is not channels-last already), an HWIO copy
+of the weight in `x`'s dtype (bf16 taps: the packed weight of
+conv3x3_wgmma.py), and returns a channels-last output. Types: float32
+(full fp32 arithmetic, no TF32) and bfloat16 (tensor cores, fp32
+accumulation, bf16 output).
 
 On a CPU tensor a wrapper computes its plain version; on a CUDA tensor it
 launches its kernel or raises. When a gradient is needed, the launch runs
@@ -32,7 +35,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, conv3x3_wgmma
 from ._autograd import differentiable
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -77,7 +80,9 @@ def reflect_out_conv7x7_supported(h: int, w: int, c: int, c_out: int) -> bool:
     return 1 <= c_out <= 8 and c <= 128 and c % 8 == 0 and h >= 8 and w >= 8
 
 
-def _launch(symbol, supported, stride, x, weight, bias):
+def _launch(symbol, supported, stride, x, weight, bias, bf16=None):
+    """Check the call, then launch `symbol` of reflect_conv.cu, or `bf16`
+    (conv3x3_wgmma.py's launch) for a bfloat16 input when given."""
     ksize = weight.shape[-1]
     b, c, h, w = x.shape
     c_out = weight.shape[0]
@@ -94,6 +99,8 @@ def _launch(symbol, supported, stride, x, weight, bias):
             and weight.device == x.device):
         raise ValueError(f'{symbol}: weight and bias must be on {x.device}')
     x = x.contiguous(memory_format=torch.channels_last)
+    if bf16 is not None and x.dtype == torch.bfloat16:
+        return bf16(x, weight, bias)
     wk = weight.to(x.dtype).permute(2, 3, 1, 0).contiguous()   # HWIO
     bk = None if bias is None else bias.to(x.dtype).contiguous()
     out = torch.empty((b, c_out, h // stride, w // stride), dtype=x.dtype,
@@ -111,12 +118,12 @@ def _launch(symbol, supported, stride, x, weight, bias):
     return out
 
 
-def _kernel(wrapper, symbol, supported, stride, x, weight, bias):
+def _kernel(wrapper, symbol, supported, stride, x, weight, bias, bf16=None):
     """The common body of the wrappers below, for a CUDA tensor."""
     plain = functools.partial(reflect_conv_plain, stride=stride)
     out = differentiable(
-        functools.partial(_launch, symbol, supported, stride), plain,
-        x, weight, bias)
+        functools.partial(_launch, symbol, supported, stride, bf16=bf16),
+        plain, x, weight, bias)
     wrapper.launches += 1
     return out
 
@@ -130,11 +137,13 @@ def reflect_conv3x3_cols(x, weight, bias=None):
 
 
 def reflect_conv3x3_taps(x, weight, bias=None):
-    """3x3 stride-1 reflect conv for wide channels (the FFC l2g/g2l convs)."""
+    """3x3 stride-1 reflect conv for wide channels (the FFC l2g/g2l convs).
+    bf16: the wgmma kernel of csrc/conv3x3_wgmma.cu; fp32: reflect_conv.cu."""
     if not x.is_cuda:
         return reflect_conv_plain(x, weight, bias)
     return _kernel(reflect_conv3x3_taps, 'lama_reflect_conv3x3_taps',
-                   reflect_conv3x3_taps_supported, 1, x, weight, bias)
+                   reflect_conv3x3_taps_supported, 1, x, weight, bias,
+                   bf16=conv3x3_wgmma.conv3x3_reflect_bf16)
 
 
 def reflect_down_conv3x3(x, weight, bias=None):

@@ -40,23 +40,29 @@ def _close(out, ref, dtype):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('name,c,co,h,w,k,bias', [
-    ('reflect_conv3x3_cols', 128, 128, 16, 24, 3, False),
-    ('reflect_conv3x3_cols', 128, 128, 13, 9, 3, True),     # partial tiles
-    ('reflect_conv3x3_taps', 384, 128, 16, 16, 3, False),
-    ('reflect_conv3x3_taps', 128, 384, 8, 40, 3, True),
-    ('reflect_out_conv7x7', 64, 3, 37, 70, 7, True),
-    ('reflect_out_conv7x7', 16, 8, 8, 8, 7, False),
-    ('reflect_down_conv3x3', 64, 128, 16, 24, 3, False),
-    ('reflect_down_conv3x3', 128, 256, 26, 10, 3, True),    # partial tiles
-    ('reflect_down_conv3x3', 256, 384, 8, 8, 3, False),
+@pytest.mark.parametrize('name,c,co,h,w,k,bias,batch', [
+    ('reflect_conv3x3_cols', 128, 128, 16, 24, 3, False, 2),
+    ('reflect_conv3x3_cols', 128, 128, 13, 9, 3, True, 2),     # partial tiles
+    ('reflect_conv3x3_taps', 384, 128, 16, 16, 3, False, 2),
+    ('reflect_conv3x3_taps', 128, 384, 8, 40, 3, True, 2),
+    ('reflect_out_conv7x7', 64, 3, 37, 70, 7, True, 2),
+    ('reflect_out_conv7x7', 16, 8, 8, 8, 7, False, 2),
+    ('reflect_down_conv3x3', 64, 128, 16, 24, 3, False, 2),
+    ('reflect_down_conv3x3', 128, 256, 26, 10, 3, True, 2),    # partial tiles
+    ('reflect_down_conv3x3', 256, 384, 8, 8, 3, False, 2),
     # the refiner's odd bottleneck sides (1000x760 / 8) and partial tiles
-    ('reflect_conv3x3_taps', 128, 384, 25, 19, 3, False),
-    ('reflect_down_conv3x3', 64, 128, 50, 38, 3, False),
+    ('reflect_conv3x3_taps', 128, 384, 25, 19, 3, False, 2),
+    ('reflect_down_conv3x3', 64, 128, 50, 38, 3, False, 2),
+    # taps on the wgmma kernel's 16x16-pixel, 128-channel tiles: sides
+    # that are not multiples of 16, eight channel chunks and four output
+    # tiles, and the served batch 16
+    ('reflect_conv3x3_taps', 384, 128, 9, 8, 3, True, 1),
+    ('reflect_conv3x3_taps', 256, 512, 20, 30, 3, False, 2),
+    ('reflect_conv3x3_taps', 128, 384, 64, 64, 3, False, 16),
 ])
-def test_reflect_conv_kernel(device, dtype, name, c, co, h, w, k, bias):
+def test_reflect_conv_kernel(device, dtype, name, c, co, h, w, k, bias, batch):
     g = torch.Generator().manual_seed(0)
-    x = torch.rand(2, c, h, w, generator=g).to(device)
+    x = torch.rand(batch, c, h, w, generator=g).to(device)
     wt = ((torch.rand(co, c, k, k, generator=g) * 2 - 1)
           * (c * k * k) ** -0.5).to(device)
     b = torch.rand(co, generator=g).to(device) if bias else None
@@ -107,6 +113,14 @@ def test_halo_conv_kernel(device, dtype, c, co, h, w, k, s, bias):
     (2, 24, 40, 37, 29, True),         # channel chunk and block tails
     (1, 3, 5, 2, 9, False),            # the smallest input a pad of 1 takes
     (2, 8, 8, 16, 16, False),
+    # the bf16 wgmma kernel's edges: 16x16-pixel tiles, 32-channel chunks,
+    # 128-channel output tiles, 8-channel copies
+    (2, 40, 136, 19, 21, True),        # C % 32, C_out % 128, H, W % 16
+    (2, 1, 8, 17, 33, True),           # C = 1
+    (1, 1, 1, 2, 2, False),
+    (2, 12, 20, 31, 47, False),        # C % 8: element loads
+    (2, 96, 256, 16, 16, False),       # whole tiles: 3 chunks x 2 N tiles
+    (16, 512, 512, 64, 64, True),      # big-lama-regular's served batch
 ])
 def test_halo_conv3x3_kernel(device, dtype, b, c, co, h, w, bias):
     from lama_tpu_torch.ops.kernels import halo_conv as hc

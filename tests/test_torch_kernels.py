@@ -301,6 +301,118 @@ def test_fourier_unit_stage_plan_matches_plain(b, h, w, c, co):
     np.testing.assert_allclose(bufs['out'], _nhwc(ref), rtol=RTOL, atol=ATOL)
 
 
+def _replay_conv3x3_wgmma(x, weight):
+    """numpy model of csrc/conv3x3_wgmma.cu at one shape: per tile and
+    input-channel chunk, the reflect-mapped halo in the kernel's shared-
+    memory image ([8-channel group][halo pixel][8]), the packed weights of
+    each output-channel tile, and per m64 sub-tile, tap and 16-channel step
+    the A and B operands read through their (start, LBO, SBO) descriptors
+    as wgmma reads K-major core matrices; the tap GEMMs summed in float64."""
+    from lama_tpu_torch.ops.kernels import conv3x3_wgmma as wg
+    b, h, w, c = x.shape
+    co = weight.shape[0]
+    chunks, nt = -(-c // wg.CHUNK_C), -(-co // wg.BLOCK_N)
+    groups = wg.CHUNK_C // wg.GROUP_C
+    xp = np.zeros((b, h, w, chunks * wg.CHUNK_C))
+    xp[..., :c] = x
+    origins = wg.tile_origins(h, w)
+    rows = np.array([[wg.reflect_index(r - 1 + i, h) for i in range(wg.HALO_H)]
+                     for r, _ in origins])
+    cols = np.array([[wg.reflect_index(q - 1 + i, w) for i in range(wg.HALO_W)]
+                     for _, q in origins])
+    halo = xp[:, rows[:, :, None], cols[:, None, :], :]   # (b, T, HH, HW, C')
+    halo = halo.reshape(b, len(origins), wg.HALO_H * wg.HALO_W, chunks,
+                        groups, wg.GROUP_C).transpose(0, 1, 3, 4, 2, 5)
+    halo = torch.from_numpy(halo.reshape(b, len(origins), chunks, -1))
+    packed = wg.pack_conv3x3_weight(torch.from_numpy(weight), torch.float64)
+    wbuf = packed.reshape(nt, chunks, -1)
+    assert wbuf.shape[-1] * wg.BYTES == 9 * wg.CHUNK_C * wg.BLOCK_N * 2
+
+    def operand(desc, rows_):
+        # element (row, k) of a K-major no-swizzle operand, in bf16 units
+        start, lbo, sbo = desc
+        assert start % 16 == 0 and lbo % 16 == 0 and sbo % 16 == 0
+        assert max(start, lbo, sbo) >> 4 < 1 << 14   # 14-bit fields
+        r, k = np.arange(rows_)[:, None], np.arange(16)[None, :]
+        byte = start + (r // 8) * sbo + (r % 8) * 16 + (k // 8) * lbo + (k % 8) * 2
+        return torch.from_numpy(byte // wg.BYTES)
+
+    acc = torch.zeros(b, len(origins), nt, wg.TILE_H * wg.TILE_W, wg.BLOCK_N,
+                      dtype=torch.float64)
+    m = np.arange(64)
+    for sr in range(wg.TILE_H // wg.SUB):
+        for sc in range(wg.TILE_W // wg.SUB):
+            pix = (wg.SUB * sr + m // 8) * wg.TILE_W + wg.SUB * sc + m % 8
+            for tap in range(9):
+                for j in range(wg.CHUNK_C // 16):
+                    a = halo[..., operand(wg.a_descriptor(sr, sc, tap, j), 64)]
+                    bm = wbuf[..., operand(wg.b_descriptor(tap, j), wg.BLOCK_N)]
+                    acc[:, :, :, pix] += torch.einsum('btcmk,ucnk->btumn', a, bm)
+    out = np.zeros((b, h, w, nt * wg.BLOCK_N))
+    acc = acc.numpy()
+    for t, (r0, c0) in enumerate(origins):
+        tile = acc[:, t].transpose(0, 2, 1, 3).reshape(
+            b, wg.TILE_H, wg.TILE_W, nt * wg.BLOCK_N)
+        rr, cc = min(wg.TILE_H, h - r0), min(wg.TILE_W, w - c0)
+        out[:, r0:r0 + rr, c0:c0 + cc] = tile[:, :rr, :cc]
+    return out[..., :co]
+
+
+@pytest.mark.parametrize('b,c,co,h,w', [(2, 24, 40, 37, 29),
+                                        (1, 128, 384, 125, 95),
+                                        (1, 384, 128, 9, 8),
+                                        (2, 512, 512, 16, 16)])
+def test_conv3x3_wgmma_plan_matches_plain(b, c, co, h, w):
+    """The bf16 wgmma kernel's plan (kernels 3 and 6), replayed on the CPU
+    from the wrapper's constants and weight packing, equals the plain reflect
+    conv: the refiner's odd 125x95 bottleneck, kernel 3's g2l at 9x8, a
+    512-channel block and channel tails (C % 32, C_out % 128)."""
+    rng = np.random.RandomState(c + co)
+    x = rng.rand(b, h, w, c).astype(np.float32)
+    weight = (rng.randn(co, c, 3, 3) * (9 * c) ** -0.5).astype(np.float32)
+    ref = trc.reflect_conv_plain(_nchw(x), torch.from_numpy(weight))
+    np.testing.assert_allclose(_replay_conv3x3_wgmma(x, weight), _nhwc(ref),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('c,co', [(24, 40), (512, 512), (1, 130)])
+def test_pack_conv3x3_weight_round_trips(c, co):
+    """pack_conv3x3_weight is a zero-filled relayout of the OIHW weight."""
+    from lama_tpu_torch.ops.kernels import conv3x3_wgmma as wg
+    weight = torch.randn(co, c, 3, 3, generator=torch.Generator().manual_seed(c))
+    chunks, nt = -(-c // wg.CHUNK_C), -(-co // wg.BLOCK_N)
+    for dtype in (torch.float32, torch.bfloat16):
+        packed = wg.pack_conv3x3_weight(weight, dtype)
+        assert packed.dtype == dtype and packed.is_contiguous()
+        back = packed.reshape(nt, chunks, 3, 3, wg.CHUNK_C // wg.GROUP_C,
+                              wg.BLOCK_N, wg.GROUP_C).permute(0, 5, 1, 4, 6, 2, 3)
+        back = back.reshape(nt * wg.BLOCK_N, chunks * wg.CHUNK_C, 3, 3)
+        assert torch.equal(back[:co, :c], weight.to(dtype))
+        assert not back[co:].any() and not back[:, c:].any()
+
+
+def test_conv3x3_wgmma_source_matches_its_plan():
+    """The CUDA source's tile, chunk and stage constants are the Python
+    plan's, its shared memory fits one block, and it is built."""
+    import re
+
+    from lama_tpu_torch.ops.kernels import conv3x3_wgmma as wg
+    with open(_build.source_path('conv3x3_wgmma')) as f:
+        src = f.read()
+
+    def const(name):
+        return int(re.search(rf'\b{name} = (\d+)', src).group(1))
+
+    for name in ('TILE_H', 'TILE_W', 'SUB', 'BLOCK_N', 'CHUNK_C', 'GROUP_C',
+                 'STAGES'):
+        assert const(name) == getattr(wg, name), name
+    assert 'conv3x3_wgmma' in _build.SOURCES
+    halo = (wg.CHUNK_C // wg.GROUP_C) * wg.HALO_H * wg.HALO_W * 16
+    weights = 9 * wg.CHUNK_C * wg.BLOCK_N * wg.BYTES
+    assert wg.STAGES >= 2 and wg.STAGES * (halo + weights) <= 232448
+    assert wg.TILE_H * wg.TILE_W >= 128 and wg.BLOCK_N >= 128
+
+
 def test_cuda_sources_and_build_flags():
     for name in _build.SOURCES:
         assert os.path.isfile(_build.source_path(name)), name
