@@ -16,14 +16,18 @@ version):
      1000x760), at the train phase's (the stem at batch 10, 256^2), for
      the tiled halo conv at each kernel size and stride, and for the 3x3
      halo conv (kernel 6) at big-lama-regular's block convs (512 -> 512 at
-     b4 64^2 and b10 32^2) and a tiny odd shape, and kernels 6 and 3 at
-     the served batch 16 (64^2: 512 -> 512, 128 -> 384, 384 -> 128); fp32
+     b4 64^2 and b10 32^2) and a tiny odd shape, and kernels 6, 3, 2 and
+     4 at the served batch 16 (64^2: 512 -> 512, 128 -> 384, 384 -> 128,
+     128 -> 128; the four downsamples, 512^2 to 128^2); fp32
      (TF32 off) and bf16, against its plain PyTorch version on the same
-     inputs, with the median time of each (CUDA events), of the library
-     call (nn.Conv2d with padding_mode='reflect', for every reflect conv;
-     none for the FourierUnit) and its bound (the least time for its bytes
-     or its FLOP on an H100); then, in fp32, each kernel's gradients
-     through its autograd wrapper against plain autograd;
+     inputs, with the median time of each wrapper call and plain version
+     (CUDA events; a call includes the channels-last copy of the NCHW
+     input), the kernel's own device time per call (torch.profiler), the
+     median time of the library call (nn.Conv2d with
+     padding_mode='reflect', for every reflect conv; none for the
+     FourierUnit) and its bound (the least time for its bytes or its FLOP
+     on an H100); then, in fp32, each kernel's gradients through its
+     autograd wrapper against plain autograd;
   4. serve: big-lama (ngf 64, 18 blocks, random weights from a seed) served
      by `python -m lama_tpu_torch.predict` (run in this process, as `-m`
      runs it) on synthetic PNGs: bf16 and fp32, wire fp32 and uint8. Checks
@@ -55,7 +59,8 @@ version):
      plain path's own spread, with planted faults as controls; the
      forward/backward split and device profile of one Adam step;
   9. throughput: img/s at 512^2, batch 16, bf16 and fp32, kernels vs plain,
-     and one profiled forward of each (idle share, top device kernels);
+     one profiled forward of each (idle share, top device kernels), and
+     the device ms of each reflect-conv wrapper in one kernels forward;
  10. regular serve: big-lama-regular (the pix2pixHD GlobalGenerator, ngf 64,
      18 ResnetBlocks, random weights from a seed) served by the predict
      CLI as in phase 4, each forward launching kernel 6 36 times, the stem
@@ -133,9 +138,11 @@ SOURCES = {'fused_fourier_unit': 'lama_tpu_torch/csrc/fourier_unit.cu',
 SOURCES.update({k: 'lama_tpu_torch/csrc/reflect_conv.cu' for k in (
     'reflect_conv3x3_cols', 'reflect_conv3x3_taps', 'reflect_out_conv7x7',
     'reflect_down_conv3x3')})
-# the bf16 paths of kernels 3 and 6: one wgmma implicit GEMM
+# the bf16 paths of kernels 2, 3, 4 and 6: one wgmma implicit GEMM (kernel
+# 4 its stride-2 form)
 BF16_SOURCES = {k: 'lama_tpu_torch/csrc/conv3x3_wgmma.cu' for k in (
-    'reflect_conv3x3_taps', 'halo_conv3x3_reflect')}
+    'reflect_conv3x3_cols', 'reflect_conv3x3_taps', 'reflect_down_conv3x3',
+    'halo_conv3x3_reflect')}
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core
 # FLOP/s, fp32 FMA FLOP/s outside the tensor cores
 HBM_BPS, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
@@ -192,6 +199,34 @@ def median_ms(fn, iters=10, warmup=3):
     return float(np.median(times))
 
 
+OWN_KERNEL_NS = '(anonymous namespace)::'   # csrc/*.cu's kernels live there
+
+
+def own_device_ms(fn, calls=5):
+    """Device ms per call of fn spent in the port's own kernels (csrc/*.cu,
+    whose kernels live in anonymous namespaces; PyTorch's are under at::),
+    under torch.profiler: the kernel alone, without a wrapper's layout
+    copies, weight relayout or host time. None, with the kernel names
+    logged, when the profiler shows none of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    own = [e.self_device_time_total for e in events
+           if OWN_KERNEL_NS in e.key and 'at::' not in e.key]
+    if not own:
+        log('  own_device_ms: no port kernel among '
+            + '; '.join(e.key[:80] for e in events))
+        return None
+    return sum(own) / calls / 1e3
+
+
 def kernel_cases(gen):
     """(name, TPU kernel, role, kernel fn, plain fn, fp32 inputs) at the
     big-lama 512^2 shapes, batch BATCH, and at the refine phase's."""
@@ -220,6 +255,7 @@ def kernel_cases(gen):
                 u(384, scale=0.1), u(384, scale=0.3, shift=1.0))
 
     l2l3 = conv_case(256, 128, 128, 3, False)
+    l2l3_b16 = conv_case(256, 128, 128, 3, False, b=16)
     cases = [
         ('reflect_conv3x3_cols', 'l2l', conv_case(128, 128, 64, 3, False)),
         ('reflect_conv3x3_taps', 'l2g', conv_case(128, 384, 64, 3, False)),
@@ -279,6 +315,16 @@ def kernel_cases(gen):
          conv_case(128, 384, 64, 3, False, b=16)),
         ('reflect_conv3x3_taps', 'g2l_b16',
          conv_case(384, 128, 64, 3, False, b=16)),
+        # and its l2l convs and four downsamples
+        ('reflect_conv3x3_cols', 'l2l_b16',
+         conv_case(128, 128, 64, 3, False, b=16)),
+        ('reflect_down_conv3x3', 'down1_b16',
+         conv_case(64, 128, 512, 3, False, b=16)),
+        ('reflect_down_conv3x3', 'down2_b16',
+         conv_case(128, 256, 256, 3, False, b=16)),
+        ('reflect_down_conv3x3', 'down3_l2l_b16', l2l3_b16),
+        ('reflect_down_conv3x3', 'down3_l2g_b16',
+         conv_case(256, 384, 128, 3, False, x=l2l3_b16[0], b=16)),
     ]
     src = 'lama_tpu/ops/pallas/'
 
@@ -385,6 +431,7 @@ def kernels_vs_plain(gen):
             rtol, atol = TOL[dtype]
             ok = bool(torch.all(err <= atol + rtol * ref.abs()))
             k_ms = median_ms(lambda: kfn(*kargs))
+            d_ms = own_device_ms(lambda: kfn(*kargs))
             p_ms = median_ms(lambda: pfn(*kargs))
             lib = library_call(name, role, args, tdt)
             with torch.no_grad():
@@ -397,14 +444,16 @@ def kernels_vs_plain(gen):
                        shape=list(args[0].shape), dtype=dtype,
                        max_abs_err=float(err.max()),
                        tol=dict(rtol=rtol, atol=atol), within_tol=ok,
-                       ms=k_ms, kernel_ms=k_ms, plain_ms=p_ms,
+                       ms=k_ms, kernel_ms=k_ms, kernel_device_ms=d_ms,
+                       plain_ms=p_ms,
                        bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
             lib_text = ('' if l_ms is None else
                         f' library {l_ms:.3f} ms ({k_ms / l_ms:.2f}x)')
             log(f'kernel {name}/{role} {dtype} {list(args[0].shape)}: '
                 f'max|d| {row["max_abs_err"]:.3e} (rtol {rtol} atol {atol}) '
-                f'kernel {k_ms:.3f} ms plain {p_ms:.3f} ms{lib_text} bound '
-                f'{b_ms:.3f} ms ({b_by})')
+                f'kernel {k_ms:.3f} ms (device '
+                f'{"not measured" if d_ms is None else f"{d_ms:.4f}"}) plain '
+                f'{p_ms:.3f} ms{lib_text} bound {b_ms:.3f} ms ({b_by})')
             check(ok, f'{name}/{role} {dtype}: outside tolerance')
             rows.append(row)
     return rows
@@ -908,6 +957,45 @@ def device_profile(fn, label, top=10):
         log(f'  {us / 1e3:8.2f} ms {counts[name]:5d}x {name[:100]}')
 
 
+def wrapper_device_ms(fn, label):
+    """Device ms of each reflect-conv and halo-conv wrapper in one call of
+    fn, by kernel symbol: CUDA events recorded on the current stream around
+    each wrapper's launch (its weight relayout and its kernel), read after
+    one synchronize. The profiler cannot split them: the bf16 cols and taps
+    convs are one kernel (conv3x3_wgmma.cu at stride 1)."""
+    import torch
+    from lama_tpu_torch.ops.kernels import halo_conv as hc
+    from lama_tpu_torch.ops.kernels import reflect_conv as rc
+    events = []
+
+    def timed(launch):
+        def run(symbol, *args, **kwargs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = launch(symbol, *args, **kwargs)
+            b.record()
+            events.append((symbol, a, b))
+            return out
+        return run
+
+    saved = rc._launch, hc._launch
+    rc._launch, hc._launch = timed(rc._launch), timed(hc._launch)
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        rc._launch, hc._launch = saved
+    totals = {}
+    for symbol, a, b in events:
+        ms, n = totals.get(symbol, (0.0, 0))
+        totals[symbol] = (ms + a.elapsed_time(b), n + 1)
+    for symbol, (ms, n) in sorted(totals.items()):
+        log(f'{label} device ms by wrapper: {symbol} {ms:.3f} ms over {n} '
+            f'launches ({ms / n:.4f} per launch)')
+    return totals
+
+
 def refine_step_split(gen, size=1024, iters=3, top=10):
     """Host time of one Adam step's rear forward + loss and of its backward,
     bf16 kernels, at the second scale of a size^2 image; then one more step
@@ -1010,6 +1098,8 @@ def throughput(gens, card_line, iters=3, label='big-lama'):
             for kernels in ('cuda', 'plain'):
                 device_profile(lambda: gens[precision, kernels](x),
                                f'{label} 512^2 b16 {precision} {kernels}')
+            wrapper_device_ms(lambda: gens[precision, 'cuda'](x),
+                              f'{label} 512^2 b16 {precision}')
     return res
 
 

@@ -4,11 +4,13 @@
 //
 // Replaces the TPU kernels of lama_tpu/ops/pallas/reflect_conv.py:
 //   reflect_conv3x3_cols  (3x3, C = C_out = 128; the 36 l2l convs)
-//   reflect_conv3x3_taps  (3x3, C and C_out multiples of 128; l2g and g2l;
-//                          fp32 here, bf16 in csrc/conv3x3_wgmma.cu)
+//   reflect_conv3x3_taps  (3x3, C and C_out multiples of 128; l2g and g2l)
 //   reflect_down_conv3x3  (3x3 stride 2, 2C and C_out multiples of 128; the
 //                          four downsample convs of the generator's front)
 //   reflect_out_conv7x7   (7x7, C_out <= 8; the 64->3 RGB head)
+// in float32, and the head in bfloat16 too. The three 3x3 convs in bfloat16
+// are the wgmma implicit GEMM of csrc/conv3x3_wgmma.cu (stride 1 and 2);
+// their launchers here refuse dtype 1.
 //
 // What the TPU kernels keep out of HBM, these keep out too: the reflect
 // halo is built while the input tile is copied into shared memory (torch
@@ -17,36 +19,29 @@
 // pixel's input channels are contiguous, so a halo pixel is one 16-byte
 // vector load per 4 (fp32) or 8 (bf16) channels.
 //
-// 3x3 kernel (conv3x3_kernel): an implicit GEMM per block over an 8x16
-// output-pixel tile (M = 128) and 128 output channels (N), with K = 9 taps x
-// C input channels walked in chunks of CK channels. Each chunk stages the
-// input halo tile and the chunk's 9 x CK x 128 weights in shared memory
-// (weights in [tap][ci][co] order, the order the loop reads). The nine tap
-// windows are read straight off the halo tile: at stride S the halo is
-// (8S + 3 - S) x (16S + 3 - S) pixels, and for tap (ky, kx) a row of 16
-// output pixels is a 16 x CK matrix at halo[(S*row + ky) * HC + kx] whose
-// rows are S pixels apart (leading dimension S * CKP), which is exactly a
-// row-major WMMA A operand. So the TPU's three variants (im2col GEMM, nine
-// per-tap GEMMs, and the stride-2 width-pair view with a shifted left-tap
-// add, all Mosaic layout choices) are three instantiations of one kernel
-// here: cols fixes C = 128 at compile time (CFIX), so its whole K = 9 x 128
-// walk and the pixel stride are constants; taps takes C at run time
-// (CFIX = 0, fp32 only: its bf16 path is the wgmma kernel of
-// conv3x3_wgmma.cu); down is the run-time-C form at S = 2, where the
-// 17 x 33 halo tile holds every input pixel the 8 x 16 outputs read, each
-// loaded once per chunk.
-//   bf16 (cols, down): tensor cores through nvcuda::wmma (16x16x16, fp32
-//         accumulate); 8 warps, each 32 pixels x 64 channels.
-//   fp32: full-precision FMA (no TF32), each thread an 8-pixel x 8-channel
-//         register tile.
+// 3x3 kernel (conv3x3_kernel, fp32): an implicit GEMM per block over an
+// 8x16 output-pixel tile (M = 128) and 128 output channels (N), with K = 9
+// taps x C input channels walked in chunks of CK = 16 channels. Each chunk
+// stages the input halo tile and the chunk's 9 x CK x 128 weights in shared
+// memory (weights in [tap][ci][co] order, the order the loop reads). The
+// nine tap windows are read straight off the halo tile: at stride S the
+// halo is (8S + 3 - S) x (16S + 3 - S) pixels, and for tap (ky, kx) the
+// output pixel (row, j) reads halo[(S*row + ky) * HC + S*j + kx]. So the
+// TPU's three variants (im2col GEMM, nine per-tap GEMMs, and the stride-2
+// width-pair view with a shifted left-tap add, all Mosaic layout choices)
+// are three instantiations of one kernel here: cols fixes C = 128 at
+// compile time (CFIX), so its whole K = 9 x 128 walk and the pixel stride
+// are constants; taps takes C at run time (CFIX = 0); down is the
+// run-time-C form at S = 2, where the 17 x 33 halo tile holds every input
+// pixel the 8 x 16 outputs read, each loaded once per chunk. Arithmetic:
+// full-precision FMA (no TF32), each thread an 8-pixel x 8-channel register
+// tile.
 // Bound: at the bottleneck shape (B,64,64,128)->384 the work is 2*9*C*Co
-// FLOP per pixel against (C + Co) * bytes in and out, ~1000 FLOP/byte in
-// bf16, so compute. The halo tile is loaded once per 9 taps, which is what
+// FLOP per pixel against (C + Co) * 4 bytes in and out, ~500 FLOP/byte, so
+// the FMA units. The halo tile is loaded once per 9 taps, which is what
 // keeps the operand traffic in shared memory rather than L2. The stride-2
-// downsamples do a quarter of the FLOP per input byte: down1 (64 -> 128 at
-// 512^2) is bound by its bytes in bf16 and by the FMA rate in fp32; at
-// S = 2 the bf16 tile needs 134 KB of shared memory (54 KB halo, 81 KB
-// weights), so one block of 8 warps runs per SM.
+// downsamples do a quarter of the FLOP per input byte and are bound by the
+// FMA rate too.
 //
 // 7x7 head (conv7_thin_kernel): C_out = 3 wastes any GEMM tile, so each
 // thread owns one column of R = 4 output pixels and all C_out channels
@@ -63,9 +58,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
-#include <type_traits>
 
 using bf16 = __nv_bfloat16;
 
@@ -95,16 +88,12 @@ template <int S> struct Halo3 {
   static constexpr int R = (C3_TH - 1) * S + 3, C = (C3_TW - 1) * S + 3;
 };
 
+// float32 only (the bf16 3x3 convs are conv3x3_wgmma.cu's)
 template <typename T> struct Conv3Cfg;
 template <> struct Conv3Cfg<float> {
   static constexpr int CK = 16;          // input channels per chunk
   static constexpr int CKP = CK + 4;     // halo pixel pitch (16-B aligned)
   static constexpr int BNP = C3_BN + 4;  // weight row pitch
-};
-template <> struct Conv3Cfg<bf16> {
-  static constexpr int CK = 32;
-  static constexpr int CKP = CK + 16;    // 96 B: 32-B aligned for WMMA loads
-  static constexpr int BNP = C3_BN + 16;
 };
 
 template <typename T, int S>
@@ -141,24 +130,14 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int b = blockIdx.z;
   const T* xb = x + size_t(b) * H * W * C;
 
-  // fp32 path: thread tile = 8 pixels (one half-row) x 8 channels
+  // thread tile = 8 pixels (one half-row) x 8 channels
   const int tn = tid % 16, tm = tid / 16;
   const int prow = tm >> 1, pcol0 = (tm & 1) * 8;
   float acc[8][8];
-  // bf16 path: warp tile = 2 pixel rows x 64 channels
-  const int warp = tid / 32, wm = warp % 4, wn = warp / 4;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> facc[2][4];
-  if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) nvcuda::wmma::fill_fragment(facc[i][j], 0.f);
-  }
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   for (int ci0 = 0; ci0 < C; ci0 += CK) {
     // halo tile, reflect-mapped at load time
@@ -182,103 +161,48 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
     }
     __syncthreads();
 
-    if constexpr (std::is_same<T, float>::value) {
 #pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap) {
-        const int ky = tap / 3, kx = tap % 3;
-        const float* hp = halo + ((S * prow + ky) * HC + S * pcol0 + kx) * CKP;
-        const float* wp = wts + tap * CK * BNP + tn * 4;
+    for (int tap = 0; tap < 9; ++tap) {
+      const int ky = tap / 3, kx = tap % 3;
+      const float* hp = halo + ((S * prow + ky) * HC + S * pcol0 + kx) * CKP;
+      const float* wp = wts + tap * CK * BNP + tn * 4;
 #pragma unroll 4
-        for (int ci = 0; ci < CK; ++ci) {
-          float a[8];
+      for (int ci = 0; ci < CK; ++ci) {
+        float a[8];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) a[j] = hp[j * S * CKP + ci];
-          const float4 b0 = *reinterpret_cast<const float4*>(wp + ci * BNP);
-          const float4 b1 = *reinterpret_cast<const float4*>(wp + ci * BNP + 64);
+        for (int j = 0; j < 8; ++j) a[j] = hp[j * S * CKP + ci];
+        const float4 b0 = *reinterpret_cast<const float4*>(wp + ci * BNP);
+        const float4 b1 = *reinterpret_cast<const float4*>(wp + ci * BNP + 64);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            acc[j][0] += a[j] * b0.x; acc[j][1] += a[j] * b0.y;
-            acc[j][2] += a[j] * b0.z; acc[j][3] += a[j] * b0.w;
-            acc[j][4] += a[j] * b1.x; acc[j][5] += a[j] * b1.y;
-            acc[j][6] += a[j] * b1.z; acc[j][7] += a[j] * b1.w;
-          }
-        }
-      }
-    } else {
-      using namespace nvcuda;
-#pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap) {
-        const int ky = tap / 3, kx = tap % 3;
-#pragma unroll
-        for (int kk = 0; kk < CK; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int pr = wm * 2 + i;
-            wmma::load_matrix_sync(fa[i], halo + ((S * pr + ky) * HC + kx) * CKP + kk,
-                                   S * CKP);
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-            wmma::load_matrix_sync(fb, wts + (tap * CK + kk) * BNP + wn * 64 + j * 16, BNP);
-#pragma unroll
-            for (int i = 0; i < 2; ++i) wmma::mma_sync(facc[i][j], fa[i], fb, facc[i][j]);
-          }
+        for (int j = 0; j < 8; ++j) {
+          acc[j][0] += a[j] * b0.x; acc[j][1] += a[j] * b0.y;
+          acc[j][2] += a[j] * b0.z; acc[j][3] += a[j] * b0.w;
+          acc[j][4] += a[j] * b1.x; acc[j][5] += a[j] * b1.y;
+          acc[j][6] += a[j] * b1.z; acc[j][7] += a[j] * b1.w;
         }
       }
     }
     __syncthreads();
   }
 
-  if constexpr (std::is_same<T, float>::value) {
-    const int r = r0 + prow;
-    float bv[8];
+  const int r = r0 + prow;
+  float bv[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int n = n0 + tn * 4 + (j < 4 ? j : 60 + j);
+    bv[j] = bias ? bias[n] : 0.f;
+  }
+  if (r < Ho) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int n = n0 + tn * 4 + (j < 4 ? j : 60 + j);
-      bv[j] = bias ? bias[n] : 0.f;
-    }
-    if (r < Ho) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = c0 + pcol0 + j;
-        if (c < Wo) {
-          float* o = out + ((size_t(b) * Ho + r) * Wo + c) * Co + n0 + tn * 4;
-          *reinterpret_cast<float4*>(o) = make_float4(
-              acc[j][0] + bv[0], acc[j][1] + bv[1], acc[j][2] + bv[2], acc[j][3] + bv[3]);
-          *reinterpret_cast<float4*>(o + 64) = make_float4(
-              acc[j][4] + bv[4], acc[j][5] + bv[5], acc[j][6] + bv[6], acc[j][7] + bv[7]);
-        }
+      const int c = c0 + pcol0 + j;
+      if (c < Wo) {
+        float* o = out + ((size_t(b) * Ho + r) * Wo + c) * Co + n0 + tn * 4;
+        *reinterpret_cast<float4*>(o) = make_float4(
+            acc[j][0] + bv[0], acc[j][1] + bv[1], acc[j][2] + bv[2], acc[j][3] + bv[3]);
+        *reinterpret_cast<float4*>(o + 64) = make_float4(
+            acc[j][4] + bv[4], acc[j][5] + bv[5], acc[j][6] + bv[6], acc[j][7] + bv[7]);
       }
-    }
-  } else {
-    // stage the fp32 accumulators (pixel-major) in the freed shared memory,
-    // then add the bias, round to bf16 and store 8 channels per thread-step
-    using namespace nvcuda;
-    constexpr int SP = C3_BN + 4;
-    float* stage = reinterpret_cast<float*>(smem_raw);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(stage + (wm * 2 + i) * 16 * SP + wn * 64 + j * 16,
-                                facc[i][j], SP, wmma::mem_row_major);
-    __syncthreads();
-    constexpr int VPO = C3_BN / 8;
-    for (int i = tid; i < C3_TH * C3_TW * VPO; i += C3_THREADS) {
-      const int m = i / VPO, v = i % VPO;
-      const int r = r0 + m / C3_TW, c = c0 + m % C3_TW;
-      if (r >= Ho || c >= Wo) continue;
-      __align__(16) bf16 pk[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int n = n0 + v * 8 + e;
-        pk[e] = __float2bfloat16(stage[m * SP + v * 8 + e] +
-                                 (bias ? __bfloat162float(bias[n]) : 0.f));
-      }
-      *reinterpret_cast<uint4*>(out + ((size_t(b) * Ho + r) * Wo + c) * Co + n0 + v * 8) =
-          *reinterpret_cast<const uint4*>(pk);
     }
   }
 }
@@ -429,16 +353,17 @@ int launch_conv7(const void* x, const void* w, const void* bias, void* out,
 
 // dtype code: 0 = float32, 1 = bfloat16. Each returns a cudaError_t value
 // (0 on success); the launch is asynchronous on `stream`.
+// The three 3x3 launchers are float32 only: in bf16 these convs are
+// lama_conv3x3_wgmma and lama_conv3x3_s2_wgmma (conv3x3_wgmma.cu).
 extern "C" int lama_reflect_conv3x3_cols(const void* x, const void* w,
                                          const void* bias, void* out, int B,
                                          int H, int W, int C, int Co,
                                          int dtype, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  return dtype ? launch_conv3<bf16, 128, 1>(x, w, bias, out, B, H, W, C, Co, s)
-               : launch_conv3<float, 128, 1>(x, w, bias, out, B, H, W, C, Co, s);
+  if (dtype) return int(cudaErrorInvalidValue);
+  return launch_conv3<float, 128, 1>(x, w, bias, out, B, H, W, C, Co,
+                                     static_cast<cudaStream_t>(stream));
 }
 
-// float32 only: the bf16 taps conv is lama_conv3x3_wgmma (conv3x3_wgmma.cu).
 extern "C" int lama_reflect_conv3x3_taps(const void* x, const void* w,
                                          const void* bias, void* out, int B,
                                          int H, int W, int C, int Co,
@@ -453,9 +378,9 @@ extern "C" int lama_reflect_down_conv3x3(const void* x, const void* w,
                                          const void* bias, void* out, int B,
                                          int H, int W, int C, int Co,
                                          int dtype, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  return dtype ? launch_conv3<bf16, 0, 2>(x, w, bias, out, B, H, W, C, Co, s)
-               : launch_conv3<float, 0, 2>(x, w, bias, out, B, H, W, C, Co, s);
+  if (dtype) return int(cudaErrorInvalidValue);
+  return launch_conv3<float, 0, 2>(x, w, bias, out, B, H, W, C, Co,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int lama_reflect_out_conv7x7(const void* x, const void* w,

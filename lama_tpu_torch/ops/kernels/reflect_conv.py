@@ -10,16 +10,19 @@ Counterparts of the TPU kernels in lama_tpu/ops/pallas/reflect_conv.py:
 Each computes `F.conv2d(F.pad(x, (p,)*4, mode='reflect'), weight, bias,
 stride)` with p = k // 2 on NCHW tensors (any memory format) and an OIHW
 weight, and keeps the TPU kernel's envelope; the down conv has stride 2, the
-others stride 1. The kernels (lama_tpu_torch/csrc/reflect_conv.cu; for
-reflect_conv3x3_taps in bf16, the wgmma implicit GEMM of
-csrc/conv3x3_wgmma.cu, see conv3x3_wgmma.py) build the reflect halo while
-loading an input tile into shared memory, so no padded tensor reaches HBM.
+others stride 1. The kernels build the reflect halo while loading an input
+tile into shared memory, so no padded tensor reaches HBM:
+  float32 (full fp32 arithmetic, no TF32): lama_tpu_torch/csrc/reflect_conv.cu
+    (a SIMT implicit GEMM for the three 3x3 convs, a thin 7x7 kernel for the
+    head);
+  bfloat16 (tensor cores, fp32 accumulation, bf16 output): the three 3x3
+    convs run the wgmma implicit GEMM of csrc/conv3x3_wgmma.cu (see
+    conv3x3_wgmma.py; the down conv its stride-2 width-pair form), the head
+    the 7x7 kernel of reflect_conv.cu.
 Inside, the layout is channels-last: the wrapper passes a channels-last
 view of `x` (a copy only if `x` is not channels-last already), an HWIO copy
-of the weight in `x`'s dtype (bf16 taps: the packed weight of
-conv3x3_wgmma.py), and returns a channels-last output. Types: float32
-(full fp32 arithmetic, no TF32) and bfloat16 (tensor cores, fp32
-accumulation, bf16 output).
+of the weight in `x`'s dtype (bf16 3x3: the packed weight of
+conv3x3_wgmma.py), and returns a channels-last output.
 
 On a CPU tensor a wrapper computes its plain version; on a CUDA tensor it
 launches its kernel or raises. When a gradient is needed, the launch runs
@@ -129,11 +132,13 @@ def _kernel(wrapper, symbol, supported, stride, x, weight, bias, bf16=None):
 
 
 def reflect_conv3x3_cols(x, weight, bias=None):
-    """3x3 stride-1 reflect conv for C = C_out = 128 (the FFC l2l convs)."""
+    """3x3 stride-1 reflect conv for C = C_out = 128 (the FFC l2l convs).
+    bf16: the wgmma kernel of csrc/conv3x3_wgmma.cu; fp32: reflect_conv.cu."""
     if not x.is_cuda:
         return reflect_conv_plain(x, weight, bias)
     return _kernel(reflect_conv3x3_cols, 'lama_reflect_conv3x3_cols',
-                   reflect_conv3x3_cols_supported, 1, x, weight, bias)
+                   reflect_conv3x3_cols_supported, 1, x, weight, bias,
+                   bf16=conv3x3_wgmma.conv3x3_reflect_bf16)
 
 
 def reflect_conv3x3_taps(x, weight, bias=None):
@@ -147,11 +152,14 @@ def reflect_conv3x3_taps(x, weight, bias=None):
 
 
 def reflect_down_conv3x3(x, weight, bias=None):
-    """3x3 stride-2 reflect conv (the generator's downsamples)."""
+    """3x3 stride-2 reflect conv (the generator's downsamples). bf16: the
+    stride-2 wgmma kernel of csrc/conv3x3_wgmma.cu; fp32: reflect_conv.cu."""
     if not x.is_cuda:
         return reflect_down_conv3x3_plain(x, weight, bias)
     return _kernel(reflect_down_conv3x3, 'lama_reflect_down_conv3x3',
-                   reflect_down_conv3x3_supported, 2, x, weight, bias)
+                   reflect_down_conv3x3_supported, 2, x, weight, bias,
+                   bf16=functools.partial(conv3x3_wgmma.conv3x3_reflect_bf16,
+                                          stride=2))
 
 
 def reflect_out_conv7x7(x, weight, bias=None):

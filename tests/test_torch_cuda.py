@@ -59,6 +59,16 @@ def _close(out, ref, dtype):
     ('reflect_conv3x3_taps', 384, 128, 9, 8, 3, True, 1),
     ('reflect_conv3x3_taps', 256, 512, 20, 30, 3, False, 2),
     ('reflect_conv3x3_taps', 128, 384, 64, 64, 3, False, 16),
+    # bf16 cols and down on the wgmma kernel (down: its stride-2 form, 16x16
+    # output tiles, 16-channel chunks): output sides that are not multiples
+    # of 16 (20x35), C = 64 (four chunks), C = 256 -> 384 (three N tiles,
+    # sixteen chunks), the smallest input (8x8), bias, and the served
+    # batch 16 of both
+    ('reflect_down_conv3x3', 64, 128, 40, 70, 3, True, 2),
+    ('reflect_down_conv3x3', 256, 384, 36, 20, 3, True, 1),
+    ('reflect_down_conv3x3', 128, 128, 8, 8, 3, True, 1),
+    ('reflect_down_conv3x3', 64, 128, 64, 64, 3, False, 16),
+    ('reflect_conv3x3_cols', 128, 128, 64, 64, 3, False, 16),
 ])
 def test_reflect_conv_kernel(device, dtype, name, c, co, h, w, k, bias, batch):
     g = torch.Generator().manual_seed(0)
@@ -74,6 +84,57 @@ def test_reflect_conv_kernel(device, dtype, name, c, co, h, w, k, bias, batch):
     assert fn.launches == before + 1
     assert out.dtype == dtype and out.shape == ref.shape
     _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize('b,c,co,h,w,bias', [
+    (2, 24, 40, 18, 30, True),         # C % 16, C_out % 128
+    (2, 12, 20, 22, 34, False),        # C % 8: element loads
+    (1, 1, 8, 2, 2, True),             # the smallest input, one output pixel
+    (2, 96, 136, 34, 66, False),       # partial tiles, two N tiles
+])
+def test_conv3x3_wgmma_stride2_any_widths(device, b, c, co, h, w, bias):
+    """The stride-2 wgmma kernel outside kernel 4's envelope too (any C,
+    C_out; H, W even): channel tails by the copies' zero fill, element
+    loads, partial tiles."""
+    from lama_tpu_torch.ops.kernels import conv3x3_wgmma as wg
+    g = torch.Generator().manual_seed(c + co)
+    x = torch.rand(b, c, h, w, generator=g).to(device)
+    wt = ((torch.rand(co, c, 3, 3, generator=g) * 2 - 1)
+          * (c * 9) ** -0.5).to(device)
+    bb = torch.rand(co, generator=g).to(device) if bias else None
+    ref = rc.reflect_conv_plain(x, wt, bb, stride=2)
+    out = wg.conv3x3_reflect_bf16(
+        x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last),
+        wt, bb, stride=2)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    _close(out, ref, torch.bfloat16)
+
+
+def test_bf16_3x3_wrappers_launch_the_wgmma_kernel(device, monkeypatch):
+    """bf16 cols and down go to conv3x3_wgmma.cu's launchers (stride 1 and
+    2), fp32 to reflect_conv.cu's."""
+    from lama_tpu_torch.ops.kernels import _build
+    from lama_tpu_torch.ops.kernels import conv3x3_wgmma as wg
+    calls = []
+    launcher, load = wg._launcher, _build.load
+    monkeypatch.setattr(wg, '_launcher',
+                        lambda symbol: calls.append(symbol) or launcher(symbol))
+    monkeypatch.setattr(_build, 'load',
+                        lambda name: calls.append(name) or load(name))
+    g = torch.Generator().manual_seed(9)
+    for name, c, symbol in (('reflect_conv3x3_cols', 128, 'lama_conv3x3_wgmma'),
+                            ('reflect_down_conv3x3', 64,
+                             'lama_conv3x3_s2_wgmma')):
+        x = torch.rand(1, c, 16, 16, generator=g).to(device)
+        wt = torch.rand(128, c, 3, 3, generator=g).to(device)
+        calls.clear()
+        getattr(rc, name)(x.to(torch.bfloat16), wt)
+        assert calls[0] == symbol and 'reflect_conv' not in calls, calls
+        calls.clear()
+        getattr(rc, name)(x, wt)
+        assert calls == ['reflect_conv'], calls
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])

@@ -42,6 +42,8 @@ CONV_CASES = [
     ('reflect_conv3x3_taps', (2, 16, 16, 384), 128, False),
     ('reflect_conv3x3_taps', (2, 16, 16, 128), 384, False),
     ('reflect_out_conv7x7', (2, 16, 16, 64), 3, True),
+    ('reflect_down_conv3x3', (2, 16, 16, 64), 128, False),
+    ('reflect_down_conv3x3', (2, 16, 16, 64), 128, True),
 ]
 
 
@@ -301,32 +303,45 @@ def test_fourier_unit_stage_plan_matches_plain(b, h, w, c, co):
     np.testing.assert_allclose(bufs['out'], _nhwc(ref), rtol=RTOL, atol=ATOL)
 
 
-def _replay_conv3x3_wgmma(x, weight):
-    """numpy model of csrc/conv3x3_wgmma.cu at one shape: per tile and
-    input-channel chunk, the reflect-mapped halo in the kernel's shared-
-    memory image ([8-channel group][halo pixel][8]), the packed weights of
-    each output-channel tile, and per m64 sub-tile, tap and 16-channel step
-    the A and B operands read through their (start, LBO, SBO) descriptors
-    as wgmma reads K-major core matrices; the tap GEMMs summed in float64."""
+def _replay_conv3x3_wgmma(x, weight, stride=1):
+    """numpy model of csrc/conv3x3_wgmma.cu at one shape and stride: per
+    tile and input-channel chunk, the reflect-mapped halo in the kernel's
+    shared-memory image ([slot * groups + 8-channel group][halo pixel][8];
+    at stride 2 the halo pixels are width pairs, slot 0 the even input
+    column, slot 1 the odd), the packed weights of each output-channel tile
+    as the kernel's copies take them into a stage, and per m64 sub-tile,
+    tap and 16-channel step the A and B operands read through their (start,
+    LBO, SBO) descriptors as wgmma reads K-major core matrices; the tap
+    GEMMs summed in float64."""
     from lama_tpu_torch.ops.kernels import conv3x3_wgmma as wg
     b, h, w, c = x.shape
     co = weight.shape[0]
-    chunks, nt = -(-c // wg.CHUNK_C), -(-co // wg.BLOCK_N)
-    groups = wg.CHUNK_C // wg.GROUP_C
-    xp = np.zeros((b, h, w, chunks * wg.CHUNK_C))
+    ho, wo = h // stride, w // stride
+    cc = wg.chunk_c(stride)
+    chunks, nt = -(-c // cc), -(-co // wg.BLOCK_N)
+    groups = cc // wg.GROUP_C
+    hh, hw = wg.halo_shape(stride)
+    xp = np.zeros((b, h, w, chunks * cc))
     xp[..., :c] = x
-    origins = wg.tile_origins(h, w)
-    rows = np.array([[wg.reflect_index(r - 1 + i, h) for i in range(wg.HALO_H)]
-                     for r, _ in origins])
-    cols = np.array([[wg.reflect_index(q - 1 + i, w) for i in range(wg.HALO_W)]
-                     for _, q in origins])
-    halo = xp[:, rows[:, :, None], cols[:, None, :], :]   # (b, T, HH, HW, C')
-    halo = halo.reshape(b, len(origins), wg.HALO_H * wg.HALO_W, chunks,
-                        groups, wg.GROUP_C).transpose(0, 1, 3, 4, 2, 5)
+    origins = wg.tile_origins(h, w, stride)
+    src = [wg.halo_source(r0, c0, h, w, stride) for r0, c0 in origins]
+    rows = np.array([r for r, _ in src])             # (T, hh)
+    cols = np.array([cs for _, cs in src])           # (T, slots, hw)
+    halo = xp[:, rows[:, None, :, None], cols[:, :, None, :], :]
+    halo = halo.reshape(b, len(origins), stride, hh, hw, chunks, groups,
+                        wg.GROUP_C).transpose(0, 1, 5, 2, 6, 3, 4, 7)
     halo = torch.from_numpy(halo.reshape(b, len(origins), chunks, -1))
+    # the stage's weights: stage chunk k is part k % split of packed chunk
+    # k // split, `groups` of the packed chunk's groups of each tap
+    pack_groups, split = wg.CHUNK_C // wg.GROUP_C, wg.CHUNK_C // cc
     packed = wg.pack_conv3x3_weight(torch.from_numpy(weight), torch.float64)
-    wbuf = packed.reshape(nt, chunks, -1)
-    assert wbuf.shape[-1] * wg.BYTES == 9 * wg.CHUNK_C * wg.BLOCK_N * 2
+    packed = packed.reshape(nt, -1, wg.GROUP_C)       # 16-byte items
+    tap, r = np.divmod(np.arange(9 * groups * wg.BLOCK_N), groups * wg.BLOCK_N)
+    items = np.stack([((k // split) * 9 * pack_groups + (k % split) * groups)
+                      * wg.BLOCK_N + tap * pack_groups * wg.BLOCK_N + r
+                      for k in range(chunks)])
+    wbuf = packed[:, torch.from_numpy(items)].reshape(nt, chunks, -1)
+    assert wbuf.shape[-1] * wg.BYTES == 9 * cc * wg.BLOCK_N * 2
 
     def operand(desc, rows_):
         # element (row, k) of a K-major no-swizzle operand, in bf16 units
@@ -344,35 +359,58 @@ def _replay_conv3x3_wgmma(x, weight):
         for sc in range(wg.TILE_W // wg.SUB):
             pix = (wg.SUB * sr + m // 8) * wg.TILE_W + wg.SUB * sc + m % 8
             for tap in range(9):
-                for j in range(wg.CHUNK_C // 16):
-                    a = halo[..., operand(wg.a_descriptor(sr, sc, tap, j), 64)]
-                    bm = wbuf[..., operand(wg.b_descriptor(tap, j), wg.BLOCK_N)]
+                for j in range(cc // 16):
+                    a = halo[..., operand(
+                        wg.a_descriptor(sr, sc, tap, j, stride), 64)]
+                    bm = wbuf[..., operand(wg.b_descriptor(tap, j, stride),
+                                           wg.BLOCK_N)]
                     acc[:, :, :, pix] += torch.einsum('btcmk,ucnk->btumn', a, bm)
-    out = np.zeros((b, h, w, nt * wg.BLOCK_N))
+    out = np.zeros((b, ho, wo, nt * wg.BLOCK_N))
     acc = acc.numpy()
     for t, (r0, c0) in enumerate(origins):
         tile = acc[:, t].transpose(0, 2, 1, 3).reshape(
             b, wg.TILE_H, wg.TILE_W, nt * wg.BLOCK_N)
-        rr, cc = min(wg.TILE_H, h - r0), min(wg.TILE_W, w - c0)
-        out[:, r0:r0 + rr, c0:c0 + cc] = tile[:, :rr, :cc]
+        rr, cc_ = min(wg.TILE_H, ho - r0), min(wg.TILE_W, wo - c0)
+        out[:, r0:r0 + rr, c0:c0 + cc_] = tile[:, :rr, :cc_]
     return out[..., :co]
 
 
 @pytest.mark.parametrize('b,c,co,h,w', [(2, 24, 40, 37, 29),
                                         (1, 128, 384, 125, 95),
                                         (1, 384, 128, 9, 8),
-                                        (2, 512, 512, 16, 16)])
+                                        (2, 512, 512, 16, 16),
+                                        (2, 128, 128, 16, 16),
+                                        (1, 128, 128, 125, 95)])
 def test_conv3x3_wgmma_plan_matches_plain(b, c, co, h, w):
-    """The bf16 wgmma kernel's plan (kernels 3 and 6), replayed on the CPU
-    from the wrapper's constants and weight packing, equals the plain reflect
-    conv: the refiner's odd 125x95 bottleneck, kernel 3's g2l at 9x8, a
-    512-channel block and channel tails (C % 32, C_out % 128)."""
+    """The bf16 wgmma kernel's stride-1 plan (kernels 2, 3 and 6), replayed
+    on the CPU from the wrapper's constants and weight packing, equals the
+    plain reflect conv: the refiner's odd 125x95 bottleneck (taps and cols),
+    kernel 3's g2l at 9x8, a 512-channel block, kernel 2's 128 -> 128 and
+    channel tails (C % 32, C_out % 128)."""
     rng = np.random.RandomState(c + co)
     x = rng.rand(b, h, w, c).astype(np.float32)
     weight = (rng.randn(co, c, 3, 3) * (9 * c) ** -0.5).astype(np.float32)
     ref = trc.reflect_conv_plain(_nchw(x), torch.from_numpy(weight))
     np.testing.assert_allclose(_replay_conv3x3_wgmma(x, weight), _nhwc(ref),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('b,c,co,h,w', [(2, 64, 128, 16, 24),
+                                        (1, 128, 256, 26, 10),
+                                        (1, 256, 384, 8, 8),
+                                        (1, 64, 128, 50, 38)])
+def test_conv3x3_wgmma_s2_plan_matches_plain(b, c, co, h, w):
+    """The stride-2 plan (kernel 4's bf16 path: the width-pair halo, its
+    descriptors and the half-chunk weight stages), replayed on the CPU,
+    equals the plain stride-2 reflect conv: down1-like 64 -> 128, partial
+    tiles (13x5 outputs) over two N tiles, down3's l2g over three, and the
+    refiner's halved odd sides (50x38 -> 25x19)."""
+    rng = np.random.RandomState(c + co + h)
+    x = rng.rand(b, h, w, c).astype(np.float32)
+    weight = (rng.randn(co, c, 3, 3) * (9 * c) ** -0.5).astype(np.float32)
+    ref = trc.reflect_conv_plain(_nchw(x), torch.from_numpy(weight), stride=2)
+    np.testing.assert_allclose(_replay_conv3x3_wgmma(x, weight, stride=2),
+                               _nhwc(ref), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize('c,co', [(24, 40), (512, 512), (1, 130)])
@@ -411,6 +449,32 @@ def test_conv3x3_wgmma_source_matches_its_plan():
     weights = 9 * wg.CHUNK_C * wg.BLOCK_N * wg.BYTES
     assert wg.STAGES >= 2 and wg.STAGES * (halo + weights) <= 232448
     assert wg.TILE_H * wg.TILE_W >= 128 and wg.BLOCK_N >= 128
+    # stride 2: its constants, both launchers, and the ring's fit
+    for name in ('S2_CHUNK_C', 'S2_STAGES', 'SMEM_LIMIT'):
+        assert const(name) == getattr(wg, name), name
+    for symbol in wg.LAUNCHERS.values():
+        assert f'extern "C" int {symbol}(' in src, symbol
+    assert (wg.S2_HALO_H, wg.S2_HALO_W) == (2 * wg.TILE_H + 1, wg.TILE_W + 1)
+    assert wg.CHUNK_C % wg.S2_CHUNK_C == 0 and wg.S2_CHUNK_C % 16 == 0
+    out_stage = wg.TILE_H * wg.TILE_W * (wg.BLOCK_N + 8) * wg.BYTES
+    for stride, stages in ((1, wg.STAGES), (2, wg.S2_STAGES)):
+        assert stages >= 2 and stages * wg.stage_bytes(stride) <= wg.SMEM_LIMIT
+        assert out_stage <= stages * wg.stage_bytes(stride)
+    assert wg.stage_bytes(1) == halo + weights
+    # why 16 channels at stride 2: two 32-channel pair-halo stages overflow
+    s2_halo32 = 2 * (wg.CHUNK_C // wg.GROUP_C) * wg.S2_HALO_H * wg.S2_HALO_W * 16
+    assert 2 * (s2_halo32 + weights) > wg.SMEM_LIMIT
+
+
+def test_reflect_conv_source_keeps_no_bf16_3x3_path():
+    """reflect_conv.cu's 3x3 kernel is fp32 only (its bf16 launches are
+    conv3x3_wgmma.cu's); the 7x7 head keeps its bf16 instance."""
+    with open(_build.source_path('reflect_conv')) as f:
+        src = f.read()
+    for gone in ('mma.h', 'nvcuda', 'wmma', 'Conv3Cfg<bf16>',
+                 'launch_conv3<bf16'):
+        assert gone not in src, gone
+    assert 'launch_conv7<bf16>' in src
 
 
 def test_cuda_sources_and_build_flags():
