@@ -25,7 +25,9 @@ version):
      input), the kernel's own device time per call (torch.profiler), the
      median time of the library call (nn.Conv2d with
      padding_mode='reflect', for every reflect conv; none for the
-     FourierUnit) and its bound (the least time for its bytes or its FLOP
+     FourierUnit) on the NCHW input and on its channels-last copy (the
+     layout the generator gives every reflect conv) beside the wrapper's
+     time on that copy, and its bound (the least time for its bytes or its FLOP
      on an H100); then, in fp32, each kernel's gradients through its
      autograd wrapper against plain autograd;
   4. serve: big-lama (ngf 64, 18 blocks, random weights from a seed) served
@@ -133,11 +135,13 @@ REFINE_CONTROL_EPS = (1e-3, 1e-2, 1e-1)
 REFINE_PASS_SIZES = ((1024, 1024), (1000, 760), (504, 384))
 N_ITERS = 15      # the refiner's default (configs/prediction/default.yaml)
 SOURCES = {'fused_fourier_unit': 'lama_tpu_torch/csrc/fourier_unit.cu',
-           'halo_conv_reflect_tiled': 'lama_tpu_torch/csrc/halo_conv.cu',
-           'halo_conv3x3_reflect': 'lama_tpu_torch/csrc/halo_conv.cu'}
+           'halo_conv_reflect_tiled': 'lama_tpu_torch/csrc/halo_conv.cu'}
 SOURCES.update({k: 'lama_tpu_torch/csrc/reflect_conv.cu' for k in (
-    'reflect_conv3x3_cols', 'reflect_conv3x3_taps', 'reflect_out_conv7x7',
-    'reflect_down_conv3x3')})
+    'reflect_conv3x3_cols', 'reflect_conv3x3_taps', 'reflect_out_conv7x7')})
+# the fp32 paths of kernels 4 and 6: one register-tiled SIMT implicit GEMM
+# (kernel 4 its stride-2 form)
+SOURCES.update({k: 'lama_tpu_torch/csrc/conv3x3_simt.cu' for k in (
+    'reflect_down_conv3x3', 'halo_conv3x3_reflect')})
 # the bf16 paths of kernels 2, 3, 4 and 6: one wgmma implicit GEMM (kernel
 # 4 its stride-2 form)
 BF16_SOURCES = {k: 'lama_tpu_torch/csrc/conv3x3_wgmma.cu' for k in (
@@ -434,8 +438,14 @@ def kernels_vs_plain(gen):
             d_ms = own_device_ms(lambda: kfn(*kargs))
             p_ms = median_ms(lambda: pfn(*kargs))
             lib = library_call(name, role, args, tdt)
+            # the generator hands every reflect conv a channels-last input:
+            # the wrapper and the library call on that copy too
+            xcl = kargs[0].contiguous(memory_format=torch.channels_last)
+            clargs = (xcl,) + kargs[1:]
+            k_cl_ms = median_ms(lambda: kfn(*clargs))
             with torch.no_grad():
                 l_ms = None if lib is None else median_ms(lambda: lib(kargs[0]))
+                l_cl_ms = None if lib is None else median_ms(lambda: lib(xcl))
             b_ms, b_by = bound(name, role, args, dtype)
             source = (BF16_SOURCES.get(name, SOURCES[name]) if dtype == 'bf16'
                       else SOURCES[name])
@@ -446,9 +456,13 @@ def kernels_vs_plain(gen):
                        tol=dict(rtol=rtol, atol=atol), within_tol=ok,
                        ms=k_ms, kernel_ms=k_ms, kernel_device_ms=d_ms,
                        plain_ms=p_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+                       bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+                       channels_last_ms=k_cl_ms,
+                       library_channels_last_ms=l_cl_ms)
             lib_text = ('' if l_ms is None else
-                        f' library {l_ms:.3f} ms ({k_ms / l_ms:.2f}x)')
+                        f' library {l_ms:.3f} ms ({k_ms / l_ms:.2f}x); '
+                        f'channels-last input: kernel {k_cl_ms:.3f} ms, '
+                        f'library {l_cl_ms:.3f} ms ({k_cl_ms / l_cl_ms:.2f}x)')
             log(f'kernel {name}/{role} {dtype} {list(args[0].shape)}: '
                 f'max|d| {row["max_abs_err"]:.3e} (rtol {rtol} atol {atol}) '
                 f'kernel {k_ms:.3f} ms (device '

@@ -2,11 +2,9 @@
 // Hopper (sm_90a). Bound to Python through the extern "C" launchers at the
 // bottom (ctypes; see lama_tpu_torch/ops/kernels/halo_conv.py).
 //
-// Two TPU kernels of lama_tpu/ops/pallas/halo_conv.py are replaced here.
-// halo_conv3x3_reflect (halo_conv.py:53), kernel 6, is the last section
-// before the launchers (halo_conv3x3_kernel): the 3x3 stride-1 conv of any
-// channel counts, in fp32; its bf16 path is csrc/conv3x3_wgmma.cu. The
-// rest of this header is kernel 7's.
+// Kernel 7 only: the other kernel of lama_tpu/ops/pallas/halo_conv.py,
+// halo_conv3x3_reflect (halo_conv.py:53, kernel 6), is csrc/conv3x3_simt.cu
+// in fp32 and csrc/conv3x3_wgmma.cu in bf16.
 //
 // Replaces the TPU kernel lama_tpu/ops/pallas/halo_conv.py::
 // halo_conv_reflect_tiled (halo_conv.py:158): conv2d(reflect_pad(x, k // 2),
@@ -306,169 +304,6 @@ halo_conv_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
-// ------------------------------------------------------ 3x3 s1, any C (k6)
-// Kernel 6 in fp32: conv2d(reflect_pad(x, 1), w, b), 3x3, stride 1, any C
-// and Co. (Its bf16 path is csrc/conv3x3_wgmma.cu, a wgmma implicit GEMM.)
-// The TPU kernel holds a whole image per grid step in VMEM (halo_conv.py:
-// 29-32: under 9 MB) and does nine (H*W, C) x (C, C_out) dots; one 64^2 x
-// 512 fp32 image is 8 MB against a Hopper block's 227 KB of shared memory,
-// so here the image is tiled. Bound: at the GlobalGenerator's 512 -> 512
-// convs, 2 * 9 * 512 * 512 FLOP per pixel against 4 KB read and written per
-// pixel: ~1150 FLOP per byte, bound by the FMA units (fp32, no TF32). The
-// design keeps operand traffic in shared memory: each staged halo value is
-// read by 9 taps, each staged weight by 128 pixels. A block owns an 8 x 16
-// output-pixel tile and 64 output channels, and walks K = 9 taps x C input
-// channels in chunks of 16. Each chunk stages the tile's reflect-mapped
-// 10 x 18 halo (16 channels per pixel, at a padded pitch) and the chunk's
-// [tap][ci][co] weights once in shared memory; 128 threads each own 8
-// pixels (one half row) x 8 channels of accumulators. Channel tails (C % 16,
-// Co % 64) are zero-filled in shared memory, so any C, Co and partial edge
-// tiles run; vector loads where C (Co) is a multiple of 4.
-constexpr int K6_TH = 8, K6_TW = 16, K6_BN = 64;
-constexpr int K6_HR = K6_TH + 2, K6_HC = K6_TW + 2;
-// CKP / BNP: halo pixel and weight row pitches (16-byte aligned)
-constexpr int K6_CK = 16, K6_CKP = 20, K6_BNP = K6_BN + 4, K6_THREADS = 128;
-constexpr size_t K6_SMEM = sizeof(float) * (size_t(K6_HR) * K6_HC * K6_CKP +
-                                            size_t(9) * K6_CK * K6_BNP);
-
-// x: (B, H, W, C) NHWC; w: (3, 3, C, Co) HWIO; bias: (Co,) or null;
-// out: (B, H, W, Co). vec_x: C is a multiple of the 16-byte vector and x is
-// 16-byte aligned; vec_w: the same for Co, w and out.
-__global__ void __launch_bounds__(K6_THREADS)
-halo_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ bias, float* __restrict__ out,
-                    int H, int W, int C, int Co, int vec_x, int vec_w) {
-  constexpr int CK = K6_CK, CKP = K6_CKP, NT = K6_THREADS, BNP = K6_BNP;
-  constexpr int VEC = 4;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* halo = reinterpret_cast<float*>(smem_raw);  // [HR * HC][CKP]
-  float* wts = halo + K6_HR * K6_HC * CKP;           // [9 * CK][BNP]
-
-  const int tid = threadIdx.x;
-  const int tiles_w = (W + K6_TW - 1) / K6_TW;
-  const int r0 = (blockIdx.x / tiles_w) * K6_TH;
-  const int c0 = (blockIdx.x % tiles_w) * K6_TW;
-  const int n0 = blockIdx.y * K6_BN;
-  const int b = blockIdx.z;
-  const float* xb = x + size_t(b) * H * W * C;
-
-  // thread tile 8 pixels x 8 channels (n0 + tn*4 + {0..3, 32..35}); a
-  // warp's 4 pixel groups are 4 rows apart in the halo: no bank conflicts
-  const int tn = tid % 8, tm = tid / 8;
-  const int prow = tm % K6_TH, pcol0 = (tm / K6_TH) * 8;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int ci0 = 0; ci0 < C; ci0 += CK) {
-    // halo tile, reflect-mapped at load time; channels past C are zeros
-    constexpr int VPP = CK / VEC;
-    for (int i = tid; i < K6_HR * K6_HC * VPP; i += NT) {
-      const int pix = i / VPP, v = i % VPP;
-      const int gr = reflect_idx(r0 - 1 + pix / K6_HC, H);
-      const int gc = reflect_idx(c0 - 1 + pix % K6_HC, W);
-      const int cc = ci0 + v * VEC;
-      const float* src = xb + (size_t(gr) * W + gc) * C + cc;
-      float* dst = halo + pix * CKP + v * VEC;
-      if (vec_x && cc < C) {
-        *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) dst[e] = cc + e < C ? src[e] : 0.f;
-      }
-    }
-    // weights [tap][ci][co] of this chunk and output block; tails are zeros
-    constexpr int VPR = K6_BN / VEC;
-    for (int i = tid; i < 9 * CK * VPR; i += NT) {
-      const int row = i / VPR, v = i % VPR;
-      const int tap = row / CK, ci = ci0 + row % CK, n = n0 + v * VEC;
-      const float* src = w + (size_t(tap) * C + ci) * Co + n;
-      float* dst = wts + row * BNP + v * VEC;
-      if (vec_w && ci < C && n < Co) {
-        *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
-      } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          dst[e] = (ci < C && n + e < Co) ? src[e] : 0.f;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int ky = tap / 3, kx = tap % 3;
-      const float* hp = halo + ((prow + ky) * K6_HC + pcol0 + kx) * CKP;
-      const float* wp = wts + tap * CK * BNP + tn * 4;
-#pragma unroll 4
-      for (int ci = 0; ci < CK; ++ci) {
-        float a[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) a[j] = hp[j * CKP + ci];
-        const float4 b0 = *reinterpret_cast<const float4*>(wp + ci * BNP);
-        const float4 b1 = *reinterpret_cast<const float4*>(wp + ci * BNP + 32);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          acc[j][0] += a[j] * b0.x; acc[j][1] += a[j] * b0.y;
-          acc[j][2] += a[j] * b0.z; acc[j][3] += a[j] * b0.w;
-          acc[j][4] += a[j] * b1.x; acc[j][5] += a[j] * b1.y;
-          acc[j][6] += a[j] * b1.z; acc[j][7] += a[j] * b1.w;
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  const int r = r0 + prow;
-  if (r >= H) return;
-  float bv[8];
-  int nn[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    nn[j] = n0 + tn * 4 + (j < 4 ? j : 28 + j);
-    bv[j] = (bias && nn[j] < Co) ? bias[nn[j]] : 0.f;
-  }
-#pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    const int c = c0 + pcol0 + p;
-    if (c >= W) break;
-    float* o = out + ((size_t(b) * H + r) * W + c) * Co;
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int n = nn[4 * q];
-      if (vec_w && n < Co) {
-        *reinterpret_cast<float4*>(o + n) = make_float4(
-            acc[p][4 * q] + bv[4 * q], acc[p][4 * q + 1] + bv[4 * q + 1],
-            acc[p][4 * q + 2] + bv[4 * q + 2], acc[p][4 * q + 3] + bv[4 * q + 3]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (n + e < Co) o[n + e] = acc[p][4 * q + e] + bv[4 * q + e];
-      }
-    }
-  }
-}
-
-int launch_k6(const void* x, const void* w, const void* bias, void* out, int B,
-              int H, int W, int C, int Co, cudaStream_t stream) {
-  if (C < 1 || Co < 1 || H < 2 || W < 2) return int(cudaErrorInvalidValue);
-  const int vec_x = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const int vec_w = Co % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      halo_conv3x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(K6_SMEM));
-  if (err != cudaSuccess) return int(err);
-  const int tiles = ((H + K6_TH - 1) / K6_TH) * ((W + K6_TW - 1) / K6_TW);
-  dim3 grid(tiles, (Co + K6_BN - 1) / K6_BN, B);
-  halo_conv3x3_kernel<<<grid, K6_THREADS, K6_SMEM, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<float*>(out), H, W, C, Co,
-      vec_x, vec_w);
-  return int(cudaGetLastError());
-}
-
 template <int K, int S>
 int launch_tc(const void* x, const void* w, const void* bias, void* out, int B,
               int H, int W, int C, int Co, cudaStream_t stream) {
@@ -522,17 +357,6 @@ int launch_ks(const void* x, const void* w, const void* bias, void* out, int B,
 // dtype code: 0 = float32, 1 = bfloat16. H, W: the input's; out is
 // (B, (H - 1) / S + 1, (W - 1) / S + 1, Co). Returns a cudaError_t value (0
 // on success); the launch is asynchronous on `stream`.
-// Kernel 6: 3x3 stride 1, out is (B, H, W, Co); float32 only (bf16 is
-// lama_conv3x3_wgmma of conv3x3_wgmma.cu).
-extern "C" int lama_halo_conv3x3_reflect(const void* x, const void* w,
-                                         const void* bias, void* out, int B,
-                                         int H, int W, int C, int Co,
-                                         int dtype, void* stream) {
-  if (dtype) return int(cudaErrorInvalidValue);
-  return launch_k6(x, w, bias, out, B, H, W, C, Co,
-                   static_cast<cudaStream_t>(stream));
-}
-
 extern "C" int lama_halo_conv_reflect_tiled(const void* x, const void* w,
                                             const void* bias, void* out, int B,
                                             int H, int W, int C, int Co, int K,

@@ -5,12 +5,12 @@
 // Replaces the TPU kernels of lama_tpu/ops/pallas/reflect_conv.py:
 //   reflect_conv3x3_cols  (3x3, C = C_out = 128; the 36 l2l convs)
 //   reflect_conv3x3_taps  (3x3, C and C_out multiples of 128; l2g and g2l)
-//   reflect_down_conv3x3  (3x3 stride 2, 2C and C_out multiples of 128; the
-//                          four downsample convs of the generator's front)
 //   reflect_out_conv7x7   (7x7, C_out <= 8; the 64->3 RGB head)
-// in float32, and the head in bfloat16 too. The three 3x3 convs in bfloat16
-// are the wgmma implicit GEMM of csrc/conv3x3_wgmma.cu (stride 1 and 2);
-// their launchers here refuse dtype 1.
+// in float32, and the head in bfloat16 too. The two 3x3 convs in bfloat16
+// are the wgmma implicit GEMM of csrc/conv3x3_wgmma.cu; their launchers
+// here refuse dtype 1. The fourth, reflect_down_conv3x3 (3x3 stride 2, the
+// four downsamples), is csrc/conv3x3_simt.cu's stride-2 form in float32 and
+// conv3x3_wgmma.cu's in bfloat16.
 //
 // What the TPU kernels keep out of HBM, these keep out too: the reflect
 // halo is built while the input tile is copied into shared memory (torch
@@ -24,24 +24,18 @@
 // taps x C input channels walked in chunks of CK = 16 channels. Each chunk
 // stages the input halo tile and the chunk's 9 x CK x 128 weights in shared
 // memory (weights in [tap][ci][co] order, the order the loop reads). The
-// nine tap windows are read straight off the halo tile: at stride S the
-// halo is (8S + 3 - S) x (16S + 3 - S) pixels, and for tap (ky, kx) the
-// output pixel (row, j) reads halo[(S*row + ky) * HC + S*j + kx]. So the
-// TPU's three variants (im2col GEMM, nine per-tap GEMMs, and the stride-2
-// width-pair view with a shifted left-tap add, all Mosaic layout choices)
-// are three instantiations of one kernel here: cols fixes C = 128 at
-// compile time (CFIX), so its whole K = 9 x 128 walk and the pixel stride
-// are constants; taps takes C at run time (CFIX = 0); down is the
-// run-time-C form at S = 2, where the 17 x 33 halo tile holds every input
-// pixel the 8 x 16 outputs read, each loaded once per chunk. Arithmetic:
-// full-precision FMA (no TF32), each thread an 8-pixel x 8-channel register
-// tile.
+// nine tap windows are read straight off the 10 x 18 halo tile: for tap
+// (ky, kx) the output pixel (row, j) reads halo[(row + ky) * 18 + j + kx].
+// So the TPU's two variants (im2col GEMM and nine per-tap GEMMs, Mosaic
+// layout choices) are two instantiations of one kernel here: cols fixes
+// C = 128 at compile time (CFIX), so its whole K = 9 x 128 walk and the
+// pixel stride are constants; taps takes C at run time (CFIX = 0).
+// Arithmetic: full-precision FMA (no TF32), each thread an 8-pixel x
+// 8-channel register tile.
 // Bound: at the bottleneck shape (B,64,64,128)->384 the work is 2*9*C*Co
 // FLOP per pixel against (C + Co) * 4 bytes in and out, ~500 FLOP/byte, so
 // the FMA units. The halo tile is loaded once per 9 taps, which is what
-// keeps the operand traffic in shared memory rather than L2. The stride-2
-// downsamples do a quarter of the FLOP per input byte and are bound by the
-// FMA rate too.
+// keeps the operand traffic in shared memory rather than L2.
 //
 // 7x7 head (conv7_thin_kernel): C_out = 3 wastes any GEMM tile, so each
 // thread owns one column of R = 4 output pixels and all C_out channels
@@ -83,10 +77,7 @@ __device__ __forceinline__ int reflect_idx(int i, int n) {
 
 // ---------------------------------------------------------------- 3x3
 constexpr int C3_TH = 8, C3_TW = 16, C3_BN = 128, C3_THREADS = 256;
-// halo tile rows and columns at stride S: (tile - 1) * S + 3
-template <int S> struct Halo3 {
-  static constexpr int R = (C3_TH - 1) * S + 3, C = (C3_TW - 1) * S + 3;
-};
+constexpr int C3_HR = C3_TH + 2, C3_HC = C3_TW + 2;   // halo tile
 
 // float32 only (the bf16 3x3 convs are conv3x3_wgmma.cu's)
 template <typename T> struct Conv3Cfg;
@@ -96,18 +87,16 @@ template <> struct Conv3Cfg<float> {
   static constexpr int BNP = C3_BN + 4;  // weight row pitch
 };
 
-template <typename T, int S>
+template <typename T>
 constexpr size_t conv3_smem_bytes() {
-  return sizeof(T) * (size_t(Halo3<S>::R) * Halo3<S>::C * Conv3Cfg<T>::CKP +
+  return sizeof(T) * (size_t(C3_HR) * C3_HC * Conv3Cfg<T>::CKP +
                       size_t(9) * Conv3Cfg<T>::CK * Conv3Cfg<T>::BNP);
 }
 
 // x: (B, H, W, C) NHWC; w: (3, 3, C, Co) HWIO; bias: (Co,) or null;
-// out: (B, H/S, W/S, Co). Requires C % CK == 0 and Co % 128 == 0; C == CFIX
-// when CFIX is not 0; H and W even when S == 2 (the last output row and
-// column then read input rows/cols up to H-1, W-1: only the top and left
-// borders reflect).
-template <typename T, int CFIX, int S>
+// out: (B, H, W, Co). Requires C % CK == 0 and Co % 128 == 0; C == CFIX
+// when CFIX is not 0.
+template <typename T, int CFIX>
 __global__ void __launch_bounds__(C3_THREADS)
 conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
                const T* __restrict__ bias, T* __restrict__ out,
@@ -116,14 +105,13 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
   constexpr int CK = Conv3Cfg<T>::CK, CKP = Conv3Cfg<T>::CKP;
   constexpr int BNP = Conv3Cfg<T>::BNP;
   constexpr int VEC = 16 / sizeof(T);
-  constexpr int HR = Halo3<S>::R, HC = Halo3<S>::C;
+  constexpr int HR = C3_HR, HC = C3_HC;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* halo = reinterpret_cast<T*>(smem_raw);
   T* wts = halo + HR * HC * CKP;
 
-  const int Ho = H / S, Wo = W / S;
   const int tid = threadIdx.x;
-  const int tiles_w = (Wo + C3_TW - 1) / C3_TW;
+  const int tiles_w = (W + C3_TW - 1) / C3_TW;
   const int r0 = (blockIdx.x / tiles_w) * C3_TH;   // output tile origin
   const int c0 = (blockIdx.x % tiles_w) * C3_TW;
   const int n0 = blockIdx.y * C3_BN;
@@ -144,8 +132,8 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
     constexpr int VPP = CK / VEC;
     for (int i = tid; i < HR * HC * VPP; i += C3_THREADS) {
       const int pix = i / VPP, v = i % VPP;
-      const int gr = reflect_idx(S * r0 - 1 + pix / HC, H);
-      const int gc = reflect_idx(S * c0 - 1 + pix % HC, W);
+      const int gr = reflect_idx(r0 - 1 + pix / HC, H);
+      const int gc = reflect_idx(c0 - 1 + pix % HC, W);
       const uint4 val = __ldg(reinterpret_cast<const uint4*>(
           xb + (size_t(gr) * W + gc) * C + ci0 + v * VEC));
       *reinterpret_cast<uint4*>(halo + pix * CKP + v * VEC) = val;
@@ -164,13 +152,13 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll 1
     for (int tap = 0; tap < 9; ++tap) {
       const int ky = tap / 3, kx = tap % 3;
-      const float* hp = halo + ((S * prow + ky) * HC + S * pcol0 + kx) * CKP;
+      const float* hp = halo + ((prow + ky) * HC + pcol0 + kx) * CKP;
       const float* wp = wts + tap * CK * BNP + tn * 4;
 #pragma unroll 4
       for (int ci = 0; ci < CK; ++ci) {
         float a[8];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) a[j] = hp[j * S * CKP + ci];
+        for (int j = 0; j < 8; ++j) a[j] = hp[j * CKP + ci];
         const float4 b0 = *reinterpret_cast<const float4*>(wp + ci * BNP);
         const float4 b1 = *reinterpret_cast<const float4*>(wp + ci * BNP + 64);
 #pragma unroll
@@ -192,12 +180,12 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const int n = n0 + tn * 4 + (j < 4 ? j : 60 + j);
     bv[j] = bias ? bias[n] : 0.f;
   }
-  if (r < Ho) {
+  if (r < H) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = c0 + pcol0 + j;
-      if (c < Wo) {
-        float* o = out + ((size_t(b) * Ho + r) * Wo + c) * Co + n0 + tn * 4;
+      if (c < W) {
+        float* o = out + ((size_t(b) * H + r) * W + c) * Co + n0 + tn * 4;
         *reinterpret_cast<float4*>(o) = make_float4(
             acc[j][0] + bv[0], acc[j][1] + bv[1], acc[j][2] + bv[2], acc[j][3] + bv[3]);
         *reinterpret_cast<float4*>(o + 64) = make_float4(
@@ -298,21 +286,19 @@ conv7_thin_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T, int CFIX, int S>
+template <typename T, int CFIX>
 int launch_conv3(const void* x, const void* w, const void* bias, void* out,
                  int B, int H, int W, int C, int Co, cudaStream_t stream) {
-  if (C % Conv3Cfg<T>::CK || Co % C3_BN || (CFIX && C != CFIX) ||
-      H % S || W % S)
+  if (C % Conv3Cfg<T>::CK || Co % C3_BN || (CFIX && C != CFIX))
     return int(cudaErrorInvalidValue);
-  const size_t smem = conv3_smem_bytes<T, S>();
+  const size_t smem = conv3_smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_kernel<T, CFIX, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      conv3x3_kernel<T, CFIX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return int(err);
-  const int Ho = H / S, Wo = W / S;
-  const int tiles = ((Ho + C3_TH - 1) / C3_TH) * ((Wo + C3_TW - 1) / C3_TW);
+  const int tiles = ((H + C3_TH - 1) / C3_TH) * ((W + C3_TW - 1) / C3_TW);
   dim3 grid(tiles, Co / C3_BN, B);
-  conv3x3_kernel<T, CFIX, S><<<grid, C3_THREADS, smem, stream>>>(
+  conv3x3_kernel<T, CFIX><<<grid, C3_THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const T*>(bias), static_cast<T*>(out), H, W, C, Co);
   return int(cudaGetLastError());
@@ -353,15 +339,15 @@ int launch_conv7(const void* x, const void* w, const void* bias, void* out,
 
 // dtype code: 0 = float32, 1 = bfloat16. Each returns a cudaError_t value
 // (0 on success); the launch is asynchronous on `stream`.
-// The three 3x3 launchers are float32 only: in bf16 these convs are
-// lama_conv3x3_wgmma and lama_conv3x3_s2_wgmma (conv3x3_wgmma.cu).
+// The two 3x3 launchers are float32 only: in bf16 these convs are
+// lama_conv3x3_wgmma (conv3x3_wgmma.cu).
 extern "C" int lama_reflect_conv3x3_cols(const void* x, const void* w,
                                          const void* bias, void* out, int B,
                                          int H, int W, int C, int Co,
                                          int dtype, void* stream) {
   if (dtype) return int(cudaErrorInvalidValue);
-  return launch_conv3<float, 128, 1>(x, w, bias, out, B, H, W, C, Co,
-                                     static_cast<cudaStream_t>(stream));
+  return launch_conv3<float, 128>(x, w, bias, out, B, H, W, C, Co,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int lama_reflect_conv3x3_taps(const void* x, const void* w,
@@ -369,18 +355,8 @@ extern "C" int lama_reflect_conv3x3_taps(const void* x, const void* w,
                                          int H, int W, int C, int Co,
                                          int dtype, void* stream) {
   if (dtype) return int(cudaErrorInvalidValue);
-  return launch_conv3<float, 0, 1>(x, w, bias, out, B, H, W, C, Co,
-                                   static_cast<cudaStream_t>(stream));
-}
-
-// H, W: the input's; out is (B, H/2, W/2, Co).
-extern "C" int lama_reflect_down_conv3x3(const void* x, const void* w,
-                                         const void* bias, void* out, int B,
-                                         int H, int W, int C, int Co,
-                                         int dtype, void* stream) {
-  if (dtype) return int(cudaErrorInvalidValue);
-  return launch_conv3<float, 0, 2>(x, w, bias, out, B, H, W, C, Co,
-                                   static_cast<cudaStream_t>(stream));
+  return launch_conv3<float, 0>(x, w, bias, out, B, H, W, C, Co,
+                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int lama_reflect_out_conv7x7(const void* x, const void* w,

@@ -22,7 +22,8 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PACKAGE_DIR, 'csrc')
 BUILD_DIR = os.path.join(PACKAGE_DIR, '_build')
-SOURCES = ('reflect_conv', 'fourier_unit', 'halo_conv', 'conv3x3_wgmma')
+SOURCES = ('reflect_conv', 'fourier_unit', 'halo_conv', 'conv3x3_wgmma',
+           'conv3x3_simt')
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-shared', '-Xcompiler',
                            '-fPIC', '-Xptxas=-v')

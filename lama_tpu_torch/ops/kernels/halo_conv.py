@@ -12,16 +12,18 @@ weight. halo_conv3x3_reflect is the 3x3 stride-1 conv of any channel counts
 (on the pix2pixHD GlobalGenerator's path: its ResnetBlocks' 512 -> 512
 convs); halo_conv_reflect_tiled takes k in {3, 7} and stride 1 or 2 (on the
 generators' paths: the 7x7 4 -> 64 stem). The kernels
-(lama_tpu_torch/csrc/halo_conv.cu; for halo_conv3x3_reflect in bf16, the
-wgmma implicit GEMM of csrc/conv3x3_wgmma.cu, see conv3x3_wgmma.py) stage
+(halo_conv_reflect_tiled: lama_tpu_torch/csrc/halo_conv.cu;
+halo_conv3x3_reflect: in bf16 the wgmma implicit GEMM of
+csrc/conv3x3_wgmma.cu, see conv3x3_wgmma.py, in fp32 the register-tiled
+SIMT implicit GEMM of csrc/conv3x3_simt.cu, see conv3x3_simt.py) stage
 each output tile's input rows with their reflected halo rows and columns
 in shared memory. The TPU envelopes are its VMEM and tiling limits, which
 a Hopper kernel that tiles the image does not have (see each `_supported`):
 here any C, C_out >= 1 and H, W > k // 2 (torch's reflect pad needs no
 more). Inside, the layout is channels-last, as in reflect_conv.py: the
 wrapper passes a channels-last view of `x`, an HWIO copy of the weight in
-`x`'s dtype (bf16 3x3: the packed weight of conv3x3_wgmma.py), and returns
-a channels-last output.
+`x`'s dtype (the 3x3 conv: the packed weight of conv3x3_wgmma.py or
+conv3x3_simt.py), and returns a channels-last output.
 Types: float32 (fp32 FMA, no TF32) and bfloat16 (fp32 accumulation, bf16
 output).
 
@@ -35,7 +37,7 @@ import functools
 
 import torch
 
-from . import _build, conv3x3_wgmma
+from . import _build, conv3x3_simt, conv3x3_wgmma
 from ._autograd import differentiable
 from .reflect_conv import reflect_conv_plain
 
@@ -66,9 +68,9 @@ def halo_conv3x3_reflect_supported(h: int, w: int, c: int, c_out: int) -> bool:
     program holds a whole image, its padded copy and the fp32 accumulator
     in under 9 MB, which takes (32, 32, 512, 512) but not serving's
     (64, 64, 512, 512). The kernels tile the image (bf16: 256 output pixels
-    x 128 output channels per block; fp32: 128 x 64; input channels a chunk
-    at a time in shared memory), so their memory per block does not grow
-    with the image and the budget is dropped."""
+    x 128 output channels per block; fp32: 128 x 128; input channels a
+    chunk at a time in shared memory), so their memory per block does not
+    grow with the image and the budget is dropped."""
     return c >= 1 and c_out >= 1 and h >= 2 and w >= 2
 
 
@@ -76,10 +78,12 @@ def _kernel6_supported(h, w, c, c_out, k, s):
     return k == 3 and s == 1 and halo_conv3x3_reflect_supported(h, w, c, c_out)
 
 
-def _launch(name, supported, extra, stride, x, weight, bias, bf16=None):
-    """Launch `lama_<name>` of halo_conv.cu: (x, w, bias, out, B, H, W, C,
-    Co, *extra, dtype, stream), or `bf16` (conv3x3_wgmma.py's launch) for a
-    bfloat16 input when given."""
+def _launch(name, supported, extra, stride, x, weight, bias, bf16=None,
+            fp32=None):
+    """Launch the route given for x's dtype (`bf16`: conv3x3_wgmma.py's
+    launch; `fp32`: conv3x3_simt.py's), or else `lama_<name>` of
+    halo_conv.cu: (x, w, bias, out, B, H, W, C, Co, *extra, dtype,
+    stream)."""
     b, c, h, w = x.shape
     c_out, k = weight.shape[0], weight.shape[-1]
     if x.dtype not in _DTYPES:
@@ -95,8 +99,9 @@ def _launch(name, supported, extra, stride, x, weight, bias, bf16=None):
             and weight.device == x.device):
         raise ValueError(f'{name}: weight and bias must be on {x.device}')
     x = x.contiguous(memory_format=torch.channels_last)
-    if bf16 is not None and x.dtype == torch.bfloat16:
-        return bf16(x, weight, bias)
+    route = bf16 if x.dtype == torch.bfloat16 else fp32
+    if route is not None:
+        return route(x, weight, bias)
     wk = weight.to(x.dtype).permute(2, 3, 1, 0).contiguous()   # HWIO
     bk = None if bias is None else bias.to(x.dtype).contiguous()
     out = torch.empty((b, c_out, (h - 1) // stride + 1, (w - 1) // stride + 1),
@@ -119,12 +124,14 @@ def _launch(name, supported, extra, stride, x, weight, bias, bf16=None):
 def halo_conv3x3_reflect(x, weight, bias=None):
     """3x3 stride-1 reflect-'same' conv of any channel counts; on the
     GlobalGenerator's path: its ResnetBlocks' 512 -> 512 convs. bf16: the
-    wgmma kernel of csrc/conv3x3_wgmma.cu; fp32: halo_conv.cu."""
+    wgmma kernel of csrc/conv3x3_wgmma.cu; fp32: the stride-1 SIMT kernel
+    of csrc/conv3x3_simt.cu."""
     if not x.is_cuda:
         return halo_conv3x3_reflect_plain(x, weight, bias)
     out = differentiable(
         functools.partial(_launch, 'halo_conv3x3_reflect', _kernel6_supported,
-                          (), 1, bf16=conv3x3_wgmma.conv3x3_reflect_bf16),
+                          (), 1, bf16=conv3x3_wgmma.conv3x3_reflect_bf16,
+                          fp32=conv3x3_simt.conv3x3_reflect_fp32),
         halo_conv3x3_reflect_plain, x, weight, bias)
     halo_conv3x3_reflect.launches += 1
     return out

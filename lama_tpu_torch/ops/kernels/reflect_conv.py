@@ -12,17 +12,19 @@ stride)` with p = k // 2 on NCHW tensors (any memory format) and an OIHW
 weight, and keeps the TPU kernel's envelope; the down conv has stride 2, the
 others stride 1. The kernels build the reflect halo while loading an input
 tile into shared memory, so no padded tensor reaches HBM:
-  float32 (full fp32 arithmetic, no TF32): lama_tpu_torch/csrc/reflect_conv.cu
-    (a SIMT implicit GEMM for the three 3x3 convs, a thin 7x7 kernel for the
-    head);
+  float32 (full fp32 arithmetic, no TF32): cols and taps run the SIMT
+    implicit GEMM of lama_tpu_torch/csrc/reflect_conv.cu, the down conv the
+    stride-2 form of the register-tiled SIMT implicit GEMM of
+    csrc/conv3x3_simt.cu (see conv3x3_simt.py), the head the thin 7x7
+    kernel of reflect_conv.cu;
   bfloat16 (tensor cores, fp32 accumulation, bf16 output): the three 3x3
     convs run the wgmma implicit GEMM of csrc/conv3x3_wgmma.cu (see
     conv3x3_wgmma.py; the down conv its stride-2 width-pair form), the head
     the 7x7 kernel of reflect_conv.cu.
 Inside, the layout is channels-last: the wrapper passes a channels-last
 view of `x` (a copy only if `x` is not channels-last already), an HWIO copy
-of the weight in `x`'s dtype (bf16 3x3: the packed weight of
-conv3x3_wgmma.py), and returns a channels-last output.
+of the weight in `x`'s dtype (or the packed weight of conv3x3_wgmma.py or
+conv3x3_simt.py), and returns a channels-last output.
 
 On a CPU tensor a wrapper computes its plain version; on a CUDA tensor it
 launches its kernel or raises. When a gradient is needed, the launch runs
@@ -38,7 +40,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from . import _build, conv3x3_wgmma
+from . import _build, conv3x3_simt, conv3x3_wgmma
 from ._autograd import differentiable
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -83,9 +85,11 @@ def reflect_out_conv7x7_supported(h: int, w: int, c: int, c_out: int) -> bool:
     return 1 <= c_out <= 8 and c <= 128 and c % 8 == 0 and h >= 8 and w >= 8
 
 
-def _launch(symbol, supported, stride, x, weight, bias, bf16=None):
-    """Check the call, then launch `symbol` of reflect_conv.cu, or `bf16`
-    (conv3x3_wgmma.py's launch) for a bfloat16 input when given."""
+def _launch(symbol, supported, stride, x, weight, bias, bf16=None,
+            fp32=None):
+    """Check the call, then launch the route given for x's dtype (`bf16`:
+    conv3x3_wgmma.py's launch; `fp32`: conv3x3_simt.py's), or else `symbol`
+    of reflect_conv.cu."""
     ksize = weight.shape[-1]
     b, c, h, w = x.shape
     c_out = weight.shape[0]
@@ -102,8 +106,9 @@ def _launch(symbol, supported, stride, x, weight, bias, bf16=None):
             and weight.device == x.device):
         raise ValueError(f'{symbol}: weight and bias must be on {x.device}')
     x = x.contiguous(memory_format=torch.channels_last)
-    if bf16 is not None and x.dtype == torch.bfloat16:
-        return bf16(x, weight, bias)
+    route = bf16 if x.dtype == torch.bfloat16 else fp32
+    if route is not None:
+        return route(x, weight, bias)
     wk = weight.to(x.dtype).permute(2, 3, 1, 0).contiguous()   # HWIO
     bk = None if bias is None else bias.to(x.dtype).contiguous()
     out = torch.empty((b, c_out, h // stride, w // stride), dtype=x.dtype,
@@ -121,11 +126,13 @@ def _launch(symbol, supported, stride, x, weight, bias, bf16=None):
     return out
 
 
-def _kernel(wrapper, symbol, supported, stride, x, weight, bias, bf16=None):
+def _kernel(wrapper, symbol, supported, stride, x, weight, bias, bf16=None,
+            fp32=None):
     """The common body of the wrappers below, for a CUDA tensor."""
     plain = functools.partial(reflect_conv_plain, stride=stride)
     out = differentiable(
-        functools.partial(_launch, symbol, supported, stride, bf16=bf16),
+        functools.partial(_launch, symbol, supported, stride, bf16=bf16,
+                          fp32=fp32),
         plain, x, weight, bias)
     wrapper.launches += 1
     return out
@@ -153,12 +160,15 @@ def reflect_conv3x3_taps(x, weight, bias=None):
 
 def reflect_down_conv3x3(x, weight, bias=None):
     """3x3 stride-2 reflect conv (the generator's downsamples). bf16: the
-    stride-2 wgmma kernel of csrc/conv3x3_wgmma.cu; fp32: reflect_conv.cu."""
+    stride-2 wgmma kernel of csrc/conv3x3_wgmma.cu; fp32: the stride-2 SIMT
+    kernel of csrc/conv3x3_simt.cu."""
     if not x.is_cuda:
         return reflect_down_conv3x3_plain(x, weight, bias)
-    return _kernel(reflect_down_conv3x3, 'lama_reflect_down_conv3x3',
+    return _kernel(reflect_down_conv3x3, 'reflect_down_conv3x3',
                    reflect_down_conv3x3_supported, 2, x, weight, bias,
                    bf16=functools.partial(conv3x3_wgmma.conv3x3_reflect_bf16,
+                                          stride=2),
+                   fp32=functools.partial(conv3x3_simt.conv3x3_reflect_fp32,
                                           stride=2))
 
 

@@ -1,130 +1,191 @@
-"""Time variants of csrc/conv3x3_wgmma.cu against each other on one card.
+"""Time variants of a 3x3 reflect-conv kernel's constants on one card.
 
-    python -m lama_tpu_torch.tools.conv3x3_variants
+    python -m lama_tpu_torch.tools.conv3x3_variants [wgmma|simt ...]
 
-Each variant is the source with some of its constants replaced (VARIANTS
-below). All are built with the port's nvcc flags into
-lama_tpu_torch/_build/variants/ and launched through their extern "C"
-launchers on channels-last bf16 inputs with the weights packed once, so a
-time is the kernel alone: CUDA events around 20 back-to-back launches,
+`wgmma`: csrc/conv3x3_wgmma.cu (bf16); `simt`: csrc/conv3x3_simt.cu
+(fp32); both when no source is named. Each variant is the source with some
+of its constants replaced (VARIANTS below). All are built with the port's
+nvcc flags into lama_tpu_torch/_build/variants/ and launched through their
+extern "C" launchers on channels-last inputs with the weights packed once,
+so a time is the kernel alone: CUDA events around 20 back-to-back launches,
 after 3 warm-up launches, each variant twice in turns (a, b, ..., b, a), at
 big-lama's served shapes (batch 16: the four downsamples at stride 2, l2l,
-l2g, g2l, and big-lama-regular's 512 -> 512 block) and a few smaller ones.
-Each output is first held to the plain fp32 conv (max |d| < 5e-2). Prints
-each variant's ptxas lines, then per shape the bound (bytes at 3.35 TB/s or
-FLOP at 989 TFLOP/s, the larger) and each variant's ms and share of it.
-Needs a CUDA card and nvcc; imports nothing at module level beyond torch.
+l2g, g2l, and big-lama-regular's 512 -> 512 block) and a few smaller ones;
+for `simt` the l2l, l2g and g2l rows are kernels 2 and 3's fp32 shapes,
+which their wrappers do not route to it. Each output is first held to the
+plain fp32 conv (bf16: max |d| < 5e-2; fp32: within rtol and atol 1e-4).
+Prints each variant's ptxas lines, then per shape the bound (bytes at 3.35
+TB/s or FLOP at 989 TFLOP/s bf16, 67 fp32, the larger) and each variant's
+ms and share of it. Needs a CUDA card and nvcc; imports nothing at module
+level beyond torch.
 """
 import ctypes
 import os
+import re
 import subprocess
+import sys
 
 import numpy as np
 import torch
 
 from ..ops.kernels import _build
+from ..ops.kernels import conv3x3_simt as sm
 from ..ops.kernels import conv3x3_wgmma as wg
 from ..ops.kernels.reflect_conv import reflect_conv_plain
 
 VARIANTS = {
-    'base': [],
-    # stride 2 with two stages instead of three
-    's2_ring2': [('constexpr int S2_STAGES = 3;', 'constexpr int S2_STAGES = 2;')],
-    # stride 1 with stride 2's 16-channel stages, three or four of them
-    's1_c16_ring3': [
-        ('CHUNK = S == 1 ? CHUNK_C : S2_CHUNK_C', 'CHUNK = S == 1 ? 16 : S2_CHUNK_C'),
-        ('RING = S == 1 ? STAGES : S2_STAGES', 'RING = S == 1 ? 3 : S2_STAGES')],
-    's1_c16_ring4': [
-        ('CHUNK = S == 1 ? CHUNK_C : S2_CHUNK_C', 'CHUNK = S == 1 ? 16 : S2_CHUNK_C'),
-        ('RING = S == 1 ? STAGES : S2_STAGES', 'RING = S == 1 ? 4 : S2_STAGES')],
+    'wgmma': {
+        'base': [],
+        # stride 2 with two stages instead of three
+        's2_ring2': [('constexpr int S2_STAGES = 3;',
+                      'constexpr int S2_STAGES = 2;')],
+        # stride 1 with stride 2's 16-channel stages, three or four of them
+        's1_c16_ring3': [
+            ('CHUNK = S == 1 ? CHUNK_C : S2_CHUNK_C',
+             'CHUNK = S == 1 ? 16 : S2_CHUNK_C'),
+            ('RING = S == 1 ? STAGES : S2_STAGES',
+             'RING = S == 1 ? 3 : S2_STAGES')],
+        's1_c16_ring4': [
+            ('CHUNK = S == 1 ? CHUNK_C : S2_CHUNK_C',
+             'CHUNK = S == 1 ? 16 : S2_CHUNK_C'),
+            ('RING = S == 1 ? STAGES : S2_STAGES',
+             'RING = S == 1 ? 4 : S2_STAGES')],
+    },
+    'simt': {
+        'base': [],
+        # stride 1 on two 16-channel stages, or three 8-channel ones
+        's1_c16_ring2': [('int CHUNK_C = 8;', 'int CHUNK_C = 16;'),
+                         ('int STAGES = 4;', 'int STAGES = 2;')],
+        's1_c8_ring3': [('int STAGES = 4;', 'int STAGES = 3;')],
+        # stride 2 with two stages instead of three
+        's2_ring2': [('S2_STAGES = 3;', 'S2_STAGES = 2;')],
+        # a 16 x 8 output tile (the same 16 pixel groups)
+        'tile16x8': [('TILE_H = 8, TILE_W = 16;', 'TILE_H = 16, TILE_W = 8;')],
+        # the tap loop not unrolled (base: all nine taps)
+        'unroll1': [('TAP_UNROLL = 9;', 'TAP_UNROLL = 1;')],
+    },
 }
-SHAPES = [  # role, stride, batch, C, C_out, (H, W) of the input
-    ('down1_b16', 2, 16, 64, 128, (512, 512)),
-    ('down2_b16', 2, 16, 128, 256, (256, 256)),
-    ('down3_l2l_b16', 2, 16, 256, 128, (128, 128)),
-    ('down3_l2g_b16', 2, 16, 256, 384, (128, 128)),
-    ('down1_b4', 2, 4, 64, 128, (512, 512)),
-    ('down2_b4', 2, 4, 128, 256, (256, 256)),
-    ('l2l_b16', 1, 16, 128, 128, (64, 64)),
-    ('l2g_b16', 1, 16, 128, 384, (64, 64)),
-    ('g2l_b16', 1, 16, 384, 128, (64, 64)),
-    ('block_b16', 1, 16, 512, 512, (64, 64)),
-    ('l2l_b4', 1, 4, 128, 128, (64, 64)),
-    ('refine_l2l', 1, 1, 128, 128, (125, 95)),
-]
+SHAPES = {  # role, stride, batch, C, C_out, (H, W) of the input
+    'wgmma': [
+        ('down1_b16', 2, 16, 64, 128, (512, 512)),
+        ('down2_b16', 2, 16, 128, 256, (256, 256)),
+        ('down3_l2l_b16', 2, 16, 256, 128, (128, 128)),
+        ('down3_l2g_b16', 2, 16, 256, 384, (128, 128)),
+        ('down1_b4', 2, 4, 64, 128, (512, 512)),
+        ('down2_b4', 2, 4, 128, 256, (256, 256)),
+        ('l2l_b16', 1, 16, 128, 128, (64, 64)),
+        ('l2g_b16', 1, 16, 128, 384, (64, 64)),
+        ('g2l_b16', 1, 16, 384, 128, (64, 64)),
+        ('block_b16', 1, 16, 512, 512, (64, 64)),
+        ('l2l_b4', 1, 4, 128, 128, (64, 64)),
+        ('refine_l2l', 1, 1, 128, 128, (125, 95)),
+    ],
+    'simt': [
+        ('down1_b16', 2, 16, 64, 128, (512, 512)),
+        ('down2_b16', 2, 16, 128, 256, (256, 256)),
+        ('down3_l2l_b16', 2, 16, 256, 128, (128, 128)),
+        ('down3_l2g_b16', 2, 16, 256, 384, (128, 128)),
+        ('down2_b4', 2, 4, 128, 256, (256, 256)),
+        ('block_b16', 1, 16, 512, 512, (64, 64)),
+        ('block_b4', 1, 4, 512, 512, (64, 64)),
+        ('train_block', 1, 10, 512, 512, (32, 32)),
+        # kernels 2 and 3 in fp32 (not routed here), for the next redesign
+        ('l2l_b16', 1, 16, 128, 128, (64, 64)),
+        ('l2g_b16', 1, 16, 128, 384, (64, 64)),
+        ('g2l_b16', 1, 16, 384, 128, (64, 64)),
+    ],
+}
+KERNELS = {  # source: (wrapper module, dtype, peak FLOP/s, tolerance)
+    'wgmma': (wg, torch.bfloat16, 989e12, (0.0, 5e-2)),
+    'simt': (sm, torch.float32, 67e12, (1e-4, 1e-4)),
+}
+
+
+def pack(source, text, weight, stride):
+    """The weight packed for one variant (its source `text`): simt packs in
+    the variant's own chunk of input channels."""
+    if source == 'wgmma':
+        return wg.pack_conv3x3_weight(weight)
+    name = 'CHUNK_C' if stride == 1 else 'S2_CHUNK_C'
+    ck = int(re.search(rf'\b{name} = (\d+)', text).group(1))
+    return sm.pack_conv3x3_weight(weight, stride, ck)
 OUT_DIR = os.path.join(_build.BUILD_DIR, 'variants')
 
 
-def build():
-    """Write and compile every variant (one nvcc each, all at once);
-    returns the loaded libraries by name."""
-    src = open(_build.source_path('conv3x3_wgmma')).read()
+def build(source):
+    """Write and compile every variant of `source` (one nvcc each, all at
+    once); returns (the loaded library, the source text) by name."""
+    src = open(_build.source_path('conv3x3_' + source)).read()
     os.makedirs(OUT_DIR, exist_ok=True)
     procs = {}
-    for name, subs in VARIANTS.items():
+    for name, subs in VARIANTS[source].items():
         text = src
         for old, new in subs:
             assert old in text, (name, old)
             text = text.replace(old, new)
-        cu = os.path.join(OUT_DIR, name + '.cu')
+        cu = os.path.join(OUT_DIR, f'{source}_{name}.cu')
         with open(cu, 'w') as f:
             f.write(text)
-        procs[name] = subprocess.Popen(
+        procs[name] = (cu, text, subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, '-o', cu[:-3] + '.so', cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
-    for name, proc in procs.items():
+    for name, (cu, text, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f'nvcc failed for {name}:\n{log}')
-        print(name, [ln.strip() for ln in log.splitlines()
-                     if 'registers' in ln or 'spill' in ln], flush=True)
-        lib = ctypes.CDLL(os.path.join(OUT_DIR, name + '.so'))
-        for symbol in wg.LAUNCHERS.values():
+            raise RuntimeError(f'nvcc failed for {source} {name}:\n{log}')
+        print(source, name, [ln.strip() for ln in log.splitlines()
+                             if 'registers' in ln or 'spill' in ln], flush=True)
+        lib = ctypes.CDLL(cu[:-3] + '.so')
+        for symbol in KERNELS[source][0].LAUNCHERS.values():
             fn = getattr(lib, symbol)
             fn.restype = ctypes.c_int
             fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                            + [ctypes.c_void_p])
-        libs[name] = lib
+        libs[name] = (lib, text)
     return libs
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit('conv3x3_variants: needs a CUDA card')
-    libs = build()
+def time_source(source):
+    mod, dtype, peak, (rtol, atol) = KERNELS[source]
+    variants = list(VARIANTS[source])
+    libs = build(source)
     g = torch.Generator().manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
-    for role, s, b, c, co, (h, w) in SHAPES:
+    size = torch.tensor([], dtype=dtype).element_size()
+    for role, s, b, c, co, (h, w) in SHAPES[source]:
         x = torch.rand(b, c, h, w, generator=g).cuda()
         wt = ((torch.rand(co, c, 3, 3, generator=g) * 2 - 1)
               * (9 * c) ** -0.5).cuda()
         ref = reflect_conv_plain(x, wt, None, s)
-        xb = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        xk = x.to(dtype).contiguous(memory_format=torch.channels_last)
         del x
-        wk = wg.pack_conv3x3_weight(wt)
-        out = torch.empty((b, co, h // s, w // s), dtype=torch.bfloat16,
-                          device='cuda', memory_format=torch.channels_last)
-        symbol = wg.LAUNCHERS[s]
-        out_px = b * (h // s) * (w // s)
-        bound = max(2 * out_px * co * c * 9 / 989e12,
-                    (b * c * h * w + out_px * co) * 2 / 3.35e12) * 1e3
+        wks = {name: pack(source, text, wt, s)
+               for name, (_, text) in libs.items()}
+        ho, wo = (h - 1) // s + 1, (w - 1) // s + 1
+        out = torch.empty((b, co, ho, wo), dtype=dtype, device='cuda',
+                          memory_format=torch.channels_last)
+        symbol = mod.LAUNCHERS[s]
+        out_px = b * ho * wo
+        bound = max(2 * out_px * co * c * 9 / peak,
+                    (b * c * h * w + out_px * co) * size / 3.35e12) * 1e3
 
         def call(name):
-            err = getattr(libs[name], symbol)(
-                xb.data_ptr(), wk.data_ptr(), None, out.data_ptr(), b, h, w,
+            err = getattr(libs[name][0], symbol)(
+                xk.data_ptr(), wks[name].data_ptr(), None, out.data_ptr(), b, h, w,
                 c, co, stream)
             if err:
-                raise RuntimeError(f'{name} {role}: CUDA error {err}')
+                raise RuntimeError(f'{source} {name} {role}: CUDA error {err}')
 
-        times = {name: [] for name in VARIANTS}
-        for name in VARIANTS:
+        times = {name: [] for name in variants}
+        for name in variants:
             call(name)
             torch.cuda.synchronize()
-            err = float((out.float() - ref).abs().max())
-            if not err < 5e-2:
-                raise RuntimeError(f'{name} {role}: max |d| {err}')
-        for name in list(VARIANTS) + list(VARIANTS)[::-1]:
+            err = (out.float() - ref).abs()
+            if not bool(torch.all(err <= atol + rtol * ref.abs())):
+                raise RuntimeError(f'{source} {name} {role}: max |d| '
+                                   f'{float(err.max())}')
+        for name in variants + variants[::-1]:
             for _ in range(3):
                 call(name)
             a = torch.cuda.Event(enable_timing=True)
@@ -135,11 +196,25 @@ def main():
             z.record()
             torch.cuda.synchronize()
             times[name].append(a.elapsed_time(z) / 20)
-        print(f'{role} bound {bound:.4f} ms: ' + ', '.join(
+        print(f'{source} {role} bound {bound:.4f} ms: ' + ', '.join(
             f'{name} {np.mean(t):.4f} ms ({bound / np.mean(t):.0%})'
             for name, t in times.items()), flush=True)
-        del ref, xb, out
+        del ref, xk, out, wks
         torch.cuda.empty_cache()
+
+
+def main(argv=None):
+    if not torch.cuda.is_available():
+        raise SystemExit('conv3x3_variants: needs a CUDA card')
+    # the plain reference in full fp32 (cuDNN's default is TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sources = (argv if argv is not None else sys.argv[1:]) or list(VARIANTS)
+    for source in sources:
+        if source not in VARIANTS:
+            raise SystemExit(f'conv3x3_variants: unknown source {source!r} '
+                             f'(expected {" or ".join(VARIANTS)})')
+        time_source(source)
 
 
 if __name__ == '__main__':

@@ -113,28 +113,95 @@ def test_conv3x3_wgmma_stride2_any_widths(device, b, c, co, h, w, bias):
 
 def test_bf16_3x3_wrappers_launch_the_wgmma_kernel(device, monkeypatch):
     """bf16 cols and down go to conv3x3_wgmma.cu's launchers (stride 1 and
-    2), fp32 to reflect_conv.cu's."""
+    2); in fp32 cols goes to reflect_conv.cu's, down to conv3x3_simt.cu's
+    stride-2 launcher and the 3x3 halo conv to its stride-1 one."""
     from lama_tpu_torch.ops.kernels import _build
+    from lama_tpu_torch.ops.kernels import conv3x3_simt as sm
     from lama_tpu_torch.ops.kernels import conv3x3_wgmma as wg
+    from lama_tpu_torch.ops.kernels import halo_conv as hc
     calls = []
-    launcher, load = wg._launcher, _build.load
-    monkeypatch.setattr(wg, '_launcher',
-                        lambda symbol: calls.append(symbol) or launcher(symbol))
+    launchers, load = (wg._launcher, sm._launcher), _build.load
+    for mod, launcher in zip((wg, sm), launchers):
+        monkeypatch.setattr(mod, '_launcher', lambda symbol, launcher=launcher:
+                            calls.append(symbol) or launcher(symbol))
     monkeypatch.setattr(_build, 'load',
                         lambda name: calls.append(name) or load(name))
     g = torch.Generator().manual_seed(9)
-    for name, c, symbol in (('reflect_conv3x3_cols', 128, 'lama_conv3x3_wgmma'),
-                            ('reflect_down_conv3x3', 64,
-                             'lama_conv3x3_s2_wgmma')):
+    for fn, c, symbol, fp32 in (
+            (rc.reflect_conv3x3_cols, 128, 'lama_conv3x3_wgmma',
+             'reflect_conv'),
+            (rc.reflect_down_conv3x3, 64, 'lama_conv3x3_s2_wgmma',
+             'lama_conv3x3_s2_simt'),
+            (hc.halo_conv3x3_reflect, 512, 'lama_conv3x3_wgmma',
+             'lama_conv3x3_simt')):
         x = torch.rand(1, c, 16, 16, generator=g).to(device)
         wt = torch.rand(128, c, 3, 3, generator=g).to(device)
         calls.clear()
-        getattr(rc, name)(x.to(torch.bfloat16), wt)
+        fn(x.to(torch.bfloat16), wt)
         assert calls[0] == symbol and 'reflect_conv' not in calls, calls
         calls.clear()
-        getattr(rc, name)(x, wt)
-        assert calls == ['reflect_conv'], calls
+        fn(x, wt)
+        assert calls[0] == fp32, calls
+        assert 'halo_conv' not in calls and 'conv3x3_wgmma' not in calls, calls
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize('name,b,c,co,h,w,bias', [
+    # kernel 4's four downsamples at their widths and input sides
+    ('reflect_down_conv3x3', 1, 64, 128, 512, 512, False),
+    ('reflect_down_conv3x3', 1, 128, 256, 256, 256, False),
+    ('reflect_down_conv3x3', 2, 256, 128, 128, 128, False),
+    ('reflect_down_conv3x3', 2, 256, 384, 128, 128, True),
+    # kernel 6: the served block, the train block, the tiny odd shape
+    ('halo_conv3x3_reflect', 4, 512, 512, 64, 64, True),
+    ('halo_conv3x3_reflect', 10, 512, 512, 32, 32, False),
+    ('halo_conv3x3_reflect', 2, 24, 40, 37, 29, True),
+])
+def test_conv3x3_simt_fp32_main_shapes(device, name, b, c, co, h, w, bias):
+    """The fp32 SIMT kernel through kernel 4's and kernel 6's wrappers at
+    their main-path shapes, against the plain version."""
+    from lama_tpu_torch.ops.kernels import halo_conv as hc
+    fn = getattr(rc if 'down' in name else hc, name)
+    stride = 2 if 'down' in name else 1
+    g = torch.Generator().manual_seed(c + co + h)
+    x = torch.rand(b, c, h, w, generator=g).to(device)
+    wt = ((torch.rand(co, c, 3, 3, generator=g) * 2 - 1)
+          * (c * 9) ** -0.5).to(device)
+    bb = torch.rand(co, generator=g).to(device) if bias else None
+    ref = rc.reflect_conv_plain(x, wt, bb, stride)
+    before = fn.launches
+    out = fn(x, wt, bb)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    _close(out, ref, torch.float32)
+
+
+@pytest.mark.parametrize('stride,b,c,co,h,w,bias', [
+    (1, 2, 3, 5, 9, 13, True),         # C % 4: 4-byte copies
+    (1, 1, 1, 1, 2, 2, False),         # the smallest input
+    (1, 2, 40, 136, 19, 21, True),     # C % 16, C_out % 128, H, W % 8, 16
+    (1, 1, 130, 7, 17, 33, False),     # C_out % 4: element stores
+    (2, 2, 20, 130, 18, 10, True),     # C % 8, two N tiles, partial tiles
+    (2, 1, 3, 8, 9, 13, False),        # odd sides: (H - 1) // 2 + 1 rows
+    (2, 2, 96, 136, 34, 66, False),
+])
+def test_conv3x3_simt_any_widths(device, stride, b, c, co, h, w, bias):
+    """The fp32 SIMT kernel launched directly at both strides outside the
+    wrappers' shapes: channel tails by the copies' zero fill, element
+    copies and stores, partial tiles, odd sides."""
+    from lama_tpu_torch.ops.kernels import conv3x3_simt as sm
+    g = torch.Generator().manual_seed(c + co)
+    x = torch.rand(b, c, h, w, generator=g).to(device)
+    wt = ((torch.rand(co, c, 3, 3, generator=g) * 2 - 1)
+          * (c * 9) ** -0.5).to(device)
+    bb = torch.rand(co, generator=g).to(device) if bias else None
+    ref = rc.reflect_conv_plain(x, wt, bb, stride)
+    out = sm.conv3x3_reflect_fp32(
+        x.contiguous(memory_format=torch.channels_last), wt, bb, stride)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    _close(out, ref, torch.float32)
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
@@ -251,6 +318,7 @@ def _grad_close(ours, ref):
     ('reflect_conv3x3_cols', 128, 128, 16, 3, True),
     ('reflect_conv3x3_taps', 128, 384, 16, 3, False),
     ('reflect_down_conv3x3', 64, 128, 32, 3, True),
+    ('reflect_down_conv3x3', 256, 384, 32, 3, False),
     ('reflect_out_conv7x7', 64, 3, 24, 7, True),
 ])
 def test_reflect_conv_gradients(device, name, c, co, h, k, bias):
@@ -290,7 +358,8 @@ def test_halo_conv_gradients(device, k, s):
     _grad_close(ours, ref)
 
 
-@pytest.mark.parametrize('c,co,h', [(512, 512, 16), (24, 40, 13)])
+@pytest.mark.parametrize('c,co,h', [(512, 512, 16), (24, 40, 13),
+                                    (512, 512, 32), (3, 5, 9)])
 def test_halo_conv3x3_gradients(device, c, co, h):
     from lama_tpu_torch.ops.kernels import halo_conv as hc
     g = torch.Generator().manual_seed(8)

@@ -501,3 +501,224 @@ def test_kernels_refuse_to_drop_gradients():
         assert not _autograd.differentiable(trc.reflect_conv_plain,
                                             trc.reflect_conv_plain,
                                             x, w, None).requires_grad
+
+
+def _replay_conv3x3_simt(x, weight, stride=1):
+    """numpy model of csrc/conv3x3_simt.cu at one shape and stride: per
+    tile, output-channel tile and input-channel chunk, the stage's
+    shared-memory image as the kernel's copies fill it (halo item i is
+    16-byte vector i % VPP of halo pixel i // VPP, at that pixel's pitch,
+    from the reflect-mapped source pixel, zero past C; then the stage's
+    run of packed weights), and per thread its 8 pixels x 8 channels read
+    off that image at the kernel's A and B offsets for each tap and
+    channel; the products summed in float64, scattered to the thread's
+    outputs and masked at the edges."""
+    from lama_tpu_torch.ops.kernels import conv3x3_simt as sm
+    b, h, w, c = x.shape
+    co = weight.shape[0]
+    ho, wo = sm.out_size(h, stride), sm.out_size(w, stride)
+    ck = sm.chunk_c(stride)
+    chunks, n_tiles = -(-c // ck), -(-co // sm.BLOCK_N)
+    hh, hw = sm.halo_shape(stride)
+    pitch, hf = sm.pitch(stride), sm.halo_floats(stride)
+    nf = hf + sm.weight_floats(stride)
+    assert sm.stage_bytes(stride) == nf * sm.BYTES
+    packed = sm.pack_conv3x3_weight(torch.from_numpy(weight),
+                                    stride).double().numpy()
+    assert packed.size == n_tiles * chunks * sm.weight_floats(stride)
+    xp = np.zeros((b, h, w, chunks * ck))
+    xp[..., :c] = x
+    # the kernel's halo copies of one stage
+    vpp = ck // 4
+    item = np.arange(hh * hw * vpp)
+    pix, vec = item // vpp, item % vpp
+    dst = (pix * pitch + 4 * vec)[:, None] + np.arange(4)
+    src_c = (4 * vec)[:, None] + np.arange(4)
+    # each thread's operand offsets: A (thread, pixel, tap, channel) and
+    # B (thread, tap, channel, output channel), and its outputs
+    tiles = [sm.thread_tile(t) for t in range(sm.THREADS)]
+    taps, cs = range(9), range(ck)
+    a_idx = np.array([[[[sm.a_offset(r, c0 + j, t, k, stride) for k in cs]
+                        for t in taps] for j in range(8)]
+                      for r, c0, _ in tiles])
+    b_idx = np.array([[[[sm.b_offset(t, k, n, stride)
+                         for n in sm.thread_channels(tn)] for k in cs]
+                       for t in taps] for _, _, tn in tiles])
+    out_r = np.array([[r] * 8 for r, _, _ in tiles])
+    out_c = np.array([[c0 + j for j in range(8)] for _, c0, _ in tiles])
+    out_n = np.array([sm.thread_channels(tn) for _, _, tn in tiles])
+    # every (pixel, channel) of the block's tile is one thread's, once
+    owned = {(r, cc, n) for t in range(sm.THREADS) for r, cc in
+             zip(out_r[t], out_c[t]) for n in out_n[t]}
+    assert len(owned) == sm.TILE_H * sm.TILE_W * sm.BLOCK_N == sm.THREADS * 64
+    out = np.zeros((b, ho, wo, n_tiles * sm.BLOCK_N))
+    for r0, c0 in sm.tile_origins(h, w, stride):
+        rows, cols = sm.halo_source(r0, c0, h, w, stride)
+        halo = xp[:, rows][:, :, cols].reshape(b, hh * hw, -1)
+        for nt in range(n_tiles):
+            acc = np.zeros((b, sm.THREADS, 8, 8))
+            for k in range(chunks):
+                stage = np.zeros((b, nf))
+                stage[:, dst] = halo[:, pix[:, None], k * ck + src_c]
+                off = sm.weight_offset(nt, k, chunks, stride)
+                stage[:, hf:] = packed[off:off + nf - hf]
+                acc += np.einsum('bsjtc,stcn->bsjn', stage[:, a_idx],
+                                 stage[0][b_idx])
+            for t in range(sm.THREADS):
+                for j in range(8):
+                    r, cc = r0 + out_r[t, j], c0 + out_c[t, j]
+                    if r < ho and cc < wo:
+                        out[:, r, cc, nt * sm.BLOCK_N + out_n[t]] = acc[:, t, j]
+    return out[..., :co]
+
+
+@pytest.mark.parametrize('stride,b,c,co,h,w', [
+    (1, 2, 24, 40, 37, 29),      # kernel 6's tiny_odd: C % 16, C_out % 128
+    (1, 1, 3, 5, 9, 13),         # C % 4: element copies, partial tiles
+    (1, 1, 64, 136, 16, 16),     # four chunks, two N tiles
+    (1, 1, 1, 1, 2, 2),          # the smallest input a pad of 1 takes
+    (2, 1, 64, 128, 16, 34),     # down1-like: eight chunks, 8 x 17 outputs
+    (2, 1, 20, 130, 18, 10),     # C % 8, C_out % 128, partial tiles
+    (2, 2, 8, 24, 26, 12),
+])
+def test_conv3x3_simt_plan_matches_plain(stride, b, c, co, h, w):
+    """The fp32 SIMT kernel's plan (kernels 6 and 4 in fp32), replayed on
+    the CPU from the wrapper's constants, plan and weight packing, equals
+    the plain reflect conv at both strides: channel tails, partial edge
+    tiles, several chunks and N tiles, and kernel 6's odd tiny shape."""
+    rng = np.random.RandomState(c + co + h)
+    x = rng.rand(b, h, w, c).astype(np.float32)
+    weight = (rng.randn(co, c, 3, 3) * (9 * c) ** -0.5).astype(np.float32)
+    ref = trc.reflect_conv_plain(_nchw(x), torch.from_numpy(weight),
+                                 stride=stride)
+    np.testing.assert_allclose(_replay_conv3x3_simt(x, weight, stride),
+                               _nhwc(ref), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('stride,c,co', [(1, 24, 40), (1, 512, 512),
+                                         (2, 64, 128), (2, 3, 130)])
+def test_pack_conv3x3_simt_weight_round_trips(stride, c, co):
+    """conv3x3_simt.pack_conv3x3_weight is a zero-filled relayout of the
+    OIHW weight: [n tile][chunk][tap][channel][128]."""
+    from lama_tpu_torch.ops.kernels import conv3x3_simt as sm
+    weight = torch.randn(co, c, 3, 3, generator=torch.Generator().manual_seed(c))
+    ck = sm.chunk_c(stride)
+    chunks, nt = -(-c // ck), -(-co // sm.BLOCK_N)
+    packed = sm.pack_conv3x3_weight(weight, stride)
+    assert packed.dtype == torch.float32 and packed.is_contiguous()
+    back = packed.reshape(nt, chunks, 3, 3, ck, sm.BLOCK_N).permute(
+        0, 5, 1, 4, 2, 3).reshape(nt * sm.BLOCK_N, chunks * ck, 3, 3)
+    assert torch.equal(back[:co, :c], weight)
+    assert not back[co:].any() and not back[:, c:].any()
+
+
+def test_conv3x3_simt_source_matches_its_plan():
+    """The CUDA source's tile, chunk, stage and pitch constants are the
+    Python plan's, both launchers are there, every stage ring fits one
+    block, and the plan's shared-memory reads are conflict-free: per
+    LDS.128 a quarter-warp reads one A vector and 8 consecutive B vectors,
+    and a warp's distinct A vectors lie on distinct 16-byte bank groups."""
+    import re
+
+    from lama_tpu_torch.ops.kernels import conv3x3_simt as sm
+    with open(_build.source_path('conv3x3_simt')) as f:
+        src = f.read()
+
+    def const(name):
+        return int(re.search(rf'\b{name} = (\d+)', src).group(1))
+
+    for name in ('TILE_H', 'TILE_W', 'BLOCK_N', 'THREADS', 'CHUNK_C',
+                 'STAGES', 'S2_CHUNK_C', 'S2_STAGES', 'PITCH_PAD',
+                 'SMEM_LIMIT'):
+        assert const(name) == getattr(sm, name), name
+    assert 'conv3x3_simt' in _build.SOURCES
+    for symbol in sm.LAUNCHERS.values():
+        assert f'extern "C" int {symbol}(' in src, symbol
+    assert sm.TILE_H * sm.TILE_W >= 128 and sm.BLOCK_N >= 128
+    for stride in (1, 2):
+        assert sm.stages(stride) >= 2
+        assert sm.stages(stride) * sm.stage_bytes(stride) <= sm.SMEM_LIMIT
+        assert sm.pitch(stride) % 4 == 0 and sm.chunk_c(stride) % 4 == 0
+        for warp in range(sm.THREADS // 32):
+            tiles = [sm.thread_tile(32 * warp + lane) for lane in range(32)]
+            for tap in range(9):
+                for c in range(0, sm.chunk_c(stride), 4):
+                    a = [sm.a_offset(r, c0, tap, c, stride) for r, c0, _ in tiles]
+                    bv = [sm.b_offset(tap, c, 4 * tn, stride) for _, _, tn in tiles]
+                    for q in range(4):
+                        quarter = slice(8 * q, 8 * q + 8)
+                        assert len(set(a[quarter])) == 1
+                        assert sorted(bv[quarter]) == list(range(
+                            min(bv[quarter]), min(bv[quarter]) + 32, 4))
+                    assert bv[:8] * 4 == bv
+                    groups = {(off // 4) % 8 for off in set(a)}
+                    assert len(groups) == len(set(a)) == 4
+
+
+def test_conv3x3_simt_source_is_full_fp32():
+    """The fp32 kernel does its arithmetic in fp32 FMA: its code (the
+    comments aside) holds no TF32 conversion and no tensor-core
+    instruction."""
+    import re
+    with open(_build.source_path('conv3x3_simt')) as f:
+        src = re.sub(r'//.*', '', f.read()).lower()
+    assert 'acc[j][0] += av * f.b0[q].x' in src
+    for gone in ('tf32', 'mma', 'wmma', 'nvcuda', 'cvt.rna', 'bf16', 'half'):
+        assert gone not in src, gone
+
+
+def test_fp32_kernels_4_and_6_left_the_old_sources():
+    """Kernel 4's stride-2 fp32 instance and kernel 6's fp32 kernel are
+    gone from reflect_conv.cu and halo_conv.cu (conv3x3_simt.cu has them);
+    cols and taps keep reflect_conv.cu's stride-1 kernel, kernel 7 its
+    two kernels."""
+    with open(_build.source_path('reflect_conv')) as f:
+        rc_src = f.read()
+    with open(_build.source_path('halo_conv')) as f:
+        hc_src = f.read()
+    for gone in ('lama_reflect_down_conv3x3', 'Halo3<S>', 'int S'):
+        assert gone not in rc_src, gone
+    for kept in ('lama_reflect_conv3x3_cols', 'lama_reflect_conv3x3_taps',
+                 'launch_conv3<float, 128>', 'launch_conv3<float, 0>'):
+        assert kept in rc_src, kept
+    for gone in ('halo_conv3x3_kernel', 'launch_k6', 'K6_',
+                 'lama_halo_conv3x3_reflect'):
+        assert gone not in hc_src, gone
+    for kept in ('halo_conv_kernel', 'halo_conv_tc_kernel',
+                 'lama_halo_conv_reflect_tiled'):
+        assert kept in hc_src, kept
+
+
+def test_conv3x3_variants_apply_and_fit():
+    """Every variant of the variants tool edits its source where it means
+    to, and each fp32 SIMT variant's plan fits one block's shared memory
+    and keeps the bank rule the source's static_asserts demand (so a
+    variant fails here, not in nvcc on the card)."""
+    import re
+
+    from lama_tpu_torch.tools import conv3x3_variants as cv
+    for source, variants in cv.VARIANTS.items():
+        with open(_build.source_path('conv3x3_' + source)) as f:
+            src = f.read()
+        for name, subs in variants.items():
+            text = src
+            for old, new in subs:
+                assert text.count(old) == 1, (source, name, old)
+                text = text.replace(old, new)
+            if source != 'simt':
+                continue
+
+            def const(n):
+                return int(re.search(rf'\b{n} = (\d+)', text).group(1))
+
+            th, tw = const('TILE_H'), const('TILE_W')
+            assert tw % 8 == 0 and th * tw == 128, name
+            for stride, ck, ring in ((1, const('CHUNK_C'), const('STAGES')),
+                                     (2, const('S2_CHUNK_C'),
+                                      const('S2_STAGES'))):
+                ckp = ck + const('PITCH_PAD')
+                hh, hw = stride * (th - 1) + 3, stride * (tw - 1) + 3
+                stage = (hh * hw * ckp + 9 * ck * 128) * 4
+                assert ring >= 2 and ring * stage <= const('SMEM_LIMIT'), name
+                units = stride * hw * ckp // 4
+                assert len({(k * units) % 8 for k in range(4)}) == 4, name
