@@ -13,13 +13,15 @@ version):
      and the stem at 512^2), at the refine phase's (batch 1; the 1024^2
      image's 128x128 bottleneck, the 1000x760 image's odd 125x95 and 63x48
      bottlenecks, its 1000x760 and 504x384 inputs; the stem at 1024^2 and
-     1000x760), at the train phase's (the stem at batch 10, 256^2), for
+     1000x760), at the train phase's (the stem at batch 10, 256^2, and
+     cols and taps at its b10 32^2 bottleneck), for
      the tiled halo conv at each kernel size and stride, and for the 3x3
      halo conv (kernel 6) at big-lama-regular's block convs (512 -> 512 at
      b4 64^2 and b10 32^2) and a tiny odd shape, and kernels 6, 3, 2 and
      4 at the served batch 16 (64^2: 512 -> 512, 128 -> 384, 384 -> 128,
      128 -> 128; the four downsamples, 512^2 to 128^2); fp32
-     (TF32 off) and bf16, against its plain PyTorch version on the same
+     (TF32 off; each fp32 3x3 stride-1 row prints the K split its grid
+     ran with) and bf16, against its plain PyTorch version on the same
      inputs, with the median time of each wrapper call and plain version
      (CUDA events; a call includes the channels-last copy of the NCHW
      input), the kernel's own device time per call (torch.profiler), the
@@ -136,12 +138,15 @@ REFINE_PASS_SIZES = ((1024, 1024), (1000, 760), (504, 384))
 N_ITERS = 15      # the refiner's default (configs/prediction/default.yaml)
 SOURCES = {'fused_fourier_unit': 'lama_tpu_torch/csrc/fourier_unit.cu',
            'halo_conv_reflect_tiled': 'lama_tpu_torch/csrc/halo_conv.cu'}
-SOURCES.update({k: 'lama_tpu_torch/csrc/reflect_conv.cu' for k in (
-    'reflect_conv3x3_cols', 'reflect_conv3x3_taps', 'reflect_out_conv7x7')})
-# the fp32 paths of kernels 4 and 6: one register-tiled SIMT implicit GEMM
-# (kernel 4 its stride-2 form)
+SOURCES['reflect_out_conv7x7'] = 'lama_tpu_torch/csrc/reflect_conv.cu'
+# the fp32 paths of kernels 2, 3, 4 and 6: one register-tiled SIMT implicit
+# GEMM (kernel 4 its stride-2 form)
 SOURCES.update({k: 'lama_tpu_torch/csrc/conv3x3_simt.cu' for k in (
-    'reflect_down_conv3x3', 'halo_conv3x3_reflect')})
+    'reflect_conv3x3_cols', 'reflect_conv3x3_taps', 'reflect_down_conv3x3',
+    'halo_conv3x3_reflect')})
+# the fp32 kernels whose stride-1 grid may split K (conv3x3_simt.py)
+SPLIT_KERNELS = ('reflect_conv3x3_cols', 'reflect_conv3x3_taps',
+                 'halo_conv3x3_reflect')
 # the bf16 paths of kernels 2, 3, 4 and 6: one wgmma implicit GEMM (kernel
 # 4 its stride-2 form)
 BF16_SOURCES = {k: 'lama_tpu_torch/csrc/conv3x3_wgmma.cu' for k in (
@@ -282,6 +287,19 @@ def kernel_cases(gen):
          conv_case(128, 384, 125, 3, False, b=1, w=95)),
         ('reflect_conv3x3_taps', 'refine_g2l',
          conv_case(384, 128, 125, 3, False, b=1, w=95)),
+        ('reflect_conv3x3_cols', 'refine_s1_l2l',
+         conv_case(128, 128, 63, 3, False, b=1, w=48)),
+        ('reflect_conv3x3_taps', 'refine_s1_l2g',
+         conv_case(128, 384, 63, 3, False, b=1, w=48)),
+        ('reflect_conv3x3_taps', 'refine_s1_g2l',
+         conv_case(384, 128, 63, 3, False, b=1, w=48)),
+        # the train phase's bottleneck, b10 32^2
+        ('reflect_conv3x3_cols', 'train_l2l',
+         conv_case(128, 128, 32, 3, False, b=10)),
+        ('reflect_conv3x3_taps', 'train_l2g',
+         conv_case(128, 384, 32, 3, False, b=10)),
+        ('reflect_conv3x3_taps', 'train_g2l',
+         conv_case(384, 128, 32, 3, False, b=10)),
         ('reflect_out_conv7x7', 'refine_head',
          conv_case(64, 3, 1000, 7, True, b=1, w=760)),
         ('fused_fourier_unit', 'refine_fu_1024', fu_case(1, 128, 128)),
@@ -399,6 +417,15 @@ def bound(name, role, args, dtype):
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
 
 
+def planned_splits(args):
+    """The K split (conv3x3_simt.py's plan) of an fp32 3x3 stride-1 conv of
+    args' shapes on this card: 1 for a grid of at least one wave."""
+    from lama_tpu_torch.ops.kernels import conv3x3_simt as sm
+    x, wt = args[0], args[1]
+    b, c, h, w = x.shape
+    return sm.plan_splits(b, h, w, c, wt.shape[0], sm.sm_count(x.device.index))
+
+
 def library_call(name, role, args, tdt):
     """One PyTorch call that computes the same function as a reflect-conv
     kernel, for its time only (the port never calls it): nn.Conv2d with
@@ -434,6 +461,11 @@ def kernels_vs_plain(gen):
             err = (out.float() - ref).abs()
             rtol, atol = TOL[dtype]
             ok = bool(torch.all(err <= atol + rtol * ref.abs()))
+            splits = (planned_splits(args) if dtype == 'fp32'
+                      and name in SPLIT_KERNELS else None)
+            if splits and splits > 1:   # a fixed summation order
+                check(torch.equal(kfn(*kargs), out),
+                      f'{name}/{role}: split s={splits} not bit-equal twice')
             k_ms = median_ms(lambda: kfn(*kargs))
             d_ms = own_device_ms(lambda: kfn(*kargs))
             p_ms = median_ms(lambda: pfn(*kargs))
@@ -458,12 +490,13 @@ def kernels_vs_plain(gen):
                        plain_ms=p_ms,
                        bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
                        channels_last_ms=k_cl_ms,
-                       library_channels_last_ms=l_cl_ms)
+                       library_channels_last_ms=l_cl_ms, splits=splits)
             lib_text = ('' if l_ms is None else
                         f' library {l_ms:.3f} ms ({k_ms / l_ms:.2f}x); '
                         f'channels-last input: kernel {k_cl_ms:.3f} ms, '
                         f'library {l_cl_ms:.3f} ms ({k_cl_ms / l_cl_ms:.2f}x)')
-            log(f'kernel {name}/{role} {dtype} {list(args[0].shape)}: '
+            log(f'kernel {name}/{role} {dtype} {list(args[0].shape)}'
+                f'{"" if splits is None else f" split s={splits}"}: '
                 f'max|d| {row["max_abs_err"]:.3e} (rtol {rtol} atol {atol}) '
                 f'kernel {k_ms:.3f} ms (device '
                 f'{"not measured" if d_ms is None else f"{d_ms:.4f}"}) plain '

@@ -2,10 +2,16 @@
 // ('same') or stride 2, as one register-tiled SIMT implicit GEMM for Hopper
 // (sm_90a). Bound to Python through lama_conv3x3_simt (stride 1) and
 // lama_conv3x3_s2_simt (stride 2) at the bottom (ctypes; see
-// lama_tpu_torch/ops/kernels/conv3x3_simt.py, whose constants, plan and
-// weight packing mirror this file's).
+// lama_tpu_torch/ops/kernels/conv3x3_simt.py, whose constants, plan, split
+// rule and weight packing mirror this file's).
 //
-// Replaces the fp32 paths of two TPU kernels:
+// Replaces the fp32 paths of four TPU kernels:
+//   lama_tpu/ops/pallas/reflect_conv.py::reflect_conv3x3_cols (:130),
+//     kernel 2 (3x3 stride 1, C = C_out = 128; the FFC's l2l convs), at
+//     stride 1;
+//   lama_tpu/ops/pallas/reflect_conv.py::reflect_conv3x3_taps (:465),
+//     kernel 3 (3x3 stride 1, C and C_out multiples of 128; l2g and g2l),
+//     at stride 1;
 //   lama_tpu/ops/pallas/halo_conv.py::halo_conv3x3_reflect (:53), kernel 6
 //     (3x3 stride 1, any C and C_out; the GlobalGenerator's 512 -> 512
 //     ResnetBlock convs), at stride 1;
@@ -23,10 +29,10 @@
 // differences near 1e-6 relative.
 //
 // Bound: 2 * 9 * C * C_out FLOP per output pixel against (S^2 C + C_out) * 4
-// bytes: ~1150 FLOP/B at 512 -> 512 and ~96 FLOP/B at the smallest
-// downsample (64 -> 128 at stride 2), every shape far above the H100's
-// fp32 ridge (67 TFLOP/s over 3.35 TB/s, ~20 FLOP/B). So the FMA units
-// bound it, and the design keeps them fed:
+// bytes: ~1150 FLOP/B at 512 -> 512, ~290 at 128 -> 128 and ~96 FLOP/B at
+// the smallest downsample (64 -> 128 at stride 2), every shape far above
+// the H100's fp32 ridge (67 TFLOP/s over 3.35 TB/s, ~20 FLOP/B). So the
+// FMA units bound it, and the design keeps them fed:
 //   * Tiles. A block owns 8 x 16 output pixels (TILE_H x TILE_W, M = 128)
 //     and 128 output channels (BLOCK_N), and walks K = 9 taps x C input
 //     channels in chunks of CK. Each staged halo value feeds 128 output
@@ -71,6 +77,20 @@
 //   * Any shape: partial edge tiles masked at the store (halo rows and
 //     columns of outputs that are never stored are clamped), 16-byte
 //     stores of 4 channels where C_out % 4 == 0.
+//   * A split over K where a stride-1 grid fills less than one wave. One
+//     block a SM, so a grid of n < 132 blocks leaves SMs idle while each
+//     block walks all of K (batch 1 at the refiner's 63 x 48 bottleneck:
+//     24 blocks). With `splits` = s > 1 the grid is s times larger: block
+//     (tile, n tile, b * s + i) walks chunks [i * chunks / s, (i + 1) *
+//     chunks / s) and stores its 8 x 16 x 128 partial sums, without bias,
+//     to a workspace (s, B, Ho, Wo, C_out padded to 128) that the wrapper
+//     allocates; split_reduce_kernel then adds the s partials in the order
+//     0 .. s - 1, then the bias, and writes out. A fixed order and no
+//     atomics: the same inputs give the same bits on every run. The
+//     wrapper's plan (conv3x3_simt.py::split_count) picks s: only where n
+//     < SMs, at most MAX_SPLITS, and at least STAGES chunks a split. With s
+//     = 1 the kernel is the unsplit instance (SPLIT false), with no
+//     workspace and no second launch.
 //
 // No backward kernel: the TPU kernels have none; the port's autograd
 // wrapper takes the plain version's VJP.
@@ -90,6 +110,8 @@ constexpr int S2_STAGES = 3;             // pipeline stages (s2)
 constexpr int PITCH_PAD = 4;             // halo pixel pitch = CK + PITCH_PAD
 constexpr int TAP_UNROLL = 9;            // taps unrolled in the inner loop
 constexpr int SMEM_LIMIT = 232448;       // shared memory of one block
+constexpr int MAX_SPLITS = 4;            // K splits of a stride-1 grid (s1)
+constexpr int REDUCE_THREADS = 256;      // split_reduce_kernel's block
 static_assert(TILE_W % 8 == 0 && TILE_H * TILE_W == 16 * 8,
               "16 pixel groups of 8 pixels in a row");
 static_assert(BLOCK_N == 128, "16 channel groups of 2 x 4 channels");
@@ -197,11 +219,15 @@ __device__ __forceinline__ int tap_offset(int tap) {
 // bias: (Co,) fp32 or null; out: (B, Ho, Wo, Co) NHWC fp32 with Ho =
 // (H - 1) / S + 1, Wo = (W - 1) / S + 1 (torch's conv of the reflect pad).
 // vec_x: C % 4 == 0 and x 16-byte aligned; vec_out: the same for Co and out.
-template <int S>
+// SPLIT: blockIdx.z is b * splits + the split, whose run of chunks this
+// block walks; it stores its partial sums to ws (splits, B, Ho, Wo,
+// gridDim.y * BLOCK_N), 16-byte aligned, and neither bias nor out is read.
+template <int S, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 1)
 conv3x3_simt_kernel(const float* __restrict__ x, const float* __restrict__ wpk,
                     const float* __restrict__ bias, float* __restrict__ out,
-                    int H, int W, int C, int Co, int vec_x, int vec_out) {
+                    float* __restrict__ ws, int H, int W, int C, int Co,
+                    int splits, int vec_x, int vec_out) {
   using P = Plan<S>;
   extern __shared__ __align__(16) float smem[];
   const uint32_t smem_base = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -212,8 +238,12 @@ conv3x3_simt_kernel(const float* __restrict__ x, const float* __restrict__ wpk,
   const int r0 = (blockIdx.x / tiles_w) * TILE_H;   // output tile origin
   const int c0 = (blockIdx.x % tiles_w) * TILE_W;
   const int nt = blockIdx.y, n0 = nt * BLOCK_N;
-  const int b = blockIdx.z;
+  const int split = SPLIT ? blockIdx.z % splits : 0;
+  const int b = SPLIT ? blockIdx.z / splits : blockIdx.z;
   const int chunks = (C + P::CK - 1) / P::CK;
+  // this block's run of chunks, [k0, k0 + nk): all of them unless SPLIT
+  const int k0 = SPLIT ? split * chunks / splits : 0;
+  const int nk = SPLIT ? (split + 1) * chunks / splits - k0 : chunks;
   const float* xb = x + size_t(b) * H * W * C;
   const float* wn = wpk + size_t(nt) * chunks * P::WEIGHT_FLOATS;
 
@@ -269,16 +299,16 @@ conv3x3_simt_kernel(const float* __restrict__ x, const float* __restrict__ wpk,
 
 #pragma unroll
   for (int s = 0; s < P::RING - 1; ++s) {
-    if (s < chunks) load_stage(s, s);
+    if (s < nk) load_stage(s, k0 + s);
     cp_async_commit();
   }
-  for (int k = 0; k < chunks; ++k) {
+  for (int k = 0; k < nk; ++k) {
     cp_async_wait<P::RING - 2>();
     __syncthreads();   // chunk k staged by every thread; chunk k - 1 consumed
     // chunk k + RING - 1 loads (into chunk k - 1's stage) while the FFMAs
-    // run chunk k
-    if (k + P::RING - 1 < chunks)
-      load_stage((k + P::RING - 1) % P::RING, k + P::RING - 1);
+    // run chunk k (k counts from this block's first chunk, k0)
+    if (k + P::RING - 1 < nk)
+      load_stage((k + P::RING - 1) % P::RING, k0 + k + P::RING - 1);
     cp_async_commit();
     const float* halo = smem + (k % P::RING) * P::STAGE_FLOATS;
     const float* wts = halo + P::HALO_FLOATS + tn * 4;
@@ -310,6 +340,23 @@ conv3x3_simt_kernel(const float* __restrict__ x, const float* __restrict__ wpk,
 
   const int r = r0 + prow;
   if (r >= Ho) return;
+  if constexpr (SPLIT) {
+    // the partial sums, all 128 channels of the padded workspace
+    const int cop = gridDim.y * BLOCK_N;
+    const size_t plane = size_t(gridDim.z / splits) * Ho * Wo;
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const int c = c0 + pcol0 + p;
+      if (c >= Wo) break;
+      float* o = ws + ((split * plane + (size_t(b) * Ho + r) * Wo + c) * cop
+                       + n0 + tn * 4);
+      *reinterpret_cast<float4*>(o) =
+          make_float4(acc[p][0], acc[p][1], acc[p][2], acc[p][3]);
+      *reinterpret_cast<float4*>(o + 64) =
+          make_float4(acc[p][4], acc[p][5], acc[p][6], acc[p][7]);
+    }
+    return;
+  }
   float bv[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -337,27 +384,87 @@ conv3x3_simt_kernel(const float* __restrict__ x, const float* __restrict__ wpk,
   }
 }
 
-template <int S>
-int launch(const void* x, const void* wpk, const void* bias, void* out, int B,
-           int H, int W, int C, int Co, void* stream) {
-  if (B < 1 || C < 1 || Co < 1 || H < 2 || W < 2 ||
-      reinterpret_cast<uintptr_t>(wpk) % 16)
-    return int(cudaErrorInvalidValue);
+// out[p][n] = (ws[0][p][n] + ws[1][p][n] + ... + ws[splits - 1][p][n]) +
+// bias[n], summed in that order; p over the B * Ho * Wo output pixels, ws
+// (splits, pixels, cop) with cop = C_out padded to 128 (16-byte aligned).
+// One thread per 4 output channels of one pixel; vec_out: C_out % 4 == 0
+// and out 16-byte aligned.
+__global__ void __launch_bounds__(REDUCE_THREADS)
+split_reduce_kernel(const float* __restrict__ ws, const float* __restrict__ bias,
+                    float* __restrict__ out, long long pixels, int Co, int cop,
+                    int splits, int vec_out) {
+  const int groups = (Co + 3) / 4;
+  const long long i = blockIdx.x * (long long)REDUCE_THREADS + threadIdx.x;
+  if (i >= pixels * groups) return;
+  const long long p = i / groups;
+  const int n = int(i % groups) * 4;
+  const float* src = ws + p * cop + n;
+  float4 s = *reinterpret_cast<const float4*>(src);
+  for (int k = 1; k < splits; ++k) {
+    const float4 v = *reinterpret_cast<const float4*>(src + k * pixels * cop);
+    s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+  }
+  float v[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (bias && n + e < Co) v[e] += bias[n + e];
+  float* o = out + p * Co + n;
+  if (vec_out) {
+    *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (n + e < Co) o[e] = v[e];
+  }
+}
+
+template <int S, bool SPLIT>
+int launch_conv(const void* x, const void* wpk, const void* bias, void* out,
+                void* ws, int B, int H, int W, int C, int Co, int splits,
+                cudaStream_t stream) {
   const int vec_x = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const int vec_out = Co % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_simt_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      conv3x3_simt_kernel<S, SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Plan<S>::SMEM_BYTES);
   if (err != cudaSuccess) return int(err);
   const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
   const int tiles = ((Ho + TILE_H - 1) / TILE_H) * ((Wo + TILE_W - 1) / TILE_W);
-  dim3 grid(tiles, (Co + BLOCK_N - 1) / BLOCK_N, B);
-  conv3x3_simt_kernel<S><<<grid, THREADS, Plan<S>::SMEM_BYTES,
-                           static_cast<cudaStream_t>(stream)>>>(
+  const int n_tiles = (Co + BLOCK_N - 1) / BLOCK_N;
+  dim3 grid(tiles, n_tiles, B * splits);
+  conv3x3_simt_kernel<S, SPLIT><<<grid, THREADS, Plan<S>::SMEM_BYTES, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(wpk),
-      static_cast<const float*>(bias), static_cast<float*>(out), H, W, C, Co,
-      vec_x, vec_out);
+      static_cast<const float*>(bias), static_cast<float*>(out),
+      static_cast<float*>(ws), H, W, C, Co, splits, vec_x, vec_out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !SPLIT) return int(err);
+  const long long pixels = (long long)B * Ho * Wo;
+  const long long threads = pixels * ((Co + 3) / 4);
+  split_reduce_kernel<<<unsigned((threads + REDUCE_THREADS - 1) / REDUCE_THREADS),
+                        REDUCE_THREADS, 0, stream>>>(
+      static_cast<const float*>(ws), static_cast<const float*>(bias),
+      static_cast<float*>(out), pixels, Co, n_tiles * BLOCK_N, splits, vec_out);
   return int(cudaGetLastError());
+}
+
+template <int S>
+int launch(const void* x, const void* wpk, const void* bias, void* out,
+           void* ws, int B, int H, int W, int C, int Co, int splits,
+           void* stream) {
+  const int chunks = (C + Plan<S>::CK - 1) / Plan<S>::CK;
+  if (B < 1 || C < 1 || Co < 1 || H < 2 || W < 2 ||
+      reinterpret_cast<uintptr_t>(wpk) % 16 || splits < 1 ||
+      splits > MAX_SPLITS || splits > chunks ||
+      (splits > 1 && (S != 1 || !ws || reinterpret_cast<uintptr_t>(ws) % 16)))
+    return int(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  if constexpr (S == 1) {
+    if (splits > 1)
+      return launch_conv<S, true>(x, wpk, bias, out, ws, B, H, W, C, Co,
+                                  splits, st);
+  }
+  return launch_conv<S, false>(x, wpk, bias, out, nullptr, B, H, W, C, Co, 1,
+                               st);
 }
 
 }  // namespace
@@ -365,19 +472,24 @@ int launch(const void* x, const void* wpk, const void* bias, void* out, int B,
 // x: (B, H, W, C) fp32 NHWC; wpk: ceil(Co / 128) * ceil(C / CK) * 9 * CK *
 // 128 fp32 (lama_tpu_torch/ops/kernels/conv3x3_simt.py::
 // pack_conv3x3_weight), 16-byte aligned; bias: (Co,) fp32 or null; out:
-// (B, H, W, Co) fp32 NHWC. Any C, Co >= 1 and H, W >= 2. Returns a
-// cudaError_t value (0 on success); the launch is asynchronous on `stream`.
+// (B, H, W, Co) fp32 NHWC; splits: 1 .. MAX_SPLITS, at most ceil(C / CK);
+// ws: null for splits = 1, else splits * B * H * W * ceil(Co / 128) * 128
+// fp32, 16-byte aligned (the partial sums; see the header). Any C, Co >= 1
+// and H, W >= 2. Returns a cudaError_t value (0 on success); the launches
+// (two where splits > 1) are asynchronous on `stream`.
 extern "C" int lama_conv3x3_simt(const void* x, const void* wpk,
-                                 const void* bias, void* out, int B, int H,
-                                 int W, int C, int Co, void* stream) {
-  return launch<1>(x, wpk, bias, out, B, H, W, C, Co, stream);
+                                 const void* bias, void* out, void* ws, int B,
+                                 int H, int W, int C, int Co, int splits,
+                                 void* stream) {
+  return launch<1>(x, wpk, bias, out, ws, B, H, W, C, Co, splits, stream);
 }
 
-// The same at stride 2: H, W are the input's; out is (B, (H - 1) / 2 + 1,
-// (W - 1) / 2 + 1, Co) fp32 NHWC (H / 2 x W / 2 for the even sides kernel
-// 4 takes).
+// The same at stride 2, unsplit (splits 1, ws null): H, W are the input's;
+// out is (B, (H - 1) / 2 + 1, (W - 1) / 2 + 1, Co) fp32 NHWC (H / 2 x W / 2
+// for the even sides kernel 4 takes).
 extern "C" int lama_conv3x3_s2_simt(const void* x, const void* wpk,
-                                    const void* bias, void* out, int B, int H,
-                                    int W, int C, int Co, void* stream) {
-  return launch<2>(x, wpk, bias, out, B, H, W, C, Co, stream);
+                                    const void* bias, void* out, void* ws,
+                                    int B, int H, int W, int C, int Co,
+                                    int splits, void* stream) {
+  return launch<2>(x, wpk, bias, out, ws, B, H, W, C, Co, splits, stream);
 }

@@ -19,10 +19,10 @@ halo conv. Its zero-padded stride-2 downsamples, the ConvTranspose layers
 and the 1x1 convs are `F.conv2d` (after `F.pad` for other pad modes), as the
 JAX package leaves them to XLA (conv.py:285-301).
 In bf16 the four 3x3 kernels (cols, taps, halo 3x3, and down at stride 2)
-are one wgmma implicit GEMM, ops/kernels/conv3x3_wgmma.py; in fp32 the halo
-3x3 and down are one register-tiled SIMT implicit GEMM (stride 1 and 2),
-ops/kernels/conv3x3_simt.py, and cols and taps the SIMT kernel of
-reflect_conv.cu.
+are one wgmma implicit GEMM, ops/kernels/conv3x3_wgmma.py; in fp32 they are
+one register-tiled SIMT implicit GEMM (stride 1 and 2, K split where a
+stride-1 grid fills less than one wave), ops/kernels/conv3x3_simt.py. The
+7x7 head is reflect_conv.cu's only kernel.
 `kernels='plain'` sends the kernels' shapes to their plain version too; it
 is how the tests and chip_smoke.py compare the two.
 """

@@ -12,8 +12,8 @@ strides:
   reflect_conv.py::reflect_down_conv3x3 <- lama_tpu/ops/pallas/reflect_conv.py:230
                                            (stride 2)
 
-Their fp32 paths are SIMT kernels: conv3x3_simt.cu for the halo conv and the
-down conv, reflect_conv.cu for cols and taps.
+Their fp32 paths are the register-tiled SIMT kernel of conv3x3_simt.cu, at
+stride 1 and 2.
 The constants below are the kernel's (tests/test_torch_kernels.py checks
 that the source agrees), and `a_descriptor` / `b_descriptor` give the
 shared-memory matrix descriptors it builds, so that the CPU tests can replay

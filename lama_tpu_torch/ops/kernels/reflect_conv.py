@@ -12,19 +12,20 @@ stride)` with p = k // 2 on NCHW tensors (any memory format) and an OIHW
 weight, and keeps the TPU kernel's envelope; the down conv has stride 2, the
 others stride 1. The kernels build the reflect halo while loading an input
 tile into shared memory, so no padded tensor reaches HBM:
-  float32 (full fp32 arithmetic, no TF32): cols and taps run the SIMT
-    implicit GEMM of lama_tpu_torch/csrc/reflect_conv.cu, the down conv the
-    stride-2 form of the register-tiled SIMT implicit GEMM of
-    csrc/conv3x3_simt.cu (see conv3x3_simt.py), the head the thin 7x7
-    kernel of reflect_conv.cu;
+  float32 (full fp32 arithmetic, no TF32): the three 3x3 convs run the
+    register-tiled SIMT implicit GEMM of lama_tpu_torch/csrc/conv3x3_simt.cu
+    (see conv3x3_simt.py; cols and taps its stride-1 form, with K split
+    over several blocks where the grid fills less than one wave, the down
+    conv its stride-2 form);
   bfloat16 (tensor cores, fp32 accumulation, bf16 output): the three 3x3
     convs run the wgmma implicit GEMM of csrc/conv3x3_wgmma.cu (see
-    conv3x3_wgmma.py; the down conv its stride-2 width-pair form), the head
-    the 7x7 kernel of reflect_conv.cu.
+    conv3x3_wgmma.py; the down conv its stride-2 width-pair form);
+  the 7x7 head, in either dtype, the thin 7x7 kernel of
+    lama_tpu_torch/csrc/reflect_conv.cu.
 Inside, the layout is channels-last: the wrapper passes a channels-last
-view of `x` (a copy only if `x` is not channels-last already), an HWIO copy
-of the weight in `x`'s dtype (or the packed weight of conv3x3_wgmma.py or
-conv3x3_simt.py), and returns a channels-last output.
+view of `x` (a copy only if `x` is not channels-last already), the packed
+weight of conv3x3_wgmma.py or conv3x3_simt.py (the head: an HWIO copy of
+the weight in `x`'s dtype), and returns a channels-last output.
 
 On a CPU tensor a wrapper computes its plain version; on a CUDA tensor it
 launches its kernel or raises. When a gradient is needed, the launch runs
@@ -85,35 +86,42 @@ def reflect_out_conv7x7_supported(h: int, w: int, c: int, c_out: int) -> bool:
     return 1 <= c_out <= 8 and c <= 128 and c % 8 == 0 and h >= 8 and w >= 8
 
 
-def _launch(symbol, supported, stride, x, weight, bias, bf16=None,
-            fp32=None):
-    """Check the call, then launch the route given for x's dtype (`bf16`:
-    conv3x3_wgmma.py's launch; `fp32`: conv3x3_simt.py's), or else `symbol`
-    of reflect_conv.cu."""
+def _launch(name, supported, x, weight, bias, bf16=None, fp32=None):
+    """Check the call, then launch the route given for x's dtype (`bf16`,
+    `fp32`: a launch function of x, weight and bias); a dtype with no route
+    raises."""
     ksize = weight.shape[-1]
     b, c, h, w = x.shape
     c_out = weight.shape[0]
     if x.dtype not in _DTYPES:
-        raise TypeError(f'{symbol}: dtype {x.dtype} (expected float32 or '
+        raise TypeError(f'{name}: dtype {x.dtype} (expected float32 or '
                         'bfloat16)')
     if tuple(weight.shape) != (c_out, c, ksize, ksize):
-        raise ValueError(f'{symbol}: weight {tuple(weight.shape)} for input '
+        raise ValueError(f'{name}: weight {tuple(weight.shape)} for input '
                          f'{tuple(x.shape)}')
     if not supported(h, w, c, c_out):
-        raise ValueError(f'{symbol}: shape {(b, c, h, w)} -> {c_out} is '
+        raise ValueError(f'{name}: shape {(b, c, h, w)} -> {c_out} is '
                          'outside the kernel envelope')
     if not (weight.is_cuda and (bias is None or bias.is_cuda)
             and weight.device == x.device):
-        raise ValueError(f'{symbol}: weight and bias must be on {x.device}')
-    x = x.contiguous(memory_format=torch.channels_last)
+        raise ValueError(f'{name}: weight and bias must be on {x.device}')
     route = bf16 if x.dtype == torch.bfloat16 else fp32
-    if route is not None:
-        return route(x, weight, bias)
+    if route is None:
+        raise TypeError(f'{name}: no kernel for {x.dtype}')
+    return route(x.contiguous(memory_format=torch.channels_last), weight,
+                 bias)
+
+
+def _out_conv7x7(x, weight, bias):
+    """The 7x7 head's launch: lama_reflect_out_conv7x7 of reflect_conv.cu on
+    a channels-last x, the weight as HWIO in x's dtype."""
+    b, c, h, w = x.shape
+    c_out = weight.shape[0]
     wk = weight.to(x.dtype).permute(2, 3, 1, 0).contiguous()   # HWIO
     bk = None if bias is None else bias.to(x.dtype).contiguous()
-    out = torch.empty((b, c_out, h // stride, w // stride), dtype=x.dtype,
-                      device=x.device, memory_format=torch.channels_last)
-    fn = getattr(_build.load('reflect_conv'), symbol)
+    out = torch.empty((b, c_out, h, w), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last)
+    fn = _build.load('reflect_conv').lama_reflect_out_conv7x7
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     with torch.cuda.device(x.device):
@@ -122,16 +130,17 @@ def _launch(symbol, supported, stride, x, weight, bias, bf16=None,
                  None if bk is None else bk.data_ptr(), out.data_ptr(),
                  b, h, w, c, c_out, _DTYPES[x.dtype], stream)
     if err != 0:
-        raise RuntimeError(f'{symbol}: CUDA launch failed with error {err}')
+        raise RuntimeError('lama_reflect_out_conv7x7: CUDA launch failed with '
+                           f'error {err}')
     return out
 
 
-def _kernel(wrapper, symbol, supported, stride, x, weight, bias, bf16=None,
+def _kernel(wrapper, supported, stride, x, weight, bias, bf16=None,
             fp32=None):
     """The common body of the wrappers below, for a CUDA tensor."""
     plain = functools.partial(reflect_conv_plain, stride=stride)
     out = differentiable(
-        functools.partial(_launch, symbol, supported, stride, bf16=bf16,
+        functools.partial(_launch, wrapper.__name__, supported, bf16=bf16,
                           fp32=fp32),
         plain, x, weight, bias)
     wrapper.launches += 1
@@ -140,22 +149,26 @@ def _kernel(wrapper, symbol, supported, stride, x, weight, bias, bf16=None,
 
 def reflect_conv3x3_cols(x, weight, bias=None):
     """3x3 stride-1 reflect conv for C = C_out = 128 (the FFC l2l convs).
-    bf16: the wgmma kernel of csrc/conv3x3_wgmma.cu; fp32: reflect_conv.cu."""
+    bf16: the wgmma kernel of csrc/conv3x3_wgmma.cu; fp32: the stride-1
+    SIMT kernel of csrc/conv3x3_simt.cu."""
     if not x.is_cuda:
         return reflect_conv_plain(x, weight, bias)
-    return _kernel(reflect_conv3x3_cols, 'lama_reflect_conv3x3_cols',
-                   reflect_conv3x3_cols_supported, 1, x, weight, bias,
-                   bf16=conv3x3_wgmma.conv3x3_reflect_bf16)
+    return _kernel(reflect_conv3x3_cols, reflect_conv3x3_cols_supported, 1,
+                   x, weight, bias,
+                   bf16=conv3x3_wgmma.conv3x3_reflect_bf16,
+                   fp32=conv3x3_simt.conv3x3_reflect_fp32)
 
 
 def reflect_conv3x3_taps(x, weight, bias=None):
     """3x3 stride-1 reflect conv for wide channels (the FFC l2g/g2l convs).
-    bf16: the wgmma kernel of csrc/conv3x3_wgmma.cu; fp32: reflect_conv.cu."""
+    bf16: the wgmma kernel of csrc/conv3x3_wgmma.cu; fp32: the stride-1
+    SIMT kernel of csrc/conv3x3_simt.cu."""
     if not x.is_cuda:
         return reflect_conv_plain(x, weight, bias)
-    return _kernel(reflect_conv3x3_taps, 'lama_reflect_conv3x3_taps',
-                   reflect_conv3x3_taps_supported, 1, x, weight, bias,
-                   bf16=conv3x3_wgmma.conv3x3_reflect_bf16)
+    return _kernel(reflect_conv3x3_taps, reflect_conv3x3_taps_supported, 1,
+                   x, weight, bias,
+                   bf16=conv3x3_wgmma.conv3x3_reflect_bf16,
+                   fp32=conv3x3_simt.conv3x3_reflect_fp32)
 
 
 def reflect_down_conv3x3(x, weight, bias=None):
@@ -164,8 +177,8 @@ def reflect_down_conv3x3(x, weight, bias=None):
     kernel of csrc/conv3x3_simt.cu."""
     if not x.is_cuda:
         return reflect_down_conv3x3_plain(x, weight, bias)
-    return _kernel(reflect_down_conv3x3, 'reflect_down_conv3x3',
-                   reflect_down_conv3x3_supported, 2, x, weight, bias,
+    return _kernel(reflect_down_conv3x3, reflect_down_conv3x3_supported, 2,
+                   x, weight, bias,
                    bf16=functools.partial(conv3x3_wgmma.conv3x3_reflect_bf16,
                                           stride=2),
                    fp32=functools.partial(conv3x3_simt.conv3x3_reflect_fp32,
@@ -173,11 +186,13 @@ def reflect_down_conv3x3(x, weight, bias=None):
 
 
 def reflect_out_conv7x7(x, weight, bias=None):
-    """7x7 stride-1 reflect conv with at most 8 output channels (the head)."""
+    """7x7 stride-1 reflect conv with at most 8 output channels (the head),
+    in either dtype the thin 7x7 kernel of csrc/reflect_conv.cu."""
     if not x.is_cuda:
         return reflect_conv_plain(x, weight, bias)
-    return _kernel(reflect_out_conv7x7, 'lama_reflect_out_conv7x7',
-                   reflect_out_conv7x7_supported, 1, x, weight, bias)
+    return _kernel(reflect_out_conv7x7, reflect_out_conv7x7_supported, 1,
+                   x, weight, bias,
+                   bf16=_out_conv7x7, fp32=_out_conv7x7)
 
 
 reflect_conv3x3_cols.launches = 0

@@ -11,13 +11,15 @@ so a time is the kernel alone: CUDA events around 20 back-to-back launches,
 after 3 warm-up launches, each variant twice in turns (a, b, ..., b, a), at
 big-lama's served shapes (batch 16: the four downsamples at stride 2, l2l,
 l2g, g2l, and big-lama-regular's 512 -> 512 block) and a few smaller ones;
-for `simt` the l2l, l2g and g2l rows are kernels 2 and 3's fp32 shapes,
-which their wrappers do not route to it. Each output is first held to the
-plain fp32 conv (bf16: max |d| < 5e-2; fp32: within rtol and atol 1e-4).
-Prints each variant's ptxas lines, then per shape the bound (bytes at 3.35
-TB/s or FLOP at 989 TFLOP/s bf16, 67 fp32, the larger) and each variant's
-ms and share of it. Needs a CUDA card and nvcc; imports nothing at module
-level beyond torch.
+for `simt` also kernels 2 and 3's train (b10 32^2) and refine (batch 1,
+125x95 and 63x48) shapes. Where conv3x3_simt.plan_splits splits a
+stride-1 shape's K on this card, each variant runs there twice, at the
+plan's split count and unsplit, in the same turns, printed as `split` and
+`nosplit`. Each output is first held to the plain fp32 conv (bf16: max |d|
+< 5e-2; fp32: within rtol and atol 1e-4). Prints each variant's ptxas
+lines, then per shape the bound (bytes at 3.35 TB/s or FLOP at 989
+TFLOP/s bf16, 67 fp32, the larger) and each variant's ms and share of it.
+Needs a CUDA card and nvcc; imports nothing at module level beyond torch.
 """
 import ctypes
 import os
@@ -89,15 +91,27 @@ SHAPES = {  # role, stride, batch, C, C_out, (H, W) of the input
         ('block_b16', 1, 16, 512, 512, (64, 64)),
         ('block_b4', 1, 4, 512, 512, (64, 64)),
         ('train_block', 1, 10, 512, 512, (32, 32)),
-        # kernels 2 and 3 in fp32 (not routed here), for the next redesign
+        # kernels 2 and 3 in fp32: served, trained (b10 32^2) and refined
+        # (batch 1 at the 1000x760 image's 125x95 and 63x48 bottlenecks)
         ('l2l_b16', 1, 16, 128, 128, (64, 64)),
         ('l2g_b16', 1, 16, 128, 384, (64, 64)),
         ('g2l_b16', 1, 16, 384, 128, (64, 64)),
+        ('train_l2l', 1, 10, 128, 128, (32, 32)),
+        ('train_g2l', 1, 10, 384, 128, (32, 32)),
+        ('refine_l2l', 1, 1, 128, 128, (125, 95)),
+        ('refine_g2l', 1, 1, 384, 128, (125, 95)),
+        ('refine_s1_l2l', 1, 1, 128, 128, (63, 48)),
+        ('refine_s1_l2g', 1, 1, 128, 384, (63, 48)),
+        ('refine_s1_g2l', 1, 1, 384, 128, (63, 48)),
     ],
 }
 KERNELS = {  # source: (wrapper module, dtype, peak FLOP/s, tolerance)
     'wgmma': (wg, torch.bfloat16, 989e12, (0.0, 5e-2)),
     'simt': (sm, torch.float32, 67e12, (1e-4, 1e-4)),
+}
+ARGTYPES = {  # the launchers' ctypes signatures
+    'wgmma': [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    'simt': sm.ARGTYPES,
 }
 
 
@@ -140,8 +154,7 @@ def build(source):
         for symbol in KERNELS[source][0].LAUNCHERS.values():
             fn = getattr(lib, symbol)
             fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                           + [ctypes.c_void_p])
+            fn.argtypes = ARGTYPES[source]
         libs[name] = (lib, text)
     return libs
 
@@ -169,37 +182,53 @@ def time_source(source):
         out_px = b * ho * wo
         bound = max(2 * out_px * co * c * 9 / peak,
                     (b * c * h * w + out_px * co) * size / 3.35e12) * 1e3
+        # (variant, splits): simt at the plan's split count, and unsplit
+        # beside it where the plan splits
+        splits = (sm.plan_splits(b, h, w, c, co, sm.sm_count(0))
+                  if source == 'simt' and s == 1 else 1)
+        runs = [(name, n) for n in dict.fromkeys((splits, 1))
+                for name in variants]
+        ws = sm.workspace(splits, b, ho, wo, co, 'cuda')
 
-        def call(name):
+        def label(run):
+            name, n = run
+            return (name if splits == 1 else
+                    f'{name} split (s={n})' if n > 1 else f'{name} nosplit')
+
+        def call(run):
+            name, n = run
+            args = ((b, h, w, c, co) if source == 'wgmma' else
+                    (None if n == 1 else ws.data_ptr(), b, h, w, c, co, n))
             err = getattr(libs[name][0], symbol)(
-                xk.data_ptr(), wks[name].data_ptr(), None, out.data_ptr(), b, h, w,
-                c, co, stream)
+                xk.data_ptr(), wks[name].data_ptr(), None, out.data_ptr(),
+                *args, stream)
             if err:
-                raise RuntimeError(f'{source} {name} {role}: CUDA error {err}')
+                raise RuntimeError(f'{source} {label(run)} {role}: CUDA '
+                                   f'error {err}')
 
-        times = {name: [] for name in variants}
-        for name in variants:
-            call(name)
+        times = {run: [] for run in runs}
+        for run in runs:
+            call(run)
             torch.cuda.synchronize()
             err = (out.float() - ref).abs()
             if not bool(torch.all(err <= atol + rtol * ref.abs())):
-                raise RuntimeError(f'{source} {name} {role}: max |d| '
+                raise RuntimeError(f'{source} {label(run)} {role}: max |d| '
                                    f'{float(err.max())}')
-        for name in variants + variants[::-1]:
+        for run in runs + runs[::-1]:
             for _ in range(3):
-                call(name)
+                call(run)
             a = torch.cuda.Event(enable_timing=True)
             z = torch.cuda.Event(enable_timing=True)
             a.record()
             for _ in range(20):
-                call(name)
+                call(run)
             z.record()
             torch.cuda.synchronize()
-            times[name].append(a.elapsed_time(z) / 20)
+            times[run].append(a.elapsed_time(z) / 20)
         print(f'{source} {role} bound {bound:.4f} ms: ' + ', '.join(
-            f'{name} {np.mean(t):.4f} ms ({bound / np.mean(t):.0%})'
-            for name, t in times.items()), flush=True)
-        del ref, xk, out, wks
+            f'{label(run)} {np.mean(t):.4f} ms ({bound / np.mean(t):.0%})'
+            for run, t in times.items()), flush=True)
+        del ref, xk, out, wks, ws
         torch.cuda.empty_cache()
 
 

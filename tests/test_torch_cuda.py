@@ -112,9 +112,10 @@ def test_conv3x3_wgmma_stride2_any_widths(device, b, c, co, h, w, bias):
 
 
 def test_bf16_3x3_wrappers_launch_the_wgmma_kernel(device, monkeypatch):
-    """bf16 cols and down go to conv3x3_wgmma.cu's launchers (stride 1 and
-    2); in fp32 cols goes to reflect_conv.cu's, down to conv3x3_simt.cu's
-    stride-2 launcher and the 3x3 halo conv to its stride-1 one."""
+    """bf16 cols, taps, down and the 3x3 halo conv go to conv3x3_wgmma.cu's
+    launchers (stride 1 and 2); in fp32 down goes to conv3x3_simt.cu's
+    stride-2 launcher and cols, taps and the 3x3 halo conv to its stride-1
+    one. No 3x3 call loads reflect_conv.cu."""
     from lama_tpu_torch.ops.kernels import _build
     from lama_tpu_torch.ops.kernels import conv3x3_simt as sm
     from lama_tpu_torch.ops.kernels import conv3x3_wgmma as wg
@@ -127,21 +128,23 @@ def test_bf16_3x3_wrappers_launch_the_wgmma_kernel(device, monkeypatch):
     monkeypatch.setattr(_build, 'load',
                         lambda name: calls.append(name) or load(name))
     g = torch.Generator().manual_seed(9)
-    for fn, c, symbol, fp32 in (
-            (rc.reflect_conv3x3_cols, 128, 'lama_conv3x3_wgmma',
-             'reflect_conv'),
-            (rc.reflect_down_conv3x3, 64, 'lama_conv3x3_s2_wgmma',
+    for fn, c, co, symbol, fp32 in (
+            (rc.reflect_conv3x3_cols, 128, 128, 'lama_conv3x3_wgmma',
+             'lama_conv3x3_simt'),
+            (rc.reflect_conv3x3_taps, 384, 128, 'lama_conv3x3_wgmma',
+             'lama_conv3x3_simt'),
+            (rc.reflect_down_conv3x3, 64, 128, 'lama_conv3x3_s2_wgmma',
              'lama_conv3x3_s2_simt'),
-            (hc.halo_conv3x3_reflect, 512, 'lama_conv3x3_wgmma',
+            (hc.halo_conv3x3_reflect, 512, 128, 'lama_conv3x3_wgmma',
              'lama_conv3x3_simt')):
         x = torch.rand(1, c, 16, 16, generator=g).to(device)
-        wt = torch.rand(128, c, 3, 3, generator=g).to(device)
+        wt = torch.rand(co, c, 3, 3, generator=g).to(device)
         calls.clear()
         fn(x.to(torch.bfloat16), wt)
         assert calls[0] == symbol and 'reflect_conv' not in calls, calls
         calls.clear()
         fn(x, wt)
-        assert calls[0] == fp32, calls
+        assert calls[0] == fp32 and 'reflect_conv' not in calls, calls
         assert 'halo_conv' not in calls and 'conv3x3_wgmma' not in calls, calls
     torch.cuda.synchronize()
 
@@ -202,6 +205,112 @@ def test_conv3x3_simt_any_widths(device, stride, b, c, co, h, w, bias):
     torch.cuda.synchronize()
     assert out.dtype == torch.float32 and out.shape == ref.shape
     _close(out, ref, torch.float32)
+
+
+def test_3x3_call_without_a_route_raises(device):
+    """reflect_conv.py's launch has no fallback: a dtype with no route
+    raises instead of reaching reflect_conv.cu."""
+    from lama_tpu_torch.ops.kernels import conv3x3_wgmma as wg
+    x = torch.rand(1, 128, 16, 16, device=device)
+    wt = torch.rand(128, 128, 3, 3, device=device)
+    with pytest.raises(TypeError, match='no kernel for torch.float32'):
+        rc._launch('reflect_conv3x3_cols', rc.reflect_conv3x3_cols_supported,
+                   x, wt, None, bf16=wg.conv3x3_reflect_bf16)
+
+
+# kernels 2 and 3 where conv3x3_simt.py's plan splits K on an H100 (132
+# SMs): the train bottleneck (b10 32^2) and the refiner's 125x95 and 63x48
+# (batch 1), and one l2g shape of 1.8 waves (unsplit)
+SPLIT_SHAPES = [
+    ('reflect_conv3x3_cols', 10, 128, 128, 32, 32, 3),
+    ('reflect_conv3x3_taps', 10, 384, 128, 32, 32, 3),
+    ('reflect_conv3x3_taps', 10, 128, 384, 32, 32, 1),
+    ('reflect_conv3x3_cols', 1, 128, 128, 125, 95, 4),
+    ('reflect_conv3x3_taps', 1, 384, 128, 125, 95, 4),
+    ('reflect_conv3x3_cols', 1, 128, 128, 63, 48, 4),
+    ('reflect_conv3x3_taps', 1, 128, 384, 63, 48, 3),
+    ('reflect_conv3x3_taps', 1, 384, 128, 63, 48, 4),
+]
+
+
+def _split_case(name, b, c, co, h, w, bias=False):
+    g = torch.Generator().manual_seed(c + co + h)
+    x = torch.rand(b, c, h, w, generator=g).cuda()
+    wt = ((torch.rand(co, c, 3, 3, generator=g) * 2 - 1)
+          * (c * 9) ** -0.5).cuda()
+    bb = torch.rand(co, generator=g).cuda() if bias else None
+    return x, wt, bb
+
+
+@pytest.mark.parametrize('name,b,c,co,h,w,splits', SPLIT_SHAPES)
+def test_fp32_cols_and_taps_at_the_split_shapes(device, name, b, c, co, h, w,
+                                                splits):
+    """fp32 cols and taps through their wrappers where the plan splits K
+    (with a bias), against the plain version at fp32 TOL."""
+    from lama_tpu_torch.ops.kernels import conv3x3_simt as sm
+    if sm.sm_count(device.index or 0) == 132:
+        assert sm.plan_splits(b, h, w, c, co, 132) == splits
+    x, wt, bb = _split_case(name, b, c, co, h, w, bias=True)
+    ref = rc.reflect_conv_plain(x, wt, bb)
+    fn = getattr(rc, name)
+    before = fn.launches
+    out = fn(x, wt, bb)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    _close(out, ref, torch.float32)
+
+
+@pytest.mark.parametrize('name,b,c,co,h,w,splits',
+                         [s for s in SPLIT_SHAPES if s[-1] > 1][::2])
+def test_split_conv_is_bit_equal_run_to_run(device, name, b, c, co, h, w,
+                                             splits):
+    """The split's reduction sums in a fixed order: two calls of a split
+    shape give the same bits."""
+    x, wt, _ = _split_case(name, b, c, co, h, w)
+    fn = getattr(rc, name)
+    first = fn(x, wt)
+    second = fn(x, wt)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize('b,c,co,h,w,splits,bias', [
+    (2, 10, 5, 9, 13, 2, True),        # C % 4: element copies, 1 chunk a split
+    (2, 40, 136, 19, 21, 3, True),     # 5 chunks in 1, 2, 2; two N tiles
+    (1, 130, 7, 17, 33, 4, False),     # C_out % 4: the reduction's element stores
+    (3, 64, 130, 10, 30, 2, True),     # C_out % 4 with a bias, three images
+    (1, 24, 40, 37, 29, 3, True),      # kernel 6's tiny_odd, split anyway
+])
+def test_conv3x3_simt_forced_splits(device, b, c, co, h, w, splits, bias):
+    """The stride-1 SIMT kernel at a split count given by the caller, any
+    widths: runs of chunks that do not divide evenly, down to one chunk a
+    split; channel and pixel tails; the reduction's element stores."""
+    from lama_tpu_torch.ops.kernels import conv3x3_simt as sm
+    g = torch.Generator().manual_seed(c + co + splits)
+    x = torch.rand(b, c, h, w, generator=g).to(device)
+    wt = ((torch.rand(co, c, 3, 3, generator=g) * 2 - 1)
+          * (c * 9) ** -0.5).to(device)
+    bb = torch.rand(co, generator=g).to(device) if bias else None
+    ref = rc.reflect_conv_plain(x, wt, bb)
+    out = sm.conv3x3_reflect_fp32(
+        x.contiguous(memory_format=torch.channels_last), wt, bb, 1, splits)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    _close(out, ref, torch.float32)
+
+
+def test_conv3x3_simt_refuses_a_bad_split(device):
+    """The launcher refuses more splits than chunks or than MAX_SPLITS, and
+    any split at stride 2."""
+    from lama_tpu_torch.ops.kernels import conv3x3_simt as sm
+    for c, stride, splits in ((16, 1, 3), (64, 1, sm.MAX_SPLITS + 1),
+                              (64, 2, 2)):   # 2 chunks; 8 chunks
+        x = torch.rand(1, c, 16, 16, device=device).contiguous(
+            memory_format=torch.channels_last)
+        wt = torch.rand(128, c, 3, 3, device=device)
+        with pytest.raises(RuntimeError, match='CUDA launch failed'):
+            sm.conv3x3_reflect_fp32(x, wt, None, stride, splits)
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])

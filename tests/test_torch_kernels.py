@@ -44,6 +44,10 @@ CONV_CASES = [
     ('reflect_out_conv7x7', (2, 16, 16, 64), 3, True),
     ('reflect_down_conv3x3', (2, 16, 16, 64), 128, False),
     ('reflect_down_conv3x3', (2, 16, 16, 64), 128, True),
+    # fp32 cols and taps at an odd bottleneck (partial tiles on both sides)
+    ('reflect_conv3x3_cols', (1, 13, 11, 128), 128, False),
+    ('reflect_conv3x3_taps', (1, 13, 11, 384), 128, False),
+    ('reflect_conv3x3_taps', (1, 13, 11, 128), 384, True),
 ]
 
 
@@ -503,16 +507,19 @@ def test_kernels_refuse_to_drop_gradients():
                                             x, w, None).requires_grad
 
 
-def _replay_conv3x3_simt(x, weight, stride=1):
+def _replay_conv3x3_simt(x, weight, stride=1, splits=1, bias=None):
     """numpy model of csrc/conv3x3_simt.cu at one shape and stride: per
-    tile, output-channel tile and input-channel chunk, the stage's
-    shared-memory image as the kernel's copies fill it (halo item i is
-    16-byte vector i % VPP of halo pixel i // VPP, at that pixel's pitch,
-    from the reflect-mapped source pixel, zero past C; then the stage's
-    run of packed weights), and per thread its 8 pixels x 8 channels read
-    off that image at the kernel's A and B offsets for each tap and
-    channel; the products summed in float64, scattered to the thread's
-    outputs and masked at the edges."""
+    tile, output-channel tile, split and input-channel chunk of that
+    split's run, the stage's shared-memory image as the kernel's copies
+    fill it (halo item i is 16-byte vector i % VPP of halo pixel i // VPP,
+    at that pixel's pitch, from the reflect-mapped source pixel, zero past
+    C; then the stage's run of packed weights), and per thread its 8
+    pixels x 8 channels read off that image at the kernel's A and B offsets
+    for each tap and channel; the products summed in float64, scattered to
+    the thread's outputs and masked at the edges: to the output (splits =
+    1) or to the split's plane of the workspace (splits > 1), whose planes
+    split_reduce_kernel's model then sums in order 0 .. splits - 1 before
+    the bias."""
     from lama_tpu_torch.ops.kernels import conv3x3_simt as sm
     b, h, w, c = x.shape
     co = weight.shape[0]
@@ -551,48 +558,118 @@ def _replay_conv3x3_simt(x, weight, stride=1):
     owned = {(r, cc, n) for t in range(sm.THREADS) for r, cc in
              zip(out_r[t], out_c[t]) for n in out_n[t]}
     assert len(owned) == sm.TILE_H * sm.TILE_W * sm.BLOCK_N == sm.THREADS * 64
-    out = np.zeros((b, ho, wo, n_tiles * sm.BLOCK_N))
+    # the workspace (splits, B, Ho, Wo, C_out padded to BLOCK_N); its one
+    # plane is the output itself when unsplit
+    ws = np.full((splits, b, ho, wo, n_tiles * sm.BLOCK_N), np.nan)
+    runs = [sm.split_chunks(i, splits, chunks) for i in range(splits)]
+    assert [k0 for k0, _ in runs[1:]] == [k1 for _, k1 in runs[:-1]]
+    assert runs[0][0] == 0 and runs[-1][1] == chunks
     for r0, c0 in sm.tile_origins(h, w, stride):
         rows, cols = sm.halo_source(r0, c0, h, w, stride)
         halo = xp[:, rows][:, :, cols].reshape(b, hh * hw, -1)
         for nt in range(n_tiles):
-            acc = np.zeros((b, sm.THREADS, 8, 8))
-            for k in range(chunks):
-                stage = np.zeros((b, nf))
-                stage[:, dst] = halo[:, pix[:, None], k * ck + src_c]
-                off = sm.weight_offset(nt, k, chunks, stride)
-                stage[:, hf:] = packed[off:off + nf - hf]
-                acc += np.einsum('bsjtc,stcn->bsjn', stage[:, a_idx],
-                                 stage[0][b_idx])
-            for t in range(sm.THREADS):
-                for j in range(8):
-                    r, cc = r0 + out_r[t, j], c0 + out_c[t, j]
-                    if r < ho and cc < wo:
-                        out[:, r, cc, nt * sm.BLOCK_N + out_n[t]] = acc[:, t, j]
-    return out[..., :co]
+            for i, (k0, k1) in enumerate(runs):
+                acc = np.zeros((b, sm.THREADS, 8, 8))
+                for k in range(k0, k1):
+                    stage = np.zeros((b, nf))
+                    stage[:, dst] = halo[:, pix[:, None], k * ck + src_c]
+                    off = sm.weight_offset(nt, k, chunks, stride)
+                    stage[:, hf:] = packed[off:off + nf - hf]
+                    acc += np.einsum('bsjtc,stcn->bsjn', stage[:, a_idx],
+                                     stage[0][b_idx])
+                for t in range(sm.THREADS):
+                    for j in range(8):
+                        r, cc = r0 + out_r[t, j], c0 + out_c[t, j]
+                        if r < ho and cc < wo:
+                            plane = ws[i]
+                            plane[:, r, cc, nt * sm.BLOCK_N + out_n[t]] = \
+                                acc[:, t, j]
+    out = ws[0]
+    for i in range(1, splits):   # split_reduce_kernel's order
+        out = out + ws[i]
+    out = out[..., :co]
+    return out if bias is None else out + bias
 
 
-@pytest.mark.parametrize('stride,b,c,co,h,w', [
-    (1, 2, 24, 40, 37, 29),      # kernel 6's tiny_odd: C % 16, C_out % 128
-    (1, 1, 3, 5, 9, 13),         # C % 4: element copies, partial tiles
-    (1, 1, 64, 136, 16, 16),     # four chunks, two N tiles
-    (1, 1, 1, 1, 2, 2),          # the smallest input a pad of 1 takes
-    (2, 1, 64, 128, 16, 34),     # down1-like: eight chunks, 8 x 17 outputs
-    (2, 1, 20, 130, 18, 10),     # C % 8, C_out % 128, partial tiles
-    (2, 2, 8, 24, 26, 12),
+def _simt_case(stride, b, c, co, h, w, sms=None, splits=1):
+    """A case of the test below; the unsplit ones keep their ids."""
+    ident = '-'.join(map(str, (stride, b, c, co, h, w)))
+    if sms is not None:
+        ident += f'-sms{sms}-s{splits}'
+    return pytest.param(stride, b, c, co, h, w, sms, splits, id=ident)
+
+
+@pytest.mark.parametrize('stride,b,c,co,h,w,sms,splits', [
+    _simt_case(1, 2, 24, 40, 37, 29),   # kernel 6's tiny_odd: C % 16, C_out % 128
+    _simt_case(1, 1, 3, 5, 9, 13),      # C % 4: element copies, partial tiles
+    _simt_case(1, 1, 64, 136, 16, 16),  # four chunks, two N tiles
+    _simt_case(1, 1, 1, 1, 2, 2),       # the smallest input a pad of 1 takes
+    _simt_case(2, 1, 64, 128, 16, 34),  # down1-like: eight chunks, 8 x 17 outputs
+    _simt_case(2, 1, 20, 130, 18, 10),  # C % 8, C_out % 128, partial tiles
+    _simt_case(2, 2, 8, 24, 26, 12),
+    # K split over 2-4 blocks at a small SM count, odd 13 x 11 bottlenecks
+    # (two tiles): l2l-like 16 chunks in runs of 8 and of 5, 5, 6; l2g-like
+    # three N tiles in runs of 5, 5, 6; g2l-like 48 chunks in 4 runs; 25
+    # chunks in 6, 6, 6, 7 with two images, C_out % 4 and a bias
+    _simt_case(1, 1, 128, 128, 13, 11, sms=4, splits=2),
+    _simt_case(1, 1, 128, 128, 13, 11, sms=6, splits=3),
+    _simt_case(1, 1, 128, 384, 13, 11, sms=18, splits=3),
+    _simt_case(1, 1, 384, 128, 13, 11, sms=8, splits=4),
+    _simt_case(1, 2, 200, 130, 13, 11, sms=32, splits=4),
 ])
-def test_conv3x3_simt_plan_matches_plain(stride, b, c, co, h, w):
-    """The fp32 SIMT kernel's plan (kernels 6 and 4 in fp32), replayed on
-    the CPU from the wrapper's constants, plan and weight packing, equals
-    the plain reflect conv at both strides: channel tails, partial edge
-    tiles, several chunks and N tiles, and kernel 6's odd tiny shape."""
+def test_conv3x3_simt_plan_matches_plain(stride, b, c, co, h, w, sms, splits):
+    """The fp32 SIMT kernel's plan (kernels 2, 3, 4 and 6 in fp32), replayed
+    on the CPU from the wrapper's constants, plan and weight packing,
+    equals the plain reflect conv at both strides: channel tails, partial
+    edge tiles, several chunks and N tiles, kernel 6's odd tiny shape, and
+    the split over K that the plan chooses on a card of `sms` SMs (its
+    chunk runs, the workspace and the reduction in order, the bias after
+    it)."""
+    from lama_tpu_torch.ops.kernels import conv3x3_simt as sm
     rng = np.random.RandomState(c + co + h)
     x = rng.rand(b, h, w, c).astype(np.float32)
     weight = (rng.randn(co, c, 3, 3) * (9 * c) ** -0.5).astype(np.float32)
+    # a bias where C_out % 4 != 0 (the element stores)
+    bias = rng.randn(co).astype(np.float32) if co == 130 else None
+    if sms is not None:
+        assert sm.plan_splits(b, h, w, c, co, sms) == splits
     ref = trc.reflect_conv_plain(_nchw(x), torch.from_numpy(weight),
+                                 None if bias is None else torch.from_numpy(bias),
                                  stride=stride)
-    np.testing.assert_allclose(_replay_conv3x3_simt(x, weight, stride),
-                               _nhwc(ref), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        _replay_conv3x3_simt(x, weight, stride, splits, bias), _nhwc(ref),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('b,h,w,c,co,blocks,splits', [
+    (10, 32, 32, 128, 128, 80, 3),     # train l2l
+    (10, 32, 32, 384, 128, 80, 3),     # train g2l
+    (10, 32, 32, 128, 384, 240, 1),    # train l2g: 1.8 waves
+    (1, 125, 95, 128, 128, 96, 4),     # refine 125x95 l2l
+    (1, 125, 95, 384, 128, 96, 4),     # refine 125x95 g2l
+    (1, 125, 95, 128, 384, 288, 1),    # refine 125x95 l2g: 2.2 waves
+    (1, 63, 48, 128, 128, 24, 4),      # refine 63x48 l2l: the cap
+    (1, 63, 48, 384, 128, 24, 4),      # refine 63x48 g2l: the cap
+    (1, 63, 48, 128, 384, 72, 3),      # refine 63x48 l2g
+    (1, 128, 128, 128, 128, 128, 1),   # refine 1024^2 l2l: 97% of a wave
+    (4, 64, 64, 128, 128, 128, 1),     # b4 l2l
+    (4, 64, 64, 384, 128, 128, 1),     # b4 g2l
+    (4, 64, 64, 128, 384, 384, 1),     # b4 l2g
+    (16, 64, 64, 128, 128, 512, 1),    # b16 l2l
+    (16, 64, 64, 384, 128, 512, 1),    # b16 g2l
+    (4, 64, 64, 512, 512, 512, 1),     # kernel 6 block b4
+    (10, 32, 32, 512, 512, 320, 1),    # kernel 6 train block
+    (2, 37, 29, 24, 40, 20, 1),        # kernel 6 tiny_odd: 3 chunks
+])
+def test_conv3x3_simt_split_plan_on_an_h100(b, h, w, c, co, blocks, splits):
+    """The split over K at the port's stride-1 shapes on an H100 (132 SMs):
+    only grids under one wave split, into at most MAX_SPLITS runs of at
+    least STAGES chunks, the fewest within 5% of the least time in waves."""
+    from lama_tpu_torch.ops.kernels import conv3x3_simt as sm
+    assert sm.grid_blocks(b, h, w, co) == blocks
+    assert sm.plan_splits(b, h, w, c, co, 132) == splits
+    chunks = -(-c // sm.CHUNK_C)
+    assert splits == 1 or (blocks < 132 and chunks >= sm.STAGES * splits)
 
 
 @pytest.mark.parametrize('stride,c,co', [(1, 24, 40), (1, 512, 512),
@@ -655,6 +732,47 @@ def test_conv3x3_simt_source_matches_its_plan():
                     assert len(groups) == len(set(a)) == 4
 
 
+def test_conv3x3_simt_split_source_matches_its_plan():
+    """The stride-1 launcher and split_reduce_kernel agree with the Python
+    plan: the split cap, each split's run of chunks, the workspace's
+    padded channel pitch and split-major layout, the launchers' ctypes
+    signature (both take splits and the workspace), and the reduction's
+    order (split 0 first, the bias after the sum)."""
+    import ctypes
+    import re
+
+    from lama_tpu_torch.ops.kernels import conv3x3_simt as sm
+    with open(_build.source_path('conv3x3_simt')) as f:
+        src = f.read()
+    assert int(re.search(r'\bMAX_SPLITS = (\d+)', src).group(1)) == sm.MAX_SPLITS
+    # split i's chunks are [i * chunks / s, (i + 1) * chunks / s)
+    assert 'k0 = SPLIT ? split * chunks / splits : 0' in src
+    assert 'nk = SPLIT ? (split + 1) * chunks / splits - k0 : chunks' in src
+    for i, s in [(0, 1), (0, 3), (2, 3), (3, 4)]:
+        assert sm.split_chunks(i, s, 16) == (i * 16 // s, (i + 1) * 16 // s)
+    # the workspace: (splits, B, Ho, Wo, n_tiles * BLOCK_N)
+    assert 'const int cop = gridDim.y * BLOCK_N;' in src
+    assert 'split * plane + (size_t(b) * Ho + r) * Wo + c) * cop' in src
+    assert 'n_tiles * BLOCK_N, splits, vec_out' in src
+    # the reduction: split 0, then 1 .. splits - 1 in order, then the bias
+    body = src[src.index('split_reduce_kernel('):]
+    body = body[:body.index('\n}\n')]
+    assert body.index('float4 s = *reinterpret_cast<const float4*>(src);') \
+        < body.index('for (int k = 1; k < splits; ++k)') \
+        < body.index('v[e] += bias[n + e]')
+    assert 'atomic' not in re.sub(r'//.*', '', src)   # code, not comments
+    # both launchers' parameters, in the wrapper's ctypes order
+    for symbol in sm.LAUNCHERS.values():
+        sig = src[src.index(f'extern "C" int {symbol}('):]
+        params = sig[sig.index('(') + 1:sig.index(')')].split(',')
+        kinds = [ctypes.c_void_p if '*' in p else ctypes.c_int for p in params]
+        assert kinds == sm.ARGTYPES, symbol
+        assert [p.split()[-1].lstrip('*') for p in params][4:11] == [
+            'ws', 'B', 'H', 'W', 'C', 'Co', 'splits'], symbol
+    assert 'splits > MAX_SPLITS || splits > chunks' in src
+    assert '(splits > 1 && (S != 1 ||' in src
+
+
 def test_conv3x3_simt_source_is_full_fp32():
     """The fp32 kernel does its arithmetic in fp32 FMA: its code (the
     comments aside) holds no TF32 conversion and no tensor-core
@@ -668,18 +786,21 @@ def test_conv3x3_simt_source_is_full_fp32():
 
 
 def test_fp32_kernels_4_and_6_left_the_old_sources():
-    """Kernel 4's stride-2 fp32 instance and kernel 6's fp32 kernel are
-    gone from reflect_conv.cu and halo_conv.cu (conv3x3_simt.cu has them);
-    cols and taps keep reflect_conv.cu's stride-1 kernel, kernel 7 its
+    """The fp32 3x3 kernels (kernels 2, 3 and 4 of reflect_conv.cu, kernel
+    6 of halo_conv.cu) are gone from the old sources (conv3x3_simt.cu has
+    them): reflect_conv.cu holds the 7x7 head only, halo_conv.cu kernel 7's
     two kernels."""
     with open(_build.source_path('reflect_conv')) as f:
         rc_src = f.read()
     with open(_build.source_path('halo_conv')) as f:
         hc_src = f.read()
-    for gone in ('lama_reflect_down_conv3x3', 'Halo3<S>', 'int S'):
+    for gone in ('lama_reflect_down_conv3x3', 'Halo3<S>', 'int S',
+                 'lama_reflect_conv3x3_cols', 'lama_reflect_conv3x3_taps',
+                 'conv3x3_kernel', 'launch_conv3', 'Conv3Cfg',
+                 'conv3_smem_bytes', 'C3_'):
         assert gone not in rc_src, gone
-    for kept in ('lama_reflect_conv3x3_cols', 'lama_reflect_conv3x3_taps',
-                 'launch_conv3<float, 128>', 'launch_conv3<float, 0>'):
+    assert rc_src.count('extern "C"') == 1
+    for kept in ('lama_reflect_out_conv7x7', 'conv7_thin_kernel'):
         assert kept in rc_src, kept
     for gone in ('halo_conv3x3_kernel', 'launch_k6', 'K6_',
                  'lama_halo_conv3x3_reflect'):
