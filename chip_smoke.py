@@ -19,7 +19,8 @@ version):
      halo conv (kernel 6) at big-lama-regular's block convs (512 -> 512 at
      b4 64^2 and b10 32^2) and a tiny odd shape, and kernels 6, 3, 2 and
      4 at the served batch 16 (64^2: 512 -> 512, 128 -> 384, 384 -> 128,
-     128 -> 128; the four downsamples, 512^2 to 128^2); fp32
+     128 -> 128; the four downsamples, 512^2 to 128^2), and the
+     FourierUnit (kernel 1) at the served batch 16 too; fp32
      (TF32 off; each fp32 3x3 stride-1 row prints the K split its grid
      ran with) and bf16, against its plain PyTorch version on the same
      inputs, with the median time of each wrapper call and plain version
@@ -31,7 +32,9 @@ version):
      layout the generator gives every reflect conv) beside the wrapper's
      time on that copy, and its bound (the least time for its bytes or its FLOP
      on an H100); then, in fp32, each kernel's gradients through its
-     autograd wrapper against plain autograd;
+     autograd wrapper against plain autograd; then the device ms of each
+     of the FourierUnit's five GEMM stages in one unit at batch 16 (CUDA
+     events around each launch), fp32 and bf16;
   4. serve: big-lama (ngf 64, 18 blocks, random weights from a seed) served
      by `python -m lama_tpu_torch.predict` (run in this process, as `-m`
      runs it) on synthetic PNGs: bf16 and fp32, wire fp32 and uint8. Checks
@@ -271,6 +274,7 @@ def kernel_cases(gen):
         ('reflect_conv3x3_taps', 'g2l', conv_case(384, 128, 64, 3, False)),
         ('reflect_out_conv7x7', 'head', conv_case(64, 3, 512, 7, True)),
         ('fused_fourier_unit', 'fu', fu_case(BATCH, 64, 64)),
+        ('fused_fourier_unit', 'fu_b16', fu_case(16, 64, 64)),
         ('reflect_down_conv3x3', 'down1', conv_case(64, 128, 512, 3, False)),
         ('reflect_down_conv3x3', 'down2', conv_case(128, 256, 256, 3, False)),
         # the third downsample's two convs, on one input
@@ -387,13 +391,23 @@ def case_stride(name, role):
     return 2 if 'down' in name or role.endswith('s2') else 1
 
 
+def fu_flop(b, c, h, w, co):
+    """FLOP of one FourierUnit, the TPU kernel's cost estimate
+    (lama_tpu/ops/pallas/fourier_unit.py:160-164): the real W-DFT (2 Wf
+    rows), the complex H-DFT, the 1x1 conv over 2C -> 2C', the H-iDFT and
+    the inverse real W-DFT."""
+    wf = w // 2 + 1
+    return 2 * b * (2 * h * w * wf * c + 4 * h * wf * h * c
+                    + h * wf * 4 * c * co + 4 * wf * h * h * co
+                    + 2 * wf * h * w * co)
+
+
 def bound(name, role, args, dtype):
     """(least ms for the work on an H100, 'bytes' or 'operations'): each
     input read once, each output written once, over HBM_BPS; the FLOP the
     kernel does over the peak of its arithmetic (bf16 tensor cores for the
     bf16 convs; fp32 FMA for the fp32 convs and for the FourierUnit, which
     computes in fp32 for either input)."""
-    from lama_tpu_torch.ops.kernels import fourier_unit as fu
     x = args[0]
     b, c, h, w = x.shape
     xsize = 2 if dtype == 'bf16' else 4
@@ -401,8 +415,7 @@ def bound(name, role, args, dtype):
         co = args[1].shape[0] // 2
         nbytes = b * c * h * w * xsize + b * co * h * w * 4 + sum(
             a.numel() * 4 for a in args[1:])
-        flop = sum(2 * st['M'] * st['N'] * st['K'] * st['batches']
-                   for st in fu._stage_plan(b, h, w, c, co))
+        flop = fu_flop(b, c, h, w, co)
         peak = FP32_FLOPS
     else:
         wt, bias = args[1], args[2]
@@ -548,6 +561,57 @@ def kernel_gradients(gen, rows):
             if row['name'] == name and row['role'] == role \
                     and row['dtype'] == 'fp32':
                 row['grad_max_rel_err'] = worst
+
+
+def fourier_unit_stages(gen, rows, b=16, iters=10):
+    """Device ms of each of the five GEMM stages of one FourierUnit at the
+    served batch (b, 192, 64, 64), fp32 and bf16 input: CUDA events around
+    each launch (fourier_unit._gemm), the median over `iters` units after
+    one warm-up; kept on the fu_b16 rows as `stage_ms`."""
+    import torch
+    from lama_tpu_torch.ops.kernels import fourier_unit as fu
+    x = torch.rand(b, 192, 64, 64, generator=gen).cuda()
+    params = [(torch.rand(384, 384, 1, 1, generator=gen) * 2 - 1) * 0.05,
+              1 + 0.2 * torch.rand(384, generator=gen),
+              0.1 * torch.rand(384, generator=gen),
+              0.1 * torch.rand(384, generator=gen),
+              1 + 0.3 * torch.rand(384, generator=gen)]
+    params = [p.cuda() for p in params]
+    events, launch = [], fu._gemm
+
+    def timed(stage, *args):
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        launch(stage, *args)
+        e.record()
+        events.append((stage, a, e))
+
+    fu._gemm = timed
+    try:
+        for dtype, tdt in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
+            xt = x.to(tdt)
+            with torch.no_grad():
+                fu.fused_fourier_unit(xt, *params)
+                torch.cuda.synchronize()
+                events.clear()
+                for _ in range(iters):
+                    fu.fused_fourier_unit(xt, *params)
+                torch.cuda.synchronize()
+            per = {}
+            for stage, a, e in events:
+                per.setdefault(stage, []).append(a.elapsed_time(e))
+            ms = {k: float(np.median(v)) for k, v in per.items()}
+            check(list(ms) == list(fu.STAGE_NAMES),
+                  f'fourier_unit stages {list(ms)}')
+            log(f'fourier unit stages b{b} {dtype} (device ms, CUDA events): '
+                + ', '.join(f'{k} {v:.4f}' for k, v in ms.items())
+                + f'; sum {sum(ms.values()):.4f}')
+            for row in rows:
+                if row['role'] == 'fu_b16' and row['dtype'] == dtype:
+                    row['stage_ms'] = ms
+    finally:
+        fu._gemm = launch
 
 
 def big_lama_kwargs(name='big-lama'):
@@ -1482,6 +1546,7 @@ def main():
     gen = torch.Generator().manual_seed(0)
     rows = kernels_vs_plain(gen)
     kernel_gradients(gen, rows)
+    fourier_unit_stages(gen, rows)
     gen_kwargs = big_lama_kwargs()
     gen_kwargs.pop('kind')
     from lama_tpu_torch.models import make_generator

@@ -8,13 +8,19 @@ the reference's interleaved [re_0, im_0, re_1, ...] channels permuted to
 planar [re_* | im_*], once per module.
 
 The kernel (lama_tpu_torch/csrc/fourier_unit.cu) runs the unit as five
-launches of one strided GEMM: real DFT along W, complex DFT along H, the
-folded 1x1 conv + bias + ReLU, inverse DFT along H, inverse real DFT along W.
-The DFTs are matmuls with twiddle tables, as in lama_tpu/ops/spectral.py; no
-cuFFT or cuBLAS. `_stage_plan` holds every stage's shapes and strides, so
-the CPU tests can replay the plan in numpy. Input NCHW float32 or bfloat16
-(any memory format); output float32, channels-last, as the TPU kernel's
-output is float32; the arithmetic is fp32 for either input type.
+launches of one register-tiled, cp.async-staged fp32 SIMT GEMM, templated
+on its tile height: real DFT along W, complex DFT along H, the folded 1x1
+conv + bias + ReLU, inverse DFT along H, inverse real DFT along W, each
+with the batch merged into N. The DFTs are matmuls with twiddle tables, as
+in lama_tpu/ops/spectral.py; no cuFFT or cuBLAS. The spectrum keeps its
+frequencies in `freq_order`, so the W-DFT computes only the W rows that a
+real input can make non-zero (and writes the others as zeros) and the
+W-iDFT reads only those. `_stage_plan` holds every stage's shapes, index
+splits, tile and 16-byte-run flags, so the CPU tests can replay the plan in
+numpy; `_launch_plan` keeps its ctypes structures per shape. Input NCHW
+float32 or bfloat16 (any memory format); output float32, channels-last, as
+the TPU kernel's output is float32; the arithmetic is fp32 for either input
+type.
 
 When a gradient is needed, the kernel runs inside
 `_autograd.differentiable`: its backward is the VJP of
@@ -25,6 +31,7 @@ no backward kernel to port.
 """
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -35,7 +42,6 @@ from . import _build
 from ._autograd import differentiable
 
 MAX_SIDE = 256   # the TPU kernel's envelope, max(H, W) <= 256
-_NO_SPLIT = 1 << 30
 
 
 def fourier_unit_plain(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var,
@@ -105,24 +111,115 @@ def _irdft_mats(n):
             -np.sin(ang) * wgt / np.sqrt(n))                        # (nf, n)
 
 
-def twiddles_np(h: int, w: int):
-    """The four twiddle tables of the stage plan, float32:
-    tw_f (2Wf, W): rows [Re | Im] of the real W-DFT;
-    tw_h (2H, 2H): the complex H-DFT as a real block matrix over [re | im];
-    tw_ih (2H, 2H): its inverse; tw_iw (W, 2Wf): the inverse real W-DFT."""
+# The kernel's constants (csrc/fourier_unit.cu; tests/test_torch_kernels.py
+# checks that the source agrees)
+THREADS = 256               # 8 x 8 outputs a thread: BM * BN = 16384
+OUTPUTS_PER_THREAD = 64
+BK = 16                     # k per pipeline stage
+A_PAD = 4                   # an A stage's row pitch is BK + A_PAD floats
+STAGES = 3                  # pipeline ring depth
+SMEM_LIMIT = 232448         # shared memory of one block, bytes
+MAX_ZERO_ROWS = 2           # Im at f = 0 and at f = W / 2
+NO_SPLIT = 1 << 30
+TILE_ROWS = (128, 64, 32, 16)   # the kernel's instances (BM)
+MAX_SPLITS = 4              # K splits of a stage (split_count)
+SPLIT_SLACK = 0.05          # take the fewest splits within 5% of the best
+SPLIT_GAIN = 0.9            # and split only for 10% less time than unsplit
+STAGE_NAMES = ('W-DFT', 'H-DFT', 'conv', 'H-iDFT', 'W-iDFT')
+
+
+def tile_cols(bm: int) -> int:
+    """BN of the instance with BM = bm."""
+    return THREADS * OUTPUTS_PER_THREAD // bm
+
+
+def tile_rows(m: int, n: int) -> int:
+    """The block tile height (BM) of a stage with m x n outputs: the
+    instance whose whole tiles cover the least area, ties to the larger
+    BM."""
+    def area(bm):
+        bn = tile_cols(bm)
+        return -(-m // bm) * bm * (-(-n // bn) * bn)
+    return min(TILE_ROWS, key=lambda bm: (area(bm), -bm))
+
+
+def split_count(tiles: int, chunks: int, sms: int) -> int:
+    """K splits of a stage of `tiles` tiles and `chunks` BK-deep stages on a
+    card of `sms` SMs (one block a SM): each of the s runs of a tile is a
+    work unit, and a stage takes about ceil(tiles s / sms) / s tile times
+    (the rounds of the busiest SM), plus the reduction of s partial
+    planes. The fewest splits within SPLIT_SLACK of the best, up to
+    MAX_SPLITS and one stage a run; none unless that cuts the rounds by
+    SPLIT_GAIN: a grid under one wave (batch 1 at 63 x 48) or one that
+    leaves most of a last round idle (at 125 x 95, and 128^2 and batch
+    4)."""
+    def rounds(s):
+        return -(-tiles * s // sms) / s
+    cands = range(1, min(MAX_SPLITS, chunks) + 1)
+    best = min(rounds(s) for s in cands)
+    s = next(s for s in cands if rounds(s) <= best * (1 + SPLIT_SLACK))
+    return s if rounds(s) <= SPLIT_GAIN * rounds(1) else 1
+
+
+def stage_bytes(bm: int, elem_bytes: int = 4) -> int:
+    """Shared memory of one pipeline stage: A (bm x BK at pitch BK + A_PAD,
+    fp32) and B (BK x BN, elem_bytes each)."""
+    return bm * (BK + A_PAD) * 4 + BK * tile_cols(bm) * elem_bytes
+
+
+def thread_tile(tid: int, bm: int):
+    """(row group g, column group t) of thread `tid`: its rows are g, g +
+    RG, .., g + 7 RG (RG = bm / 8), its columns 4t .. 4t + 3 and BN / 2 +
+    4t .. + 3. A warp is WR x WC groups (4 x 8; 2 x 16 at RG
+    = 2), a quarter-warp one row group's 8 consecutive column groups."""
+    rg = bm // 8
+    wr = min(rg, 4)
+    wc = 32 // wr
+    warps_n = THREADS // rg // wc
+    lane, warp = tid % 32, tid // 32
+    return ((warp // warps_n) * wr + lane // wc,
+            (warp % warps_n) * wc + lane % wc)
+
+
+def pitch(n: int) -> int:
+    """A table row of n floats padded to whole 16-byte runs."""
+    return -(-n // 4) * 4
+
+
+def freq_order(w: int) -> np.ndarray:
+    """The frequencies of a spectrum row in memory order: 1 .. Wf - 1, then
+    0. The rows that are zero for a real input (Im at f = 0, and Im at f =
+    W / 2 for even W) are then the last 2 Wf - W of a (b, h) panel
+    [re | im]."""
+    return np.r_[np.arange(1, w // 2 + 1), 0]
+
+
+def twiddles_np(h: int, w: int, pad: bool = True):
+    """The four twiddle tables of the stage plan, float32, each row padded
+    with zeros to `pitch` floats (pad=False: unpadded):
+    tw_f (W, W): row r is spectrum row r (of [re | im] in `freq_order`) of
+    the real W-DFT, the first W rows only; tw_h (2H, 2H): the complex H-DFT
+    as a real block matrix over [re | im]; tw_ih (2H, 2H): its inverse;
+    tw_iw (W, W): the inverse real W-DFT, reading spectrum rows 0 .. W - 1
+    (the rows past them weigh sin(0) and sin(pi n))."""
     wr, wi = _rdft_mats(w)
     hr, hi = _dft_mats(h)
     ihr, ihi = hr.T, -hi.T
     cr, ci = _irdft_mats(w)
-    tabs = dict(
-        tw_f=np.concatenate([wr.T, wi.T], axis=0),
-        tw_h=np.block([[hr.T, -hi.T], [hi.T, hr.T]]),
-        tw_ih=np.block([[ihr.T, -ihi.T], [ihi.T, ihr.T]]),
-        tw_iw=np.concatenate([cr.T, ci.T], axis=1))
-    # C order: the kernel reads them through raw pointers, and concatenating
-    # transposes would otherwise hand back column-major arrays
-    return {k: np.ascontiguousarray(v, dtype=np.float32)
-            for k, v in tabs.items()}
+    order = freq_order(w)
+    fwd = np.concatenate([wr.T[order], wi.T[order]], axis=0)       # (2Wf, W)
+    inv = np.concatenate([cr.T[:, order], ci.T[:, order]], axis=1)  # (W, 2Wf)
+    tabs = dict(tw_f=fwd[:w], tw_h=np.block([[hr.T, -hi.T], [hi.T, hr.T]]),
+                tw_ih=np.block([[ihr.T, -ihi.T], [ihi.T, ihr.T]]),
+                tw_iw=inv[:, :w])
+    out = {}
+    for k, v in tabs.items():
+        # C order: the kernel reads them through raw pointers
+        t = np.zeros((v.shape[0], pitch(v.shape[1]) if pad else v.shape[1]),
+                     np.float32)
+        t[:, :v.shape[1]] = v
+        out[k] = t
+    return out
 
 
 @functools.lru_cache(maxsize=8)
@@ -131,42 +228,78 @@ def _twiddles(h: int, w: int, device: torch.device):
             for k, v in twiddles_np(h, w).items()}
 
 
-def _stage_plan(b: int, h: int, w: int, c: int, co: int):
-    """The five GEMM launches of one unit. Each operand is
-    (buffer, batch_stride, row_split, col_split), a split (d, hi, lo)
-    mapping index i to (i // d) * hi + (i % d) * lo. Buffers: x (B,H,W,C)
-    NHWC; s0/s1 spectra laid out (B, H, [re|im], Wf, C); wp (2C, 2C'), the
-    planar weight; out (B, H, W, C') NHWC."""
+def vec_ok(row, col, n_rows: int, n_cols: int, ev: int) -> bool:
+    """Whether an operand (row and column splits, n_rows x n_cols, ev
+    elements a 16-byte run) takes the kernel's 16-byte copies: every run of
+    ev columns from a multiple of ev lies in one split segment of
+    consecutive elements and starts at a multiple of ev elements (16-byte
+    aligned on an aligned buffer)."""
+    d, hi, lo = col
+    if lo != 1 or (d < n_cols and (d % ev or hi % ev)):
+        return False
+    d, hi, lo = row
+    return lo % ev == 0 and (d >= n_rows or hi % ev == 0)
+
+
+def _stage_plan(b: int, h: int, w: int, c: int, co: int,
+                x_bf16: bool = False, pad: bool = True, sms: int = 0):
+    """The five GEMM launches of one unit, the batch merged into N. Each
+    operand is (buffer, row_split, col_split, vec), a split (d, hi, lo)
+    mapping index i to (i // d) * hi + (i % d) * lo, and `vec` whether it
+    takes 16-byte runs (`vec_ok`). Buffers: x (B,H,W,C) NHWC; s0/s1
+    spectra laid out (B, H, [re|im], Wf, C), frequencies in `freq_order`;
+    wp (2C, 2C'), the planar weight; out (B, H, W, C') NHWC; the twiddle
+    tables at row pitch `pitch` (pad=False: unpadded). `bm` is the stage's
+    tile height (`tile_rows`), `splits` its K splits on a card of `sms`
+    SMs (`split_count`; 1 for sms = 0); the W-DFT writes its last
+    `zero_rows` spectrum rows as zeros."""
     wf = w // 2 + 1
 
     def rows(stride):
-        return (_NO_SPLIT, 0, stride)
+        return (NO_SPLIT, 0, stride)
+
+    def tab(n):
+        return rows(pitch(n) if pad else n)
 
     col = rows(1)
     spec_in = (h, wf * c, 2 * wf * c)      # row (ri, y) of a (B,) spectrum
     spec_out = (h, wf * co, 2 * wf * co)
-    return [
-        dict(M=2 * wf, N=c, K=w, batches=b * h,                # W-DFT
-             a=('tw_f', 0, rows(w), col), b=('x', w * c, rows(c), col),
-             out=('s0', 2 * wf * c, rows(c), col)),
-        dict(M=2 * h, N=wf * c, K=2 * h, batches=b,            # H-DFT
-             a=('tw_h', 0, rows(2 * h), col),
-             b=('s0', h * 2 * wf * c, spec_in, col),
-             out=('s1', h * 2 * wf * c, spec_in, col)),
-        dict(M=b * h * wf, N=2 * co, K=2 * c, batches=1,       # 1x1 conv
-             a=('s1', 0, (wf, 2 * wf * c, c), (c, wf * c, 1)),
-             b=('wp', 0, rows(2 * co), col),
-             out=('s0', 0, (wf, 2 * wf * co, co), (co, wf * co, 1)),
+    stages = [
+        dict(M=w, N=b * h * c, K=w,                             # W-DFT
+             a=('tw_f', tab(w), col), b=('x', rows(c), (c, w * c, 1)),
+             out=('s0', rows(c), (c, 2 * wf * c, 1)), zero_rows=2 * wf - w),
+        dict(M=2 * h, N=b * wf * c, K=2 * h,                    # H-DFT
+             a=('tw_h', tab(2 * h), col),
+             b=('s0', spec_in, (wf * c, h * 2 * wf * c, 1)),
+             out=('s1', spec_in, (wf * c, h * 2 * wf * c, 1))),
+        dict(M=b * h * wf, N=2 * co, K=2 * c,                   # 1x1 conv
+             a=('s1', (wf, 2 * wf * c, c), (c, wf * c, 1)),
+             b=('wp', rows(2 * co), col),
+             out=('s0', (wf, 2 * wf * co, co), (co, wf * co, 1)),
              bias=True, relu=True),
-        dict(M=2 * h, N=wf * co, K=2 * h, batches=b,           # H-iDFT
-             a=('tw_ih', 0, rows(2 * h), col),
-             b=('s0', h * 2 * wf * co, spec_out, col),
-             out=('s1', h * 2 * wf * co, spec_out, col)),
-        dict(M=w, N=co, K=2 * wf, batches=b * h,               # W-iDFT
-             a=('tw_iw', 0, rows(2 * wf), col),
-             b=('s1', 2 * wf * co, rows(co), col),
-             out=('out', w * co, rows(co), col)),
+        dict(M=2 * h, N=b * wf * co, K=2 * h,                   # H-iDFT
+             a=('tw_ih', tab(2 * h), col),
+             b=('s0', spec_out, (wf * co, h * 2 * wf * co, 1)),
+             out=('s1', spec_out, (wf * co, h * 2 * wf * co, 1))),
+        dict(M=w, N=b * h * co, K=w,                            # W-iDFT
+             a=('tw_iw', tab(w), col),
+             b=('s1', rows(co), (co, 2 * wf * co, 1)),
+             out=('out', rows(co), (co, w * co, 1))),
     ]
+    for name, st in zip(STAGE_NAMES, stages):
+        m, n, k = st['M'], st['N'], st['K']
+        ev_b = 8 if x_bf16 and st['b'][0] == 'x' else 4
+        bm = tile_rows(m, n)
+        tiles = -(-m // bm) * -(-n // tile_cols(bm))
+        st.update(stage=name, bm=bm,
+                  splits=split_count(tiles, -(-k // BK), sms) if sms else 1,
+                  a=st['a'] + (vec_ok(*st['a'][1:], m, k, 4),),
+                  b=st['b'] + (vec_ok(*st['b'][1:], k, n, ev_b),),
+                  out=st['out'] + (vec_ok(*st['out'][1:], m, n, 4),))
+        st.setdefault('bias', False)
+        st.setdefault('relu', False)
+        st.setdefault('zero_rows', 0)
+    return stages
 
 
 class _Split(ctypes.Structure):
@@ -176,14 +309,79 @@ class _Split(ctypes.Structure):
 
 class _View(ctypes.Structure):
     _fields_ = [('p', ctypes.c_void_p), ('bf16', ctypes.c_int),
-                ('batch_stride', ctypes.c_longlong),
-                ('row', _Split), ('col', _Split)]
+                ('vec', ctypes.c_int), ('row', _Split), ('col', _Split)]
 
 
 class _Out(ctypes.Structure):
-    _fields_ = [('p', ctypes.c_void_p), ('batch_stride', ctypes.c_longlong),
+    _fields_ = [('p', ctypes.c_void_p), ('vec', ctypes.c_int),
                 ('row', _Split), ('col', _Split), ('bias', ctypes.c_void_p),
-                ('relu', ctypes.c_int)]
+                ('relu', ctypes.c_int), ('zero_rows', ctypes.c_int)]
+
+
+# lama_fu_gemm(M, N, K, bm, splits, A*, B*, C*, ws, stream)
+ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
+
+
+def workspace_floats(st) -> int:
+    """fp32 partial sums of a split stage: splits x M x (N rounded up to
+    4); 0 unsplit."""
+    return 0 if st['splits'] == 1 else st['splits'] * st['M'] * pitch(st['N'])
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=1)
+def _gemm_fn():
+    fn = _build.load('fourier_unit').lama_fu_gemm
+    fn.restype = ctypes.c_int
+    fn.argtypes = ARGTYPES
+    return fn
+
+
+def _gemm(stage: str, *args):
+    """One stage's launch (lama_fu_gemm's arguments); raises on a CUDA
+    error."""
+    err = _gemm_fn()(*args)
+    if err != 0:
+        raise RuntimeError(f'fused_fourier_unit: CUDA launch of the {stage} '
+                           f'stage failed with error {err}')
+
+
+@functools.lru_cache(maxsize=16)
+def _launch_plan(b: int, h: int, w: int, c: int, co: int, x_bf16: bool,
+                 device: torch.device, sms: int):
+    """One shape's five launches on a card of `sms` SMs as ctypes
+    structures (the per-call buffers' pointers are filled in at each call),
+    its twiddle tables and the workspace its split stages need:
+    [(stage, (M, N, K, bm, splits), A, B, C, [(struct, buffer, vec)],
+    bias)], tables, workspace floats."""
+    tabs = _twiddles(h, w, device)
+    launches = []
+    plan = _stage_plan(b, h, w, c, co, x_bf16, sms=sms)
+    for st in plan:
+        structs = []
+
+        def view(spec, cls, **extra):
+            name, row, col, vec = spec
+            v = cls(None, vec=int(vec), row=_Split(*row), col=_Split(*col),
+                    **extra)
+            structs.append((v, name, vec))
+            return v
+
+        a = view(st['a'], _View, bf16=0)
+        bv = view(st['b'], _View, bf16=int(x_bf16 and st['b'][0] == 'x'))
+        out = view(st['out'], _Out, relu=int(st['relu']),
+                   zero_rows=st['zero_rows'])
+        launches.append((st['stage'], (st['M'], st['N'], st['K'], st['bm'],
+                                       st['splits']),
+                         a, bv, out, structs, st['bias']))
+    return launches, tabs, max(workspace_floats(st) for st in plan)
+
+
+_launch_lock = threading.Lock()   # the cached structures are filled per call
 
 
 def fused_fourier_unit(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var,
@@ -216,43 +414,36 @@ def _launch(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var, eps, planar):
         raise ValueError(f'fused_fourier_unit: {h}x{w} exceeds {MAX_SIDE}')
     wp, bp = planar if planar is not None else planar_params(
         conv_weight, bn_weight, bn_bias, bn_mean, bn_var, eps)
-    if wp.device != x.device or tuple(wp.shape) != (2 * c, 2 * co):
+    if (wp.device != x.device or tuple(wp.shape) != (2 * c, 2 * co)
+            or wp.dtype != torch.float32 or bp.dtype != torch.float32
+            or not (wp.is_contiguous() and bp.is_contiguous())):
         raise ValueError('fused_fourier_unit: planar params do not match x')
     wf = w // 2 + 1
-    bufs = dict(_twiddles(h, w, x.device))
-    bufs['x'] = x.contiguous(memory_format=torch.channels_last)
-    bufs['s0'] = torch.empty(b * h * 2 * wf * max(c, co), dtype=torch.float32,
-                             device=x.device)
-    bufs['s1'] = torch.empty_like(bufs['s0'])
-    bufs['wp'] = wp
-    bufs['out'] = torch.empty((b, co, h, w), dtype=torch.float32,
-                              device=x.device,
-                              memory_format=torch.channels_last)
-    fn = _build.load('fourier_unit').lama_fu_gemm
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
-
-    def view(spec):
-        name, sb, row, col = spec
-        t = bufs[name]
-        return _View(t.data_ptr(), int(t.dtype == torch.bfloat16), sb,
-                     _Split(*row), _Split(*col))
-
-    with torch.cuda.device(x.device):
+    x = x.contiguous(memory_format=torch.channels_last)
+    s0 = torch.empty(b * h * 2 * wf * max(c, co), dtype=torch.float32,
+                     device=x.device)
+    s1 = torch.empty_like(s0)
+    out = torch.empty((b, co, h, w), dtype=torch.float32, device=x.device,
+                      memory_format=torch.channels_last)
+    launches, tabs, ws_floats = _launch_plan(
+        b, h, w, c, co, x.dtype == torch.bfloat16, x.device,
+        _sm_count(x.device))
+    ws = (torch.empty(ws_floats, dtype=torch.float32, device=x.device)
+          if ws_floats else None)
+    ptrs = {k: t.data_ptr() for k, t in tabs.items()}
+    ptrs.update(x=x.data_ptr(), s0=s0.data_ptr(), s1=s1.data_ptr(),
+                wp=wp.data_ptr(), out=out.data_ptr())
+    with torch.cuda.device(x.device), _launch_lock:
         stream = torch.cuda.current_stream().cuda_stream
-        for st in _stage_plan(b, h, w, c, co):
-            name, sb, row, col = st['out']
-            out = _Out(bufs[name].data_ptr(), sb, _Split(*row), _Split(*col),
-                       bp.data_ptr() if st.get('bias') else None,
-                       int(st.get('relu', False)))
-            a, bv = view(st['a']), view(st['b'])
-            err = fn(st['M'], st['N'], st['K'], st['batches'],
-                     ctypes.addressof(a), ctypes.addressof(bv),
-                     ctypes.addressof(out), stream)
-            if err != 0:
-                raise RuntimeError(f'fused_fourier_unit: CUDA launch failed '
-                                   f'with error {err}')
-    return bufs['out']
+        for stage, dims, a, bv, o, structs, bias in launches:
+            for struct, name, vec in structs:
+                struct.p = ptrs[name]
+                struct.vec = int(vec and ptrs[name] % 16 == 0)
+            o.bias = bp.data_ptr() if bias else None
+            _gemm(stage, *dims, ctypes.addressof(a), ctypes.addressof(bv),
+                  ctypes.addressof(o), None if ws is None else ws.data_ptr(),
+                  stream)
+    return out
 
 
 fused_fourier_unit.launches = 0

@@ -375,6 +375,17 @@ def test_halo_conv3x3_kernel(device, dtype, b, c, co, h, w, bias):
     _close(out, ref, dtype)
 
 
+def _fourier_unit_case(device, b, c, co, h, w):
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand(b, c, h, w, generator=g).to(device)
+    args = [((torch.rand(2 * co, 2 * c, 1, 1, generator=g) * 2 - 1) * 0.1),
+            1 + 0.2 * torch.rand(2 * co, generator=g),
+            0.1 * torch.rand(2 * co, generator=g),
+            0.1 * torch.rand(2 * co, generator=g),
+            1 + 0.3 * torch.rand(2 * co, generator=g)]
+    return x, [a.to(device) for a in args]
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('b,c,co,h,w', [(2, 192, 192, 16, 16),
                                         (1, 8, 4, 12, 10),
@@ -383,16 +394,16 @@ def test_halo_conv3x3_kernel(device, dtype, b, c, co, h, w, bias):
                                         (1, 192, 192, 125, 95),
                                         (1, 8, 4, 63, 48), (2, 16, 16, 13, 11),
                                         # the 1024^2 refine scale's, 128x128
-                                        (1, 16, 16, 128, 128)])
+                                        (1, 16, 16, 128, 128),
+                                        # the served batch
+                                        (16, 192, 192, 64, 64),
+                                        # C % 4 != 0: 4-byte copies (fp32)
+                                        # and element loads (bf16)
+                                        (2, 6, 10, 13, 11),
+                                        # C % 8 != 0: bf16's element loads
+                                        (1, 12, 20, 20, 18)])
 def test_fourier_unit_kernel(device, dtype, b, c, co, h, w):
-    g = torch.Generator().manual_seed(1)
-    x = torch.rand(b, c, h, w, generator=g).to(device)
-    args = [((torch.rand(2 * co, 2 * c, 1, 1, generator=g) * 2 - 1) * 0.1),
-            1 + 0.2 * torch.rand(2 * co, generator=g),
-            0.1 * torch.rand(2 * co, generator=g),
-            0.1 * torch.rand(2 * co, generator=g),
-            1 + 0.3 * torch.rand(2 * co, generator=g)]
-    args = [a.to(device) for a in args]
+    x, args = _fourier_unit_case(device, b, c, co, h, w)
     ref = fu.fourier_unit_plain(x, *args)
     before = fu.fused_fourier_unit.launches
     out = fu.fused_fourier_unit(x.to(dtype), *args)
@@ -400,6 +411,17 @@ def test_fourier_unit_kernel(device, dtype, b, c, co, h, w):
     assert fu.fused_fourier_unit.launches == before + 1
     assert out.dtype == torch.float32 and out.shape == ref.shape
     _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_fourier_unit_is_bit_equal_run_to_run(device, dtype):
+    """No atomics and a fixed summation order: two calls on the same
+    inputs give the same bits."""
+    x, args = _fourier_unit_case(device, 4, 192, 192, 64, 64)
+    first = fu.fused_fourier_unit(x.to(dtype), *args)
+    second = fu.fused_fourier_unit(x.to(dtype), *args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize('h,w', [(128, 128), (256, 256), (127, 128),

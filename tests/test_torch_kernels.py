@@ -258,53 +258,339 @@ def test_planar_params_match_jax():
     assert tfu.planar_perm(6).tolist() == jfu._planar_perm(6).tolist()
 
 
+def _index(split, i):
+    d, hi, lo = split
+    return (i // d) * hi + (i % d) * lo
+
+
 def _replay_plan(plan, bufs):
-    """numpy model of csrc/fourier_unit.cu::strided_gemm_kernel."""
-    def index(split, i):
-        d, hi, lo = split
-        return (i // d) * hi + (i % d) * lo
-
+    """numpy model of csrc/fourier_unit.cu::fu_gemm_kernel over a stage
+    plan: each stage's M x N outputs in whole BM x BN tiles and its K in
+    whole BK chunks, the operands gathered through their splits with zeros
+    past M, N and K (as the copies' source sizes fill them), the sums in
+    float64, the epilogue (bias, ReLU), the stores masked at the edges,
+    then the W-DFT's zero rows, stored by the first row of tiles. Every
+    element read lies in its buffer, and every store address is written
+    once per stage."""
     for st in plan:
-        m, n, k = np.arange(st['M']), np.arange(st['N']), np.arange(st['K'])
-        outs = []
-        for b in range(st['batches']):
-            def take(spec, rows, cols):
-                name, sb, row, col = spec
-                idx = (b * sb + index(row, rows)[:, None]
-                       + index(col, cols)[None, :])
-                return bufs[name].reshape(-1)[idx].astype(np.float64)
-            acc = take(st['a'], m, k) @ take(st['b'], k, n)
-            if st.get('bias'):
-                acc = acc + bufs['bp'][None, :]
-            if st.get('relu'):
-                acc = np.maximum(acc, 0.0)
-            outs.append(acc)
-        name, sb, row, col = st['out']
+        m, n, k, bm = st['M'], st['N'], st['K'], st['bm']
+        bn = tfu.tile_cols(bm)
+        mp, np_, kp = (-(-m // bm) * bm, -(-n // bn) * bn,
+                       -(-k // tfu.BK) * tfu.BK)
+
+        def take(spec, n_rows, n_cols, rows_p, cols_p):
+            name, row, col, _ = spec
+            flat = bufs[name].reshape(-1)
+            r, c = np.arange(rows_p), np.arange(cols_p)
+            idx = _index(row, r)[:, None] + _index(col, c)[None, :]
+            live = (r < n_rows)[:, None] & (c < n_cols)[None, :]
+            assert 0 <= idx[live].min() and idx[live].max() < flat.size
+            return np.where(live, flat[np.where(live, idx, 0)],
+                            0).astype(np.float64)
+
+        a, bm_ = take(st['a'], m, k, mp, kp), take(st['b'], k, n, kp, np_)
+        # split i sums the stages [i chunks / s, (i + 1) chunks / s); the
+        # partial sums are added in the split order
+        chunks, s = kp // tfu.BK, st['splits']
+        acc = 0.0
+        for i in range(s):
+            ks = slice(i * chunks // s * tfu.BK, (i + 1) * chunks // s * tfu.BK)
+            assert ks.start < ks.stop
+            acc = acc + a[:, ks] @ bm_[ks]
+        if st['bias']:
+            acc[:, :n] += bufs['bp'][None, :]
+        if st['relu']:
+            acc = np.maximum(acc, 0.0)
+        z = st['zero_rows']
+        assert z <= min(bm // 8, tfu.MAX_ZERO_ROWS)   # a row group each
+        name, row, col, _ = st['out']
         flat = bufs[name].reshape(-1)
-        for b, acc in enumerate(outs):
-            idx = b * sb + index(row, m)[:, None] + index(col, n)[None, :]
-            flat[idx] = acc
+        idx = (_index(row, np.arange(m + z))[:, None]
+               + _index(col, np.arange(n))[None, :])
+        assert np.unique(idx).size == idx.size and idx.max() < flat.size
+        flat[idx] = np.concatenate([acc[:m, :n], np.zeros((z, n))])
 
 
-@pytest.mark.parametrize('b,h,w,c,co', [(2, 8, 8, 3, 3), (1, 6, 10, 4, 2),
-                                        (1, 7, 5, 3, 2), (2, 9, 6, 2, 3)])
-def test_fourier_unit_stage_plan_matches_plain(b, h, w, c, co):
-    rng = np.random.RandomState(2)
+def _runs_ok(row, col, n_rows, n_cols, ev):
+    """Whether every run of ev columns from a multiple of ev holds
+    consecutive addresses (one split segment) and starts at a multiple of
+    ev elements, on every row: what an operand's 16-byte copies need."""
+    offs = _index(col, np.arange(n_cols))
+    starts = np.arange(0, n_cols, ev)
+    for e in range(1, ev):
+        s = starts[starts + e < n_cols]
+        if not np.array_equal(offs[s + e], offs[s] + e):
+            return False
+    return not ((offs[starts] % ev).any()
+                or (_index(row, np.arange(n_rows)) % ev).any())
+
+
+def _operands(st, x_bf16):
+    """(key, spec, rows, columns, elements a 16-byte run) of a stage."""
+    for key, n_rows, n_cols in (('a', st['M'], st['K']),
+                                ('b', st['K'], st['N']),
+                                ('out', st['M'] + st['zero_rows'], st['N'])):
+        yield (key, st[key], n_rows, n_cols,
+               8 if x_bf16 and st[key][0] == 'x' else 4)
+
+
+def _replay_unit(b, h, w, c, co, x_bf16=False, pad=True, seed=2, sms=0):
+    """The plan replayed on numpy inputs made from `seed`; the spectra and
+    the output start as NaN, so a read of an element no stage wrote shows.
+    Returns (replayed output NHWC, plain output NHWC)."""
+    rng = np.random.RandomState(seed)
     x = rng.rand(b, h, w, c).astype(np.float32)
     p = _fu_params(rng, c, co)
     wp, bp = tfu.planar_params(*_torch_fu_args(p))
     wf = w // 2 + 1
     scratch = b * h * 2 * wf * max(c, co)
-    tables = tfu.twiddles_np(h, w)
+    tables = tfu.twiddles_np(h, w, pad)
     # the kernel reads raw row-major memory, as the replay's reshape(-1) does
     assert all(t.flags.c_contiguous for t in tables.values())
     bufs = dict(tables, x=x, wp=wp.numpy(), bp=bp.numpy(),
-                s0=np.zeros(scratch, np.float32),
-                s1=np.zeros(scratch, np.float32),
-                out=np.zeros((b, h, w, co), np.float32))
-    _replay_plan(tfu._stage_plan(b, h, w, c, co), bufs)
+                s0=np.full(scratch, np.nan, np.float32),
+                s1=np.full(scratch, np.nan, np.float32),
+                out=np.full((b, h, w, co), np.nan, np.float32))
+    _replay_plan(tfu._stage_plan(b, h, w, c, co, x_bf16, pad, sms), bufs)
     ref = tfu.fourier_unit_plain(_nchw(x), *_torch_fu_args(p))
-    np.testing.assert_allclose(bufs['out'], _nhwc(ref), rtol=RTOL, atol=ATOL)
+    return bufs['out'], _nhwc(ref)
+
+
+@pytest.mark.parametrize('b,h,w,c,co,x_bf16', [
+    (2, 8, 8, 3, 3, False), (1, 6, 10, 4, 2, False), (1, 7, 5, 3, 2, False),
+    (2, 9, 6, 2, 3, False),
+    # odd H and W, C % 4 == 0 (16-byte runs) with an odd C'
+    (2, 11, 13, 8, 5, False), (1, 13, 7, 16, 16, True),
+    # C % 4 != 0 on both sides; bf16 x with C % 8 != 0
+    (1, 6, 9, 6, 10, False), (2, 5, 12, 12, 4, True),
+    # W whose 2 Wf and W are not multiples of the tile (M = W = 20 on
+    # BM = 32 tiles, K = 130 in 9 chunks of 16), several tiles per stage
+    (1, 4, 20, 8, 8, False), (1, 3, 130, 2, 2, False),
+    (2, 24, 30, 16, 16, True)])
+def test_fourier_unit_stage_plan_matches_plain(b, h, w, c, co, x_bf16):
+    out, ref = _replay_unit(b, h, w, c, co, x_bf16)
+    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
+    # on a 3-SM card these grids split K
+    out, ref = _replay_unit(b, h, w, c, co, x_bf16, sms=3)
+    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
+    # an operand takes 16-byte copies only where its runs allow them
+    for st in tfu._stage_plan(b, h, w, c, co, x_bf16):
+        for key, (_, row, col, vec), n_rows, n_cols, ev in _operands(
+                st, x_bf16):
+            assert not vec or _runs_ok(row, col, n_rows, n_cols, ev), key
+
+
+@pytest.mark.parametrize('b,h,w,c,co', [(1, 7, 5, 3, 2), (2, 9, 6, 4, 4),
+                                        (1, 5, 11, 8, 8), (1, 6, 95, 4, 4)])
+def test_fourier_unit_padded_tables_replay_equal_to_unpadded(b, h, w, c, co):
+    """The tables' row pitch padded to 4 floats changes only addresses:
+    the replay reads the same values and gives the same bits."""
+    padded, _ = _replay_unit(b, h, w, c, co, pad=True)
+    plain, _ = _replay_unit(b, h, w, c, co, pad=False)
+    assert np.array_equal(padded, plain)
+    for name, t in tfu.twiddles_np(h, w).items():
+        u = tfu.twiddles_np(h, w, pad=False)[name]
+        assert t.shape[1] == tfu.pitch(u.shape[1]) and t.shape[1] % 4 == 0
+        assert np.array_equal(t[:, :u.shape[1]], u)
+        assert not t[:, u.shape[1]:].any()
+
+
+@pytest.mark.parametrize('w', [1, 2, 5, 6, 48, 64, 95, 128])
+def test_fourier_unit_drops_only_spectrum_rows_that_are_zero(w):
+    """In `freq_order` the real W-DFT's rows past the first W are Im at f
+    = 0 and, for even W, at f = W / 2: zero (to float64 rounding) for any
+    input, as are the inverse's weights on them. The tables keep the first
+    W rows (tw_f) and columns (tw_iw) of the reordered DFTs."""
+    wf = w // 2 + 1
+    order = tfu.freq_order(w)
+    assert sorted(order) == list(range(wf))
+    assert order[-1] == 0 and (w % 2 or order[-2] == w // 2)
+    wr, wi = tfu._rdft_mats(w)
+    cr, ci = tfu._irdft_mats(w)
+    fwd = np.concatenate([wr.T[order], wi.T[order]])
+    inv = np.concatenate([cr.T[:, order], ci.T[:, order]], axis=1)
+    assert fwd.shape[0] - w == 2 * wf - w <= tfu.MAX_ZERO_ROWS
+    assert np.abs(fwd[w:]).max() < 1e-13 and np.abs(inv[:, w:]).max() < 1e-13
+    tables = tfu.twiddles_np(3, w, pad=False)
+    np.testing.assert_array_equal(tables['tw_f'], fwd[:w].astype(np.float32))
+    np.testing.assert_array_equal(tables['tw_iw'],
+                                  inv[:, :w].astype(np.float32))
+
+
+CHIP_FU_SHAPES = [(16, 192, 64, 64), (1, 192, 128, 128), (1, 192, 125, 95),
+                  (1, 192, 63, 48)]
+
+
+@pytest.mark.parametrize('x_bf16', [False, True])
+@pytest.mark.parametrize('b,c,h,w', CHIP_FU_SHAPES)
+def test_fourier_unit_plan_at_the_chip_shapes(b, c, h, w, x_bf16):
+    """At the served and refine shapes: five launches; every operand takes
+    16-byte runs (`vec`), each run of 4 fp32 (8 bf16) elements lying in
+    one split segment of consecutive addresses and starting 16-byte
+    aligned; the tables' rows at a pitch of whole runs; and each stage's
+    whole tiles and chunks do at most 10% more FMAs than its M N K."""
+    plan = tfu._stage_plan(b, h, w, c, c, x_bf16)
+    tables = tfu.twiddles_np(h, w)
+    assert [st['stage'] for st in plan] == list(tfu.STAGE_NAMES)
+    for st in plan:
+        m, n, k, bm = st['M'], st['N'], st['K'], st['bm']
+        for key, (name, row, col, vec), n_rows, n_cols, ev in _operands(
+                st, x_bf16):
+            assert vec and _runs_ok(row, col, n_rows, n_cols, ev), (
+                st['stage'], key)
+            if name in tables:
+                assert row[2] == tables[name].shape[1]
+                assert tables[name].shape[1] % 4 == 0
+                assert tables[name].shape[0] >= n_rows
+        bn = tfu.tile_cols(bm)
+        work = ((-(-m // bm) * bm) * (-(-n // bn) * bn)
+                * (-(-k // tfu.BK) * tfu.BK))
+        assert work <= 1.1 * m * n * k, (st['stage'], work / (m * n * k))
+
+
+@pytest.mark.parametrize('b,c,h,w,splits', [
+    (16, 192, 64, 64, 1),      # 768-792 tiles: whole rounds
+    (4, 192, 64, 64, 2),       # 192-198: a second round mostly idle
+    (1, 192, 128, 128, 2),
+    (1, 192, 125, 95, 4),      # 141-144: 4 splits, 5 rounds of quarters
+    (1, 192, 63, 48, 3)])      # 36-39: under one wave
+def test_fourier_unit_split_plan_on_an_h100(b, c, h, w, splits):
+    """The K splits at the served and refine shapes on 132 SMs, and the
+    rule: at most MAX_SPLITS and one stage a run, none where it does not
+    cut the rounds of tiles by SPLIT_GAIN."""
+    plan = tfu._stage_plan(b, h, w, c, c, sms=132)
+    assert [st['splits'] for st in plan] == [splits] * 5
+    for st in plan:
+        assert st['splits'] <= min(tfu.MAX_SPLITS, -(-st['K'] // tfu.BK))
+    assert tfu.split_count(131, 10, 132) == 1
+    assert tfu.split_count(44, 2, 132) == 2      # one stage a run at most
+    assert tfu.split_count(44, 10, 132) == 3
+    assert tfu.workspace_floats(plan[2]) == (
+        0 if splits == 1 else splits * plan[2]['M'] * plan[2]['N'])
+
+
+def test_fourier_unit_tile_rule():
+    """The tile height is the instance of least padded area, ties to the
+    larger: M = W = 64, 128, 95, 48 at the chip shapes take BM = 64, 128,
+    32, 16; a wide M takes 128."""
+    assert tfu.tile_rows(64, 16 * 64 * 192) == 64
+    assert tfu.tile_rows(128, 128 * 192) == 128
+    assert tfu.tile_rows(95, 125 * 192) == 32
+    assert tfu.tile_rows(48, 63 * 192) == 16
+    assert tfu.tile_rows(16 * 64 * 33, 384) == 128
+    for bm in tfu.TILE_ROWS:
+        assert bm * tfu.tile_cols(bm) == tfu.THREADS * tfu.OUTPUTS_PER_THREAD
+
+
+def test_fourier_unit_source_matches_its_plan():
+    """csrc/fourier_unit.cu's constants, instances, structures and launcher
+    signature are the wrapper's; every instance's ring of STAGES fits one block in
+    both B types; each quarter-warp reads one A row (a broadcast) and 8
+    consecutive 16-byte B vectors, and a warp's A rows fall on distinct
+    16-byte bank groups (the source's static_assert); the arithmetic is
+    fp32 FMA with no TF32 or tensor-core instruction."""
+    import ctypes
+    import re
+    with open(_build.source_path('fourier_unit')) as f:
+        src = f.read()
+
+    def const(name):
+        return int(re.search(rf'\b{name} = (\d+)', src).group(1))
+
+    for name in ('THREADS', 'BK', 'A_PAD', 'STAGES', 'SMEM_LIMIT',
+                 'MAX_ZERO_ROWS', 'MAX_SPLITS'):
+        assert const(name) == getattr(tfu, name), name
+    # split i of a tile sums the stages [i chunks / s, (i + 1) chunks / s);
+    # the reduction adds the partial planes in order, then the epilogue
+    assert 'c0 = SPLIT ? sp * chunks / splits : 0;' in src
+    assert 'c1 = SPLIT ? (sp + 1) * chunks / splits : chunks;' in src
+    body = src[src.index('split_reduce_kernel(int M'):]
+    body = body[:body.index('\n}\n')]
+    assert body.index('float4 s = *reinterpret_cast<const float4*>(src);') \
+        < body.index('for (int k = 1; k < splits; ++k)') \
+        < body.index('v[e] += C.bias[n + e]')
+    assert 'splits > MAX_SPLITS ||\n      splits > (K + BK - 1) / BK' in src
+    assert 'constexpr int NO_SPLIT = 1 << 30;' in src
+    assert tfu.NO_SPLIT == 1 << 30
+    assert 'BM * BN = 16384' in src and tfu.THREADS * 64 == 16384
+    cases = re.findall(r'case (\d+): return launch_bm<(\d+)>', src)
+    assert sorted(int(a) for a, b in cases) == sorted(tfu.TILE_ROWS)
+    assert all(a == b for a, b in cases)
+
+    def names(struct):
+        body = src[src.index(f'struct {struct} {{'):]
+        body = re.sub(r'//.*', '', body[:body.index('};')]).split('{', 1)[1]
+        out = []
+        for decl in body.split(';'):
+            if decl.strip():
+                out += [re.findall(r'\w+', v)[-1] for v in decl.split(',')]
+        return out
+
+    assert names('SplitIdx') == [f for f, _ in tfu._Split._fields_]
+    assert names('GemmView') == [f for f, _ in tfu._View._fields_]
+    assert names('GemmOut') == [f for f, _ in tfu._Out._fields_]
+    sig = src[src.index('extern "C" int lama_fu_gemm('):]
+    params = sig[sig.index('(') + 1:sig.index(')')].split(',')
+    kinds = [ctypes.c_void_p if '*' in p else ctypes.c_int for p in params]
+    assert kinds == tfu.ARGTYPES
+    assert [p.split()[-1].lstrip('*') for p in params] == [
+        'M', 'N', 'K', 'bm', 'splits', 'A', 'B', 'C', 'ws', 'stream']
+    for bm in tfu.TILE_ROWS:
+        for elem in (4, 2):
+            assert tfu.STAGES * tfu.stage_bytes(bm, elem) <= tfu.SMEM_LIMIT
+        a_pitch = tfu.BK + tfu.A_PAD
+        assert a_pitch % 4 == 0
+        tiles = [tfu.thread_tile(t, bm) for t in range(tfu.THREADS)]
+        assert sorted(tiles) == sorted((g, t) for g in range(bm // 8)
+                                       for t in range(tfu.THREADS * 8 // bm))
+        for warp in range(tfu.THREADS // 32):
+            lanes = tiles[32 * warp:32 * warp + 32]
+            for q in range(4):
+                quarter = lanes[8 * q:8 * q + 8]
+                assert len({g for g, _ in quarter}) == 1
+                tn = sorted(t for _, t in quarter)
+                assert tn == list(range(tn[0], tn[0] + 8))
+            rows = {g for g, _ in lanes}
+            assert len({(g * a_pitch // 4) % 8 for g in rows}) == len(rows)
+    assert 'const int tn = (warp % WARPS_N) * T::WC + lane % T::WC;' in src
+    assert 'const int tg = (warp / WARPS_N) * T::WR + lane / T::WC;' in src
+    code = re.sub(r'//.*', '', src).lower()
+    assert 'acc[j][0] += av * f.b0[q].x' in code
+    for gone in ('tf32', 'mma', 'wmma', 'nvcuda', 'cvt.rna', 'atomic'):
+        assert gone not in code, gone
+
+
+@pytest.mark.parametrize('b,c,h,w,co', [(b, c, h, w, c)
+                                        for b, c, h, w in CHIP_FU_SHAPES]
+                         + [(2, 8, 7, 5, 3)])
+def test_chip_smoke_fourier_unit_bound_is_the_pallas_cost_estimate(b, c, h, w,
+                                                                    co):
+    """chip_smoke.py's FourierUnit FLOP count (its bound) is the formula of
+    the TPU kernel's cost estimate, read from its source."""
+    import re
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    with open(os.path.join(repo, 'lama_tpu', 'ops', 'pallas',
+                           'fourier_unit.py')) as f:
+        expr = re.search(r'flops=(.*?),\s*bytes_accessed', f.read(),
+                         re.S).group(1)
+    want = eval(expr, {'b': b, 'h': h, 'w': w, 'wf': w // 2 + 1, 'c': c,
+                       'c_out': co})
+    assert chip_smoke.fu_flop(b, c, h, w, co) == want
+    args = [torch.empty(b, c, h, w, device='meta'),
+            torch.empty(2 * co, 2 * c, 1, 1, device='meta')] + [
+        torch.empty(2 * co, device='meta') for _ in range(5)]
+    ms, by = chip_smoke.bound('fused_fourier_unit', 'fu', args, 'fp32')
+    flop_ms = want / chip_smoke.FP32_FLOPS * 1e3
+    assert ms == pytest.approx(max(flop_ms, ms)) and ms >= flop_ms
+    if (b, c, h, w) == (16, 192, 64, 64):
+        assert want == pytest.approx(19.93e9, rel=1e-3)
+        assert by == 'operations' and ms == pytest.approx(0.2975, rel=1e-3)
 
 
 def _replay_conv3x3_wgmma(x, weight, stride=1):
