@@ -20,7 +20,8 @@ version):
      b4 64^2 and b10 32^2) and a tiny odd shape, and kernels 6, 3, 2 and
      4 at the served batch 16 (64^2: 512 -> 512, 128 -> 384, 384 -> 128,
      128 -> 128; the four downsamples, 512^2 to 128^2), and the
-     FourierUnit (kernel 1) at the served batch 16 too; fp32
+     FourierUnit (kernel 1) and the stem (kernel 7, 4 -> 64 at 512^2) at
+     the served batch 16 too; fp32
      (TF32 off; each fp32 3x3 stride-1 row prints the K split its grid
      ran with) and bf16, against its plain PyTorch version on the same
      inputs, with the median time of each wrapper call and plain version
@@ -139,8 +140,11 @@ REFINE_CONTROL_EPS = (1e-3, 1e-2, 1e-1)
 # kernels generator vs kernels='plain' fp32, at the TOL bounds
 REFINE_PASS_SIZES = ((1024, 1024), (1000, 760), (504, 384))
 N_ITERS = 15      # the refiner's default (configs/prediction/default.yaml)
+# kernel 7: the stem (7x7 stride 1, C <= 8; every stem row) runs
+# stem_conv.cu, its other shapes (the k3s1, k3s2 and k7s2 rows) halo_conv.cu
 SOURCES = {'fused_fourier_unit': 'lama_tpu_torch/csrc/fourier_unit.cu',
-           'halo_conv_reflect_tiled': 'lama_tpu_torch/csrc/halo_conv.cu'}
+           'halo_conv_reflect_tiled': 'lama_tpu_torch/csrc/stem_conv.cu'}
+TILED_OTHER_SOURCE = 'lama_tpu_torch/csrc/halo_conv.cu'
 SOURCES['reflect_out_conv7x7'] = 'lama_tpu_torch/csrc/reflect_conv.cu'
 # the fp32 paths of kernels 2, 3, 4 and 6: one register-tiled SIMT implicit
 # GEMM (kernel 4 its stride-2 form)
@@ -351,6 +355,8 @@ def kernel_cases(gen):
         ('reflect_down_conv3x3', 'down3_l2l_b16', l2l3_b16),
         ('reflect_down_conv3x3', 'down3_l2g_b16',
          conv_case(256, 384, 128, 3, False, x=l2l3_b16[0], b=16)),
+        # and its stem (big-lama-regular's has a bias too)
+        ('halo_conv_reflect_tiled', 'stem_b16', stem_case(512, 16)),
     ]
     src = 'lama_tpu/ops/pallas/'
 
@@ -430,6 +436,19 @@ def bound(name, role, args, dtype):
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
 
 
+def row_source(name, role, args, dtype):
+    """The CUDA source that a kernel row's call runs."""
+    if name == 'halo_conv_reflect_tiled':
+        from lama_tpu_torch.ops.kernels import halo_conv as hc
+        x, wt = args[0], args[1]
+        route = hc.tiled_route(x.shape[2], x.shape[3], x.shape[1],
+                               wt.shape[0], wt.shape[-1],
+                               case_stride(name, role))
+        return SOURCES[name] if route is not None else TILED_OTHER_SOURCE
+    return (BF16_SOURCES.get(name, SOURCES[name]) if dtype == 'bf16'
+            else SOURCES[name])
+
+
 def planned_splits(args):
     """The K split (conv3x3_simt.py's plan) of an fp32 3x3 stride-1 conv of
     args' shapes on this card: 1 for a grid of at least one wave."""
@@ -492,8 +511,7 @@ def kernels_vs_plain(gen):
                 l_ms = None if lib is None else median_ms(lambda: lib(kargs[0]))
                 l_cl_ms = None if lib is None else median_ms(lambda: lib(xcl))
             b_ms, b_by = bound(name, role, args, dtype)
-            source = (BF16_SOURCES.get(name, SOURCES[name]) if dtype == 'bf16'
-                      else SOURCES[name])
+            source = row_source(name, role, args, dtype)
             row = dict(name=name, role=role, route='cuda', source=source,
                        replaces=tpu, tpu_kernel=tpu,
                        shape=list(args[0].shape), dtype=dtype,
@@ -1046,26 +1064,52 @@ def refine_gradient_vs_plain(gens, size=512):
     return ours, floor, controls
 
 
-def device_profile(fn, label, top=10):
-    """One call of fn under torch.profiler: wall ms, device-kernel ms, idle
-    share, and the kernels with the most device time."""
+def device_profile(fn, label, top=10, tries=3):
+    """One call of fn under torch.profiler, after one call in the
+    profiler's warm-up step (a window's first kernels can go unrecorded:
+    without it a served forward's stem and first BN were missing): wall
+    ms, device-kernel ms, idle share, the kernels with the most device
+    time, then the port's own kernels (csrc/) below those. A trace with no
+    device event (seen in 1 of 8 profiled forwards) is taken again, up to
+    `tries` times, then reported as not measured."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for attempt in range(1, tries + 1):
+        traces = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: traces.append(p.key_averages())
+                     ) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            prof.step()
+        # the step's own range (ProfilerStep*) spans the whole call on the
+        # device
+        kernels = [e for e in (traces[0] if len(traces) == 1 else [])
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.key.startswith('ProfilerStep')]
+        if kernels:
+            break
+        log(f'{label} profiled: no device event in the trace (try {attempt} '
+            f'of {tries})')
+    if not kernels:
+        log(f'{label} profiled: wall {wall:.1f} ms, device kernels not '
+            'measured')
+        return
     dev = {e.key: e.self_device_time_total for e in kernels}
     counts = {e.key: e.count for e in kernels}
     busy = sum(dev.values()) / 1e3
     log(f'{label} profiled: wall {wall:.1f} ms, device kernels {busy:.1f} '
         f'ms, idle share {1 - busy / wall:.3f}')
-    for name, us in sorted(dev.items(), key=lambda kv: -kv[1])[:top]:
-        log(f'  {us / 1e3:8.2f} ms {counts[name]:5d}x {name[:100]}')
+    ranked = sorted(dev.items(), key=lambda kv: -kv[1])
+    for i, (name, us) in enumerate(ranked):
+        if i < top or (OWN_KERNEL_NS in name and 'at::' not in name):
+            log(f'  {us / 1e3:8.2f} ms {counts[name]:5d}x {name[:100]}')
 
 
 def wrapper_device_ms(fn, label):

@@ -4,7 +4,10 @@
 //
 // Kernel 7 only: the other kernel of lama_tpu/ops/pallas/halo_conv.py,
 // halo_conv3x3_reflect (halo_conv.py:53, kernel 6), is csrc/conv3x3_simt.cu
-// in fp32 and csrc/conv3x3_wgmma.cu in bf16.
+// in fp32 and csrc/conv3x3_wgmma.cu in bf16. Inside stem_conv.py's envelope
+// (7x7, stride 1, C <= 8, C_out a multiple of 16 up to 64: the generators'
+// stem) kernel 7 runs csrc/stem_conv.cu in both dtypes; this file takes
+// its other shapes.
 //
 // Replaces the TPU kernel lama_tpu/ops/pallas/halo_conv.py::
 // halo_conv_reflect_tiled (halo_conv.py:158): conv2d(reflect_pad(x, k // 2),

@@ -12,7 +12,9 @@ weight. halo_conv3x3_reflect is the 3x3 stride-1 conv of any channel counts
 (on the pix2pixHD GlobalGenerator's path: its ResnetBlocks' 512 -> 512
 convs); halo_conv_reflect_tiled takes k in {3, 7} and stride 1 or 2 (on the
 generators' paths: the 7x7 4 -> 64 stem). The kernels
-(halo_conv_reflect_tiled: lama_tpu_torch/csrc/halo_conv.cu;
+(halo_conv_reflect_tiled: inside stem_conv.py's envelope, which holds the
+7x7 stride-1 stem, the persistent stem conv of csrc/stem_conv.cu, see
+stem_conv.py; every other shape lama_tpu_torch/csrc/halo_conv.cu;
 halo_conv3x3_reflect: in bf16 the wgmma implicit GEMM of
 csrc/conv3x3_wgmma.cu, see conv3x3_wgmma.py, in fp32 the register-tiled
 SIMT implicit GEMM of csrc/conv3x3_simt.cu, see conv3x3_simt.py) stage
@@ -37,7 +39,7 @@ import functools
 
 import torch
 
-from . import _build, conv3x3_simt, conv3x3_wgmma
+from . import _build, conv3x3_simt, conv3x3_wgmma, stem_conv
 from ._autograd import differentiable
 from .reflect_conv import reflect_conv_plain
 
@@ -74,16 +76,24 @@ def halo_conv3x3_reflect_supported(h: int, w: int, c: int, c_out: int) -> bool:
     return c >= 1 and c_out >= 1 and h >= 2 and w >= 2
 
 
+def tiled_route(h: int, w: int, c: int, c_out: int, k: int, s: int):
+    """The launch that takes a halo_conv_reflect_tiled call of this shape,
+    in both dtypes: stem_conv.py's inside its envelope (the 7x7 stride-1
+    stem), else None (halo_conv.cu's)."""
+    return (stem_conv.stem_conv_reflect
+            if stem_conv.supported(h, w, c, c_out, k, s) else None)
+
+
 def _kernel6_supported(h, w, c, c_out, k, s):
     return k == 3 and s == 1 and halo_conv3x3_reflect_supported(h, w, c, c_out)
 
 
 def _launch(name, supported, extra, stride, x, weight, bias, bf16=None,
             fp32=None):
-    """Launch the route given for x's dtype (`bf16`: conv3x3_wgmma.py's
-    launch; `fp32`: conv3x3_simt.py's), or else `lama_<name>` of
-    halo_conv.cu: (x, w, bias, out, B, H, W, C, Co, *extra, dtype,
-    stream)."""
+    """Launch the route given for x's dtype (`bf16`: conv3x3_wgmma.py's or
+    stem_conv.py's launch; `fp32`: conv3x3_simt.py's or stem_conv.py's), or
+    else `lama_<name>` of halo_conv.cu: (x, w, bias, out, B, H, W, C, Co,
+    *extra, dtype, stream)."""
     b, c, h, w = x.shape
     c_out, k = weight.shape[0], weight.shape[-1]
     if x.dtype not in _DTYPES:
@@ -139,15 +149,19 @@ def halo_conv3x3_reflect(x, weight, bias=None):
 
 def halo_conv_reflect_tiled(x, weight, bias=None, stride=1):
     """k x k reflect-'same' conv with `stride` (k in {3, 7}, stride 1 or 2);
-    on the generators' path: the 7x7 4 -> 64 stem."""
+    on the generators' path: the 7x7 4 -> 64 stem, which runs
+    csrc/stem_conv.cu in both dtypes (`tiled_route`); every other shape
+    runs csrc/halo_conv.cu."""
     plain = functools.partial(reflect_conv_plain, stride=stride)
     if not x.is_cuda:
         return plain(x, weight, bias)
     k = weight.shape[-1]
+    route = tiled_route(x.shape[2], x.shape[3], x.shape[1], weight.shape[0],
+                        k, stride)
     out = differentiable(
         functools.partial(_launch, 'halo_conv_reflect_tiled',
                           halo_conv_reflect_tiled_supported, (k, stride),
-                          stride),
+                          stride, bf16=route, fp32=route),
         plain, x, weight, bias)
     halo_conv_reflect_tiled.launches += 1
     return out

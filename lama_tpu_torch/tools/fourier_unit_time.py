@@ -34,11 +34,51 @@ CHANNELS = 192
 TOL = {'fp32': 1e-4, 'bf16': 2e-2}
 
 
+def events_ms(fn, iters=10, warmup=3):
+    """Median ms of fn per call on the card: CUDA events around each of
+    `iters` calls after `warmup`."""
+    import numpy as np
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def device_ms(fn, calls=5):
+    """Device ms per call of fn in the port's own kernels (csrc/, in
+    anonymous namespaces) under torch.profiler; None when the trace shows
+    none of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    own = [e.self_device_time_total for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and '(anonymous namespace)::' in e.key and 'at::' not in e.key]
+    return sum(own) / calls / 1e3 if own else None
+
+
+def dev_text(ms):
+    return 'not measured' if ms is None else f'{ms:.4f} ms'
+
+
 def _worker(tree, shapes):
     sys.path.insert(0, os.path.abspath(tree))
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from lama_tpu_torch.ops.kernels import fourier_unit as fu
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -48,32 +88,6 @@ def _worker(tree, shapes):
     def u(*shape, scale=1.0, shift=0.0):
         return ((torch.rand(*shape, generator=gen) * 2 - 1) * scale
                 + shift).cuda()
-
-    def events_ms(fn, iters=10, warmup=3):
-        for _ in range(warmup):
-            fn()
-        times = []
-        for _ in range(iters):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b))
-        return float(np.median(times))
-
-    def device_ms(fn, calls=5):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        return sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and '(anonymous namespace)::' in e.key
-                   and 'at::' not in e.key) / calls / 1e3
 
     def stage_ms(fn, iters=10):
         if not hasattr(fu, '_gemm'):
@@ -141,42 +155,58 @@ def main(argv=None):
         _worker(args.worker, shapes)
         return 0
     trees = args.tree or ['.']
-    order = trees + trees[::-1] if len(trees) > 1 else trees
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
     results = {}
-    for tree in order:
-        # run as a script, so that the worker imports that tree's package
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               '--worker', os.path.abspath(tree),
-                               '--shapes', args.shapes],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
-            raise RuntimeError(f'fourier_unit_time: tree {tree} failed')
-        rows = json.loads(proc.stdout.strip().splitlines()[-1])
+    for tree, rows in in_turns(__file__, trees, ['--shapes', args.shapes]):
         for r in rows:
             stages = ('' if r['stages'] is None else ' stages ' + ', '.join(
                 f'{k} {v:.4f}' for k, v in r['stages'].items()))
             print(f'{tree} {r["role"]} {r["dtype"]} {r["shape"]}: max|d| '
                   f'{r["max_abs_err"]:.2e} (within tol: {r["within_tol"]}) '
-                  f'wrapper {r["ms"]:.4f} ms dev {r["dev_ms"]:.4f} ms{stages}',
-                  flush=True)
-            results.setdefault((r['role'], r['dtype']), {}).setdefault(
-                tree, []).append(r['dev_ms'])
+                  f'wrapper {r["ms"]:.4f} ms dev {dev_text(r["dev_ms"])}'
+                  f'{stages}', flush=True)
+            if r['dev_ms'] is not None:
+                results.setdefault((r['role'], r['dtype']), {}).setdefault(
+                    tree, []).append(r['dev_ms'])
         if not all(r['within_tol'] for r in rows):
             raise RuntimeError(f'fourier_unit_time: tree {tree} outside '
                                'tolerance')
-    if len(trees) > 1:
-        base = trees[0]
-        for (role, dtype), per in results.items():
-            mean = {t: sum(v) / len(v) for t, v in per.items()}
-            print(f'dev {role} {dtype}: ' + ', '.join(
-                f'{t} {m:.4f} ms ({mean[base] / m:.2f}x of {base})'
-                for t, m in mean.items()), flush=True)
+    print_ratios(trees, results)
     return 0
+
+
+def in_turns(script, trees, worker_args):
+    """Print the card's name and power limit, then run `script --worker
+    <tree> *worker_args` for each tree in the order a, b, .., b, a (one
+    tree: once), each in a fresh process that imports that tree's
+    lama_tpu_torch; yields (tree, the JSON rows its last line prints)."""
+    order = trees + trees[::-1] if len(trees) > 1 else trees
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    for tree in order:
+        # run as a script, so that the worker imports that tree's package
+        proc = subprocess.run([sys.executable, os.path.abspath(script),
+                               '--worker', os.path.abspath(tree),
+                               *worker_args], capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f'{script}: tree {tree} failed')
+        yield tree, json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def print_ratios(trees, results):
+    """With two trees or more: each (role, dtype)'s mean device ms per tree
+    and its ratio to the first tree's; results[(role, dtype)][tree] is the
+    list of that tree's readings."""
+    if len(trees) < 2:
+        return
+    base = trees[0]
+    for (role, dtype), per in results.items():
+        mean = {t: sum(v) / len(v) for t, v in per.items()}
+        print(f'dev {role} {dtype}: ' + ', '.join(
+            f'{t} {m:.4f} ms ({mean[base] / m:.2f}x of {base})'
+            for t, m in mean.items()), flush=True)
 
 
 if __name__ == '__main__':

@@ -1,7 +1,8 @@
 // A CPU stand-in for the CUDA subset that lama_tpu_torch/csrc/fourier_unit.cu
-// uses, so that g++ can build the kernel's source and run it on the host
-// (tests/test_torch_fourier_unit_emulated.py): each CUDA thread of a block
-// is a std::thread, __syncthreads a std::barrier, and a cp.async a copy
+// and the fp32 instances of csrc/stem_conv.cu use, so that g++ can build a
+// kernel's source and run it on the host (tests/test_torch_fourier_unit_
+// emulated.py, tests/test_torch_stem_conv_emulated.py): each CUDA thread of
+// a block is a std::thread, __syncthreads a std::barrier, and a cp.async a copy
 // deferred until the wait_group that retires its group, as on the card.
 // Blocks run one after another, each over shared memory filled with 0xff
 // bytes (NaN floats), so a read of anything not staged shows.
@@ -24,7 +25,9 @@ struct EmuDim { int x, y, z; };
 inline thread_local EmuDim threadIdx, blockIdx;
 inline EmuDim gridDim;
 struct float4 { float x, y, z, w; };
+struct float2 { float x, y; };
 struct uint2 { unsigned x, y; };
+struct uint4 { unsigned x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline float __uint_as_float(unsigned u) { float f; memcpy(&f, &u, 4); return f; }
 struct __nv_bfloat16 { uint16_t v; };
@@ -57,6 +60,8 @@ struct EmuCopy { uint32_t dst; const void* src; int size, bytes; };
 inline thread_local std::vector<std::vector<EmuCopy>> emu_groups;
 inline thread_local std::vector<EmuCopy> emu_open;
 inline void emu_fail(const char* what) { fprintf(stderr, "%s\n", what); abort(); }
+// warp-level code (stem_conv.cu's bf16 instances) builds but does not run here
+inline void __syncwarp() { emu_fail("__syncwarp: the stand-in has no warps"); }
 inline void emu_cp(uint32_t dst, const void* src, int size, int bytes) {
   if (dst % size) emu_fail("cp.async: misaligned shared address");
   if (bytes && reinterpret_cast<uintptr_t>(src) % size)

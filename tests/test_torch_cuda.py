@@ -344,6 +344,68 @@ def test_halo_conv_kernel(device, dtype, c, co, h, w, k, s, bias):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('b,c,co,h,w,bias', [
+    (4, 4, 64, 512, 512, False),       # big-lama's stem, served at b4
+    (16, 4, 64, 512, 512, True),       # the served batch 16 (regular: bias)
+    (10, 4, 64, 256, 256, False),      # training
+    (1, 4, 64, 1024, 1024, False),     # the refiner's inputs
+    (1, 4, 64, 1000, 760, True),
+    (2, 4, 64, 37, 70, True),          # small odd sides, partial tiles
+    (1, 3, 16, 4, 9, False),           # C = 3 (element path), H = 4
+    (2, 8, 48, 13, 33, True),          # pitch 8, one-copy path, C_out 48
+    (1, 6, 32, 19, 4, False),          # pitch 8, element path, W = 4
+    (3, 1, 64, 9, 31, True),           # C = 1
+])
+def test_stem_conv_kernel(device, dtype, b, c, co, h, w, bias):
+    """The 7x7 stride-1 stem on csrc/stem_conv.cu through kernel 7's
+    wrapper, against the plain version at TOL, and bit-equal on a second
+    call."""
+    from lama_tpu_torch.ops.kernels import halo_conv as hc
+    from lama_tpu_torch.ops.kernels import stem_conv as sc
+    assert hc.tiled_route(h, w, c, co, 7, 1) is sc.stem_conv_reflect
+    g = torch.Generator().manual_seed(b + c + h)
+    x = torch.rand(b, c, h, w, generator=g).to(device)
+    wt = ((torch.rand(co, c, 7, 7, generator=g) * 2 - 1)
+          * (c * 49) ** -0.5).to(device)
+    bb = torch.rand(co, generator=g).to(device) if bias else None
+    ref = rc.reflect_conv_plain(x, wt, bb)
+    before = hc.halo_conv_reflect_tiled.launches
+    out = hc.halo_conv_reflect_tiled(x.to(dtype), wt, bb)
+    torch.cuda.synchronize()
+    assert hc.halo_conv_reflect_tiled.launches == before + 1
+    assert out.dtype == dtype and out.shape == ref.shape
+    _close(out, ref, dtype)
+    assert torch.equal(hc.halo_conv_reflect_tiled(x.to(dtype), wt, bb), out)
+
+
+def test_stem_runs_stem_conv_and_other_shapes_halo_conv(device, monkeypatch):
+    """Kernel 7's stem launches stem_conv.cu in both dtypes and loads no
+    halo_conv.cu; its k3 s1, k3 s2 and k7 s2 shapes launch halo_conv.cu."""
+    from lama_tpu_torch.ops.kernels import _build
+    from lama_tpu_torch.ops.kernels import halo_conv as hc
+    from lama_tpu_torch.ops.kernels import stem_conv as sc
+    calls = []
+    launcher, load = sc._launcher, _build.load
+    monkeypatch.setattr(sc, '_launcher',
+                        lambda: calls.append('stem_conv') or launcher())
+    monkeypatch.setattr(_build, 'load',
+                        lambda name: calls.append(name) or load(name))
+    g = torch.Generator().manual_seed(11)
+    for c, co, k, s, want in ((4, 64, 7, 1, 'stem_conv'),
+                              (16, 32, 3, 1, 'halo_conv'),
+                              (32, 64, 3, 2, 'halo_conv'),
+                              (8, 24, 7, 2, 'halo_conv')):
+        x = torch.rand(1, c, 24, 40, generator=g).to(device)
+        wt = torch.rand(co, c, k, k, generator=g).to(device)
+        for dtype in (torch.float32, torch.bfloat16):
+            calls.clear()
+            hc.halo_conv_reflect_tiled(x.to(dtype), wt, stride=s)
+            assert calls[0] == want, (c, co, k, s, dtype, calls)
+            assert ('halo_conv' in calls) == (want == 'halo_conv'), calls
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b,c,co,h,w,bias', [
     (2, 512, 512, 32, 32, True),       # the GlobalGenerator's block convs
     (2, 512, 512, 13, 11, False),      # partial tiles
     (2, 64, 64, 16, 16, True),
