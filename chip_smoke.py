@@ -20,8 +20,10 @@ version):
      b4 64^2 and b10 32^2) and a tiny odd shape, and kernels 6, 3, 2 and
      4 at the served batch 16 (64^2: 512 -> 512, 128 -> 384, 384 -> 128,
      128 -> 128; the four downsamples, 512^2 to 128^2), and the
-     FourierUnit (kernel 1) and the stem (kernel 7, 4 -> 64 at 512^2) at
-     the served batch 16 too; fp32
+     FourierUnit (kernel 1), the stem (kernel 7, 4 -> 64 at 512^2) and
+     the head (kernel 5, 64 -> 3 at 512^2) at the served batch 16 too,
+     and the head also at training's b10 256^2 and the refiner's 1024^2;
+     fp32
      (TF32 off; each fp32 3x3 stride-1 row prints the K split its grid
      ran with) and bf16, against its plain PyTorch version on the same
      inputs, with the median time of each wrapper call and plain version
@@ -357,6 +359,15 @@ def kernel_cases(gen):
          conv_case(256, 384, 128, 3, False, x=l2l3_b16[0], b=16)),
         # and its stem (big-lama-regular's has a bias too)
         ('halo_conv_reflect_tiled', 'stem_b16', stem_case(512, 16)),
+        # kernel 5, the head (64 -> 3, bias), at the served batch 16,
+        # training's b10 256^2 and the refiner's 1024^2 (its b4 and
+        # 1000x760 rows are above)
+        ('reflect_out_conv7x7', 'head_b16', conv_case(64, 3, 512, 7, True,
+                                                       b=16)),
+        ('reflect_out_conv7x7', 'train_head', conv_case(64, 3, 256, 7, True,
+                                                         b=10)),
+        ('reflect_out_conv7x7', 'refine_head_1024',
+         conv_case(64, 3, 1024, 7, True, b=1)),
     ]
     src = 'lama_tpu/ops/pallas/'
 
@@ -541,12 +552,13 @@ def kernel_gradients(gen, rows):
     """fp32 gradients of a linear loss through each kernel's wrapper vs
     plain autograd, on the first case of each kernel (of each kernel size
     and stride, for the tiled halo conv; every case of the 3x3 halo
-    conv)."""
+    conv and of the head)."""
     import torch
     seen = set()
     for name, _, role, kfn, pfn, args in kernel_cases(gen):
         key = (name, args[1].shape[-1], case_stride(name, role),
-               role if name == 'halo_conv3x3_reflect' else '')
+               role if name in ('halo_conv3x3_reflect', 'reflect_out_conv7x7')
+               else '')
         if key in seen:   # the first case of each kernel (and k, stride)
             continue
         seen.add(key)

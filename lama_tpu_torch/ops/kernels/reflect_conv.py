@@ -20,12 +20,14 @@ tile into shared memory, so no padded tensor reaches HBM:
   bfloat16 (tensor cores, fp32 accumulation, bf16 output): the three 3x3
     convs run the wgmma implicit GEMM of csrc/conv3x3_wgmma.cu (see
     conv3x3_wgmma.py; the down conv its stride-2 width-pair form);
-  the 7x7 head, in either dtype, the thin 7x7 kernel of
-    lama_tpu_torch/csrc/reflect_conv.cu.
+  the 7x7 head, in either dtype, the persistent kernel of
+    lama_tpu_torch/csrc/reflect_conv.cu (see head_conv.py; bf16 on
+    mma.sync with the kx taps and output channels in N, fp32 a 2-D
+    register-tiled FFMA conv).
 Inside, the layout is channels-last: the wrapper passes a channels-last
 view of `x` (a copy only if `x` is not channels-last already), the packed
-weight of conv3x3_wgmma.py or conv3x3_simt.py (the head: an HWIO copy of
-the weight in `x`'s dtype), and returns a channels-last output.
+weight of conv3x3_wgmma.py, conv3x3_simt.py or head_conv.py, and returns
+a channels-last output.
 
 On a CPU tensor a wrapper computes its plain version; on a CUDA tensor it
 launches its kernel or raises. When a gradient is needed, the launch runs
@@ -35,13 +37,12 @@ kernels' `_diff_wrap` (reflect_conv.py:59-87) takes the XLA VJP. Neither
 has a backward kernel. Each wrapper counts its launches in its `launches`
 attribute.
 """
-import ctypes
 import functools
 
 import torch
 import torch.nn.functional as F
 
-from . import _build, conv3x3_simt, conv3x3_wgmma
+from . import conv3x3_simt, conv3x3_wgmma, head_conv
 from ._autograd import differentiable
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -112,29 +113,6 @@ def _launch(name, supported, x, weight, bias, bf16=None, fp32=None):
                  bias)
 
 
-def _out_conv7x7(x, weight, bias):
-    """The 7x7 head's launch: lama_reflect_out_conv7x7 of reflect_conv.cu on
-    a channels-last x, the weight as HWIO in x's dtype."""
-    b, c, h, w = x.shape
-    c_out = weight.shape[0]
-    wk = weight.to(x.dtype).permute(2, 3, 1, 0).contiguous()   # HWIO
-    bk = None if bias is None else bias.to(x.dtype).contiguous()
-    out = torch.empty((b, c_out, h, w), dtype=x.dtype, device=x.device,
-                      memory_format=torch.channels_last)
-    fn = _build.load('reflect_conv').lama_reflect_out_conv7x7
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), wk.data_ptr(),
-                 None if bk is None else bk.data_ptr(), out.data_ptr(),
-                 b, h, w, c, c_out, _DTYPES[x.dtype], stream)
-    if err != 0:
-        raise RuntimeError('lama_reflect_out_conv7x7: CUDA launch failed with '
-                           f'error {err}')
-    return out
-
-
 def _kernel(wrapper, supported, stride, x, weight, bias, bf16=None,
             fp32=None):
     """The common body of the wrappers below, for a CUDA tensor."""
@@ -187,12 +165,14 @@ def reflect_down_conv3x3(x, weight, bias=None):
 
 def reflect_out_conv7x7(x, weight, bias=None):
     """7x7 stride-1 reflect conv with at most 8 output channels (the head),
-    in either dtype the thin 7x7 kernel of csrc/reflect_conv.cu."""
+    in either dtype the kernel of csrc/reflect_conv.cu (see head_conv.py):
+    bf16 on mma.sync, fp32 a register-tiled FFMA conv."""
     if not x.is_cuda:
         return reflect_conv_plain(x, weight, bias)
     return _kernel(reflect_out_conv7x7, reflect_out_conv7x7_supported, 1,
                    x, weight, bias,
-                   bf16=_out_conv7x7, fp32=_out_conv7x7)
+                   bf16=head_conv.head_conv_reflect,
+                   fp32=head_conv.head_conv_reflect)
 
 
 reflect_conv3x3_cols.launches = 0

@@ -1,7 +1,7 @@
 // A CPU stand-in for the CUDA subset that lama_tpu_torch/csrc/fourier_unit.cu
-// and the fp32 instances of csrc/stem_conv.cu use, so that g++ can build a
-// kernel's source and run it on the host (tests/test_torch_fourier_unit_
-// emulated.py, tests/test_torch_stem_conv_emulated.py): each CUDA thread of
+// and the fp32 instances of csrc/stem_conv.cu and csrc/reflect_conv.cu use,
+// so that g++ can build a kernel's source and run it on the host
+// (tests/test_torch_{fourier_unit,stem_conv,reflect_conv}_emulated.py): each CUDA thread of
 // a block is a std::thread, __syncthreads a std::barrier, and a cp.async a copy
 // deferred until the wait_group that retires its group, as on the card.
 // Blocks run one after another, each over shared memory filled with 0xff
@@ -18,6 +18,7 @@
 #include <vector>
 using std::min;
 #define __global__
+#define __host__
 #define __device__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
@@ -60,7 +61,8 @@ struct EmuCopy { uint32_t dst; const void* src; int size, bytes; };
 inline thread_local std::vector<std::vector<EmuCopy>> emu_groups;
 inline thread_local std::vector<EmuCopy> emu_open;
 inline void emu_fail(const char* what) { fprintf(stderr, "%s\n", what); abort(); }
-// warp-level code (stem_conv.cu's bf16 instances) builds but does not run here
+// warp-level code (the bf16 instances of stem_conv.cu and reflect_conv.cu)
+// builds but does not run here
 inline void __syncwarp() { emu_fail("__syncwarp: the stand-in has no warps"); }
 inline void emu_cp(uint32_t dst, const void* src, int size, int bytes) {
   if (dst % size) emu_fail("cp.async: misaligned shared address");

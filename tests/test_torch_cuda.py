@@ -47,6 +47,12 @@ def _close(out, ref, dtype):
     ('reflect_conv3x3_taps', 128, 384, 8, 40, 3, True, 2),
     ('reflect_out_conv7x7', 64, 3, 37, 70, 7, True, 2),
     ('reflect_out_conv7x7', 16, 8, 8, 8, 7, False, 2),
+    # the head's envelope corners: C 8, 24 and 128 (at C_out 8 its
+    # weights staged per chunk), C_out 1 and 8
+    ('reflect_out_conv7x7', 8, 1, 9, 12, 7, True, 2),
+    ('reflect_out_conv7x7', 24, 8, 19, 61, 7, False, 1),
+    ('reflect_out_conv7x7', 128, 3, 20, 130, 7, True, 1),
+    ('reflect_out_conv7x7', 128, 8, 17, 33, 7, True, 1),
     ('reflect_down_conv3x3', 64, 128, 16, 24, 3, False, 2),
     ('reflect_down_conv3x3', 128, 256, 26, 10, 3, True, 2),    # partial tiles
     ('reflect_down_conv3x3', 256, 384, 8, 8, 3, False, 2),
@@ -377,6 +383,41 @@ def test_stem_conv_kernel(device, dtype, b, c, co, h, w, bias):
     assert torch.equal(hc.halo_conv_reflect_tiled(x.to(dtype), wt, bb), out)
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b,c,co,h,w,bias,misalign', [
+    (4, 64, 3, 512, 512, True, False),     # the served head at b4
+    (16, 64, 3, 512, 512, True, False),    # the served batch 16
+    (10, 64, 3, 256, 256, True, False),    # training
+    (1, 64, 3, 1000, 760, True, False),    # the refiner's inputs
+    (2, 64, 3, 37, 70, False, True),       # a misaligned channels-last view
+    (1, 24, 5, 11, 9, True, True),
+    (3, 40, 2, 8, 8, False, False),        # the smallest sides, C % 16
+])
+def test_head_conv_kernel(device, dtype, b, c, co, h, w, bias, misalign):
+    """The 7x7 head on csrc/reflect_conv.cu through its wrapper, against
+    the plain version at TOL, bit-equal on a second call; a misaligned x
+    (one element past a 16-byte boundary) takes the element copies."""
+    g = torch.Generator().manual_seed(b + c + co + h)
+    x = torch.rand(b, c, h, w, generator=g).to(device).to(dtype)
+    if misalign:
+        buf = torch.empty(x.numel() + 1, dtype=dtype, device=device)
+        buf[1:] = x.permute(0, 2, 3, 1).reshape(-1)
+        x = buf[1:].view(b, h, w, c).permute(0, 3, 1, 2)
+        assert x.is_contiguous(memory_format=torch.channels_last)
+        assert x.data_ptr() % 16
+    wt = ((torch.rand(co, c, 7, 7, generator=g) * 2 - 1)
+          * (c * 49) ** -0.5).to(device)
+    bb = torch.rand(co, generator=g).to(device) if bias else None
+    ref = rc.reflect_conv_plain(x.float(), wt, bb)
+    before = rc.reflect_out_conv7x7.launches
+    out = rc.reflect_out_conv7x7(x, wt, bb)
+    torch.cuda.synchronize()
+    assert rc.reflect_out_conv7x7.launches == before + 1
+    assert out.dtype == dtype and out.shape == ref.shape
+    _close(out, ref, dtype)
+    assert torch.equal(rc.reflect_out_conv7x7(x, wt, bb), out)
+
+
 def test_stem_runs_stem_conv_and_other_shapes_halo_conv(device, monkeypatch):
     """Kernel 7's stem launches stem_conv.cu in both dtypes and loads no
     halo_conv.cu; its k3 s1, k3 s2 and k7 s2 shapes launch halo_conv.cu."""
@@ -513,6 +554,7 @@ def _grad_close(ours, ref):
     ('reflect_down_conv3x3', 64, 128, 32, 3, True),
     ('reflect_down_conv3x3', 256, 384, 32, 3, False),
     ('reflect_out_conv7x7', 64, 3, 24, 7, True),
+    ('reflect_out_conv7x7', 128, 8, 20, 7, False),
 ])
 def test_reflect_conv_gradients(device, name, c, co, h, k, bias):
     g = torch.Generator().manual_seed(3)

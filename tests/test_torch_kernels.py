@@ -757,14 +757,14 @@ def test_conv3x3_wgmma_source_matches_its_plan():
 
 
 def test_reflect_conv_source_keeps_no_bf16_3x3_path():
-    """reflect_conv.cu's 3x3 kernel is fp32 only (its bf16 launches are
+    """reflect_conv.cu holds no 3x3 kernel (its bf16 launches are
     conv3x3_wgmma.cu's); the 7x7 head keeps its bf16 instance."""
     with open(_build.source_path('reflect_conv')) as f:
         src = f.read()
     for gone in ('mma.h', 'nvcuda', 'wmma', 'Conv3Cfg<bf16>',
                  'launch_conv3<bf16'):
         assert gone not in src, gone
-    assert 'launch_conv7<bf16>' in src
+    assert 'launch_co<bf16>' in src
 
 
 def test_cuda_sources_and_build_flags():
@@ -1074,7 +1074,8 @@ def test_conv3x3_simt_source_is_full_fp32():
 def test_fp32_kernels_4_and_6_left_the_old_sources():
     """The fp32 3x3 kernels (kernels 2, 3 and 4 of reflect_conv.cu, kernel
     6 of halo_conv.cu) are gone from the old sources (conv3x3_simt.cu has
-    them): reflect_conv.cu holds the 7x7 head only, halo_conv.cu kernel 7's
+    them): reflect_conv.cu holds the 7x7 head only (since its redesign,
+    head_conv_kernel; the old thin kernel is gone), halo_conv.cu kernel 7's
     two kernels."""
     with open(_build.source_path('reflect_conv')) as f:
         rc_src = f.read()
@@ -1086,8 +1087,10 @@ def test_fp32_kernels_4_and_6_left_the_old_sources():
                  'conv3_smem_bytes', 'C3_'):
         assert gone not in rc_src, gone
     assert rc_src.count('extern "C"') == 1
-    for kept in ('lama_reflect_out_conv7x7', 'conv7_thin_kernel'):
+    for kept in ('lama_reflect_out_conv7x7', 'head_conv_kernel'):
         assert kept in rc_src, kept
+    for gone in ('conv7_thin_kernel', 'launch_conv7', 'C7_'):
+        assert gone not in rc_src, gone
     for gone in ('halo_conv3x3_kernel', 'launch_k6', 'K6_',
                  'lama_halo_conv3x3_reflect'):
         assert gone not in hc_src, gone
@@ -1129,3 +1132,321 @@ def test_conv3x3_variants_apply_and_fit():
                 assert ring >= 2 and ring * stage <= const('SMEM_LIMIT'), name
                 units = stride * hw * ckp // 4
                 assert len({(k * units) % 8 for k in range(4)}) == 4, name
+
+
+# ------------------------------------------------- kernel 5: the 7x7 head
+def _head_source():
+    with open(_build.source_path('reflect_conv')) as f:
+        return f.read()
+
+
+def test_head_source_matches_its_plan():
+    """head_conv.py's constants are reflect_conv.cu's; the bf16 instance
+    runs mma.sync m16n8k16 fed by ldmatrix, the fp32 one plain FFMA (its
+    loop holds no TF32 and no tensor-core instruction)."""
+    import re
+
+    from lama_tpu_torch.ops.kernels import head_conv as hc
+    src = _head_source()
+
+    def const(name):
+        m = re.search(rf'constexpr int [^;]*\b{name} = (\d+)', src)
+        assert m, name
+        return int(m.group(1))
+
+    for name in ('KS', 'PAD', 'THREADS', 'MAX_CO', 'MAX_C', 'MIN_SIDE',
+                 'BLOCK_SMEM', 'F_RH', 'F_RW', 'F_TX', 'F_TY', 'F_CK',
+                 'F_RING', 'B_MT', 'B_CK', 'B_RING', 'D_ROWS'):
+        assert const(name) == getattr(hc, name), name
+    assert 'B_TILE_W = B_HALO_W - KS + 1' in src and hc.B_TILE_W == 58
+    assert 'B_FRAG_BYTES = 32 * 8' in src
+    assert 'return 2 * px + (half ^ ((px >> 2) & 1));' in src
+    assert '{ return px ^ ((px >> 3) & 3); }' in src
+    assert 'NT = (KS * CO + 7) / 8' in src and 'R = NT <= 3 ? 2 : 1' in src
+    assert 'KXP = (KS * CO + 3) / 4 * 4' in src
+    assert 'DP = NT * 8 + 1' in src
+    # the lines the replay below mirrors: the ldmatrix row a lane
+    # addresses, the B fragment a lane loads, where an accumulator lands in
+    # the D buffer, the lane's (x, co) pairs
+    for line in ('const uint32_t off = 16 * b_unit(rr + 8 * (q & 1), q >> 1);',
+                 'wk + (ky * PL::NT + nt) * B_FRAG_BYTES)[lane];',
+                 'float* d = dsm + ((16 * mt + g + 8 * hh) % D_ROWS) * PL::DP',
+                 'const int x0 = mt == 0 ? 0 : 16 * mt - KS + 1;',
+                 'const int x1 = mt == B_MT - 1 ? B_TILE_W : 16 * mt + 16 - KS + 1;',
+                 'sum += dsm[((x + kx) % D_ROWS) * PL::DP + kx * CO + co];',
+                 'const int lo = (ph + 7) & ~7, hi = (ph + valid) & ~7;'):
+        assert line in src, line
+    assert 'mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32' in src
+    assert 'ldmatrix.sync.aligned.m8n8.x4.shared.b16' in src
+    fma = src[src.index('// fp32: one output row'):
+              src.index('// bf16: acc[r][mt][nt]')]
+    fma = re.sub(r'//.*', '', fma).lower()
+    assert 'acc[p][co] += av * w[kx * co + co]' in fma
+    for gone in ('tf32', 'mma', 'bf16', 'half'):
+        assert gone not in fma, gone
+    assert 'reflect_conv' in _build.SOURCES
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_head_layout_fits_and_stages_the_main_weights_once(dtype):
+    """Every (C, C_out) of the envelope fits one block's shared memory;
+    the served, refine and train head (64 -> 3) stages its weights once a
+    block; the bf16 swizzle keeps an ldmatrix phase on 8 bank groups, the
+    fp32 one a quarter warp's LDS.128 (column groups 4 tx + j) inside its
+    row; the bf16 epilogue sums each output once."""
+    from lama_tpu_torch.ops.kernels import head_conv as hc
+    for c in range(8, hc.MAX_C + 1, 8):
+        for co in range(1, hc.MAX_CO + 1):
+            assert hc.layout(dtype, c, co)['total'] <= hc.BLOCK_SMEM, (c, co)
+    assert hc.layout(dtype, 64, 3)['once']
+    for half in (0, 1):
+        assert {hc.b_unit(p, half) % 8 for p in range(8)} == set(range(8))
+    for base in (0, 8):
+        for j in range(hc.F_RW + hc.KS - 1):
+            assert {hc.f_unit(4 * tx + j) % 8
+                    for tx in range(base, base + 8)} == set(range(8))
+    assert sorted(hc.f_unit(p) for p in range(hc.F_HALO_W)) == list(
+        range(hc.F_HALO_W))
+    xs = [x for x0, x1 in hc.epilogue_ranges() for x in range(x0, x1)]
+    assert xs == list(range(hc.B_TILE_W))
+    for mt, (x0, x1) in enumerate(hc.epilogue_ranges()):
+        # rows x .. x + 6 staged by now and not yet overwritten in the ring
+        assert x1 + hc.KS - 1 <= 16 * mt + 16
+        assert x0 >= 16 * mt + 16 - hc.D_ROWS
+
+
+@pytest.mark.parametrize('c,co', [(64, 3), (24, 8), (8, 1), (136, 5)])
+def test_head_pack_weight_layouts(c, co):
+    """fp32 [c][ky][kxp], element kx * C_out + co; bf16 B fragments
+    [chunk][ky][n-tile][lane][4] at `b_fragment`'s (k, n); zero past C and
+    7 C_out."""
+    from lama_tpu_torch.ops.kernels import head_conv as hc
+    g = torch.Generator().manual_seed(c + co)
+    wt = torch.rand(co, c, 7, 7, generator=g) + 0.5
+    f32 = hc.pack_weight(wt, torch.float32).view(c, 7, hc.kxp(co))
+    torch.testing.assert_close(
+        f32[:, :, :7 * co].view(c, 7, 7, co), wt.permute(1, 2, 3, 0))
+    assert f32[:, :, 7 * co:].abs().sum() == 0
+    nt, chunks = hc.n_tiles(co), -(-c // hc.B_CK)
+    b16 = hc.pack_weight(wt, torch.bfloat16).float().view(
+        chunks, 7, nt, 32, 4)
+    want = wt.bfloat16().float()
+    for lane in range(32):
+        for reg in range(2):
+            k, n = hc.b_fragment(lane, reg)
+            for e in range(2):
+                ch = torch.arange(chunks) * hc.B_CK + k + e
+                got = b16[:, :, :, lane, 2 * reg + e]       # chunk, ky, nt
+                for j in range(nt):
+                    kx, o = divmod(j * 8 + n, co)
+                    if kx < 7:
+                        ref = torch.zeros(chunks, 7)
+                        real = ch < c
+                        ref[real] = want[o, ch[real], :, kx]
+                    else:
+                        ref = torch.zeros(chunks, 7)
+                    torch.testing.assert_close(got[:, :, j], ref)
+
+
+def _ldmatrix_map():
+    """(m, k) -> element offset, within a halo row of the bf16 stage, of
+    A[m][k] of m-tile 0 as the kernel's ldmatrix.x4 and the m16n8k16 A
+    layout place it: register i of lane (g, t) is the word at column 2t
+    of row g of matrix i, whose row address lane 8i + g gave."""
+    from lama_tpu_torch.ops.kernels import head_conv as hc
+    idx = np.full((16, 16), -1)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for reg in range(4):
+            px, half = hc.ldmatrix_row(8 * reg + g)
+            addr = 8 * hc.b_unit(px, half) + 2 * t
+            m, k = hc.a_fragment(lane, reg)
+            assert idx[m, k] == -1 and idx[m, k + 1] == -1
+            idx[m, k], idx[m, k + 1] = addr, addr + 1
+    assert (idx >= 0).all()
+    return idx
+
+
+def _b_map():
+    """(k, n) -> (lane, element) of the packed B fragment."""
+    from lama_tpu_torch.ops.kernels import head_conv as hc
+    lanes, elems = np.full((16, 8), -1), np.full((16, 8), -1)
+    for lane in range(32):
+        for reg in range(2):
+            k, n = hc.b_fragment(lane, reg)
+            for e in range(2):
+                assert lanes[k + e, n] == -1
+                lanes[k + e, n], elems[k + e, n] = lane, 2 * reg + e
+    assert (lanes >= 0).all()
+    return lanes, elems
+
+
+def _replay_head_bf16(x, weight, bias):
+    """numpy model of reflect_conv.cu's bf16 instance: per tile and chunk,
+    the ring stage's swizzled halo image (channels past C zero, 16
+    channels a stage), A read through `_ldmatrix_map` for each halo row of
+    each warp's rows, B from `pack_weight`'s fragments, D = A @ B per
+    (row, ky, m-tile, n-tile) as the kernel's loop nests them; then the
+    epilogue: each m-tile's D rows (placed by `d_fragment`) into the
+    warp's ring of D_ROWS rows, the outputs of `epilogue_ranges` summed
+    over their kx shifts from it, + bias, and the row's 16-byte and
+    element stores, each output element written exactly once. x:
+    (B, H, W, C) float64, weight (C_out, C, 7, 7) torch; returns (B, H, W,
+    C_out) float64 (no final bf16 rounding)."""
+    from lama_tpu_torch.ops.kernels import head_conv as hc
+    bf = torch.bfloat16
+    b, h, w, c = x.shape
+    co = weight.shape[0]
+    nt, rw = hc.n_tiles(co), hc.rows_per_warp(co)
+    th, tw = hc.tile(bf, co)
+    chunks = -(-c // hc.B_CK)
+    wpk = hc.pack_weight(weight, bf).double().numpy().reshape(
+        chunks, 7, nt, 32, 4)
+    amap = _ldmatrix_map()
+    blane, belem = _b_map()
+    dp = hc.d_pitch(co)
+    # the kernel writes accumulator (2 hh + e) of lane (g, tq) at D row
+    # g + 8 hh, column 2 tq + e of its n-tile: d_fragment's place
+    for lane in range(32):
+        for reg in range(4):
+            assert hc.d_fragment(lane, reg) == (
+                lane // 4 + 8 * (reg // 2), 2 * (lane % 4) + reg % 2)
+    out = np.full((b * h * w * co,), np.nan)
+    written = np.zeros(out.shape, int)
+    for img, r0, c0 in hc.out_tiles(bf, co, b, h, w):
+        rows, cols = hc.halo_source(bf, co, r0, c0, h, w)
+        acc = np.zeros((hc.WARPS, rw, hc.B_MT, 16, nt * 8))
+        for k in range(chunks):
+            stage = np.full((th + 6, 2 * hc.B_HALO_W, 8), np.nan)
+            for hr in range(th + 6):
+                for px in range(hc.B_HALO_W):
+                    for half in range(2):
+                        lo = k * hc.B_CK + 8 * half
+                        stage[hr, hc.b_unit(px, half)] = (
+                            x[img, rows[hr], cols[px], lo:lo + 8]
+                            if lo < c else 0.0)
+            flat = stage.reshape(th + 6, -1)
+            bmat = wpk[k][:, :, blane, belem]          # ky, nt, k, n
+            for warp in range(hc.WARPS):
+                for hh in range(rw + 6):
+                    arow = flat[warp * rw + hh]
+                    a = [arow[amap + 16 * 16 * mt] for mt in range(hc.B_MT)]
+                    for r in range(rw):
+                        ky = hh - r
+                        if not 0 <= ky < 7:
+                            continue
+                        for j in range(nt):
+                            for mt in range(hc.B_MT):
+                                acc[warp, r, mt, :, j * 8:j * 8 + 8] += \
+                                    a[mt] @ bmat[ky, j]
+        valid = min(tw, w - c0) * co
+        for warp in range(hc.WARPS):
+            for r in range(rw):
+                row = r0 + warp * rw + r
+                if row >= h:
+                    break
+                e0 = ((img * h + row) * w + c0) * co
+                ph = e0 % 8
+                st = np.full(ph + tw * co, np.nan)
+                ring = np.full((hc.D_ROWS, dp), np.nan)
+                for mt, (x0, x1) in enumerate(hc.epilogue_ranges()):
+                    for j in range(16):
+                        ring[(16 * mt + j) % hc.D_ROWS, :nt * 8] = \
+                            acc[warp, r, mt, j]
+                    for p in range(x0 * co, x1 * co):
+                        xo, oc = divmod(p, co)
+                        total = sum(ring[(xo + kx) % hc.D_ROWS, kx * co + oc]
+                                    for kx in range(7))
+                        if p < valid:
+                            st[ph + p] = total + bias[oc]
+                lo, hi = (ph + 7) & ~7, (ph + valid) & ~7
+                stored = [s for lane in range(32)
+                          for v in range(lo + 8 * lane, hi - 7, 256)
+                          for s in range(v, v + 8)]
+                stored += [s for s in range(ph, ph + valid)
+                           if s < lo or s >= hi]
+                for s in stored:
+                    out[e0 - ph + s] = st[s]
+                    written[e0 - ph + s] += 1
+    assert (written == 1).all()
+    return out.reshape(b, h, w, co)
+
+
+@pytest.mark.parametrize('b,c,co,h,w', [
+    (1, 16, 3, 19, 61),     # two column tiles, partial tiles on both sides
+    (2, 8, 1, 8, 9),        # C = 8: the chunk's upper half zero-filled
+    (1, 24, 8, 9, 60),      # C_out 8 (7 n-tiles, one row a warp), C % 16
+    (1, 64, 3, 17, 8),      # the head's C = 64, W = 8
+])
+def test_head_bf16_replay_matches_the_conv(b, c, co, h, w):
+    """The bf16 kernel's design replayed in numpy (`_replay_head_bf16`) on
+    bf16 values equals the plain reflect conv of the same values in
+    float64 (rtol 1e-9: the replay only reorders sums)."""
+    rng = np.random.RandomState(b + c + co + h + w)
+    xb = torch.from_numpy(rng.rand(b, c, h, w).astype(np.float32)).bfloat16()
+    wb = torch.from_numpy(
+        (rng.randn(co, c, 7, 7) * 0.1).astype(np.float32)).bfloat16()
+    bias = rng.randn(co)
+    out = _replay_head_bf16(xb.double().permute(0, 2, 3, 1).numpy(),
+                            wb.float(), bias)
+    ref = trc.reflect_conv_plain(xb.double(), wb.double(),
+                                 torch.from_numpy(bias))
+    np.testing.assert_allclose(out, ref.permute(0, 2, 3, 1).numpy(),
+                               rtol=1e-9, atol=1e-9)
+
+
+def test_head_routes_to_reflect_conv_cu():
+    """The head wrapper's CUDA route in both dtypes is head_conv's launch
+    of reflect_conv.cu; a CPU tensor takes the plain version."""
+    import inspect
+
+    from lama_tpu_torch.ops.kernels import head_conv as hc
+    body = inspect.getsource(trc.reflect_out_conv7x7)
+    assert 'bf16=head_conv.head_conv_reflect' in body
+    assert 'fp32=head_conv.head_conv_reflect' in body
+    assert "_build.load('reflect_conv').lama_reflect_out_conv7x7" in \
+        inspect.getsource(hc._launcher)
+
+
+def test_chip_smoke_head_bound_at_the_served_batch():
+    """chip_smoke.py's bound of the served head, (16, 64, 512, 512) -> 3
+    with a bias: bf16 by its bytes (input, output, weight and bias once at
+    3.35 TB/s), 0.168 ms; fp32 by its FMA (2 * 49 * 64 * 3 FLOP a pixel at
+    67 TFLOP/s), 1.178 ms."""
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    args = (torch.empty(16, 64, 512, 512, device='meta'),
+            torch.empty(3, 64, 7, 7, device='meta'),
+            torch.empty(3, device='meta'))
+    ms, by = chip_smoke.bound('reflect_out_conv7x7', 'head_b16', args, 'bf16')
+    assert by == 'bytes' and ms == pytest.approx(0.1678, rel=1e-3)
+    ms, by = chip_smoke.bound('reflect_out_conv7x7', 'head_b16', args, 'fp32')
+    assert by == 'operations' and ms == pytest.approx(1.1776, rel=1e-3)
+
+
+def test_head_conv_parts_switch_off_one_part_each(tmp_path):
+    """Each part of the head's parts tool (lama_tpu_torch/tools/
+    head_conv_parts.py) edits the current source exactly once, so the
+    tool stays in step with the kernel; its copies land under the tree's
+    git-ignored _scratch/ with that edit."""
+    from lama_tpu_torch.tools import head_conv_parts as hp
+    src = _head_source()
+    csrc = tmp_path / 'lama_tpu_torch' / 'csrc'
+    csrc.mkdir(parents=True)
+    (csrc / 'reflect_conv.cu').write_text(src)
+    roots = hp.make_copies(str(tmp_path))
+    assert len(roots) == len(hp.PARTS) == 3
+    for name, root in zip(hp.PARTS, roots):
+        assert root == str(tmp_path / '_scratch' / 'head_parts' / name)
+        with open(os.path.join(root, hp.SOURCE)) as f:
+            text = f.read()
+        assert text == hp.part_source(src, name) != src
+        for _, new in hp.PARTS[name]:
+            assert text.count(new) == 1
+    with pytest.raises(ValueError, match='exactly once'):
+        hp.part_source('', 'noepi')
