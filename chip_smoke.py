@@ -60,7 +60,12 @@ version):
      per step, the phase split and device profile of a step and the peak
      memory; then one fp32 G step, kernels vs kernels='plain' (losses within
      1e-4; the gradient within the plain path's own spread, which a dropped
-     stem gradient must fall outside);
+     stem gradient must fall outside). The bf16 run validates after its
+     epoch on 8 val images at 256^2 with the shipped evaluator (SSIM,
+     LPIPS-vgg16, FID, random score-net weights from a seed): its val_*
+     metrics logged and finite, each eval forward launching the served
+     counts, and the best-k checkpoint written beside last.ckpt, which
+     serves;
   7. generator: kernels vs plain path at 512^2, batch 2, fp32;
   8. refine checks: one front and one rear pass of the kernels generator,
      fp32 and bf16, vs the fp32 plain one on the padded 1024^2, 1000x760
@@ -80,11 +85,27 @@ version):
  12. regular train: `python -m lama_tpu_torch.train -cn big-lama-regular`
      as in phase 6 (bf16 and fp32, 4 steps each, 2 warm up; per step
      kernel 6 72, stem 2, head 2, the others 0), its checkpoint served, and
-     the fp32 G-step check with the stem's gradient dropped as the control.
+     the fp32 G-step check with the stem's gradient dropped as the control;
+ 13. evaluate (run after phase 9, before phase 10): 32 synthetic 512^2
+     image + mask pairs in the eval2 layout, masks in 5 of the 10 area
+     bins, served by `python -m lama_tpu_torch.predict` (big-lama bf16,
+     launches counted), then `python -m lama_tpu_torch.evaluate_predicts
+     configs/eval2.yaml` on the card (SSIM, LPIPS-vgg16 at 512^2, FID on
+     the whole InceptionV3 at 299^2, batch 8, seeded random score-net
+     weights): the table's ssim, lpips and fid for the total and each
+     non-empty bin and lpips_fid100_f1, all finite and in range; its
+     seconds and the host's share (sqrtm, PNG reads); each score's
+     images/s at batch 8; per-image SSIM and LPIPS and the Inception
+     activations on the card against the port's own CPU run on the same
+     files; the identity control (ground truth as the prediction: SSIM 1
+     and LPIPS 0 within 1e-6 per image, FID within 1e-5 of the
+     activations' total variance); `python -m lama_tpu_torch.fid_score`
+     between the ground truth and the predictions against the table's FID.
 Prints the `kernels` JSON line, then, as its last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device, and
 when run outside a checkout of the repository.
 """
+import contextlib
 import functools
 import json
 import math
@@ -744,15 +765,11 @@ def kernel_wrappers():
 GENERATOR_CLASSES = ('FFCResNetGenerator', 'GlobalGenerator')
 
 
-def serve(work, model_dir, per_forward=PER_FORWARD, label='big-lama'):
-    """The predict CLI on synthetic PNGs, bf16 and fp32, wire fp32 and
-    uint8: sizes, known pixels, bit-equal wires, and `per_forward` launches
-    of each kernel per generator forward. Returns the launch counts by
-    precision."""
+@contextlib.contextmanager
+def counting_forwards():
+    """Counts the generator forwards run inside the block: yields a
+    one-item list holding the count, which the caller may reset."""
     import torch
-
-    indir = os.path.join(work, 'in')
-    sizes = write_images(indir, np.random.RandomState(0))
     forwards = [0]
 
     def count_forward(module, inputs, output):
@@ -760,8 +777,21 @@ def serve(work, model_dir, per_forward=PER_FORWARD, label='big-lama'):
             forwards[0] += 1
 
     hook = torch.nn.modules.module.register_module_forward_hook(count_forward)
-    launches = {}
     try:
+        yield forwards
+    finally:
+        hook.remove()
+
+
+def serve(work, model_dir, per_forward=PER_FORWARD, label='big-lama'):
+    """The predict CLI on synthetic PNGs, bf16 and fp32, wire fp32 and
+    uint8: sizes, known pixels, bit-equal wires, and `per_forward` launches
+    of each kernel per generator forward. Returns the launch counts by
+    precision."""
+    indir = os.path.join(work, 'in')
+    sizes = write_images(indir, np.random.RandomState(0))
+    launches = {}
+    with counting_forwards() as forwards:
         for precision, wire in (('bf16', 'fp32'), ('fp32', 'fp32'),
                                 ('bf16', 'uint8')):
             outdir = os.path.join(work, f'out_{label}_{precision}_{wire}')
@@ -791,8 +821,6 @@ def serve(work, model_dir, per_forward=PER_FORWARD, label='big-lama'):
                       f'img{i}: known pixels changed')
                 check((out[mask > 0] != img[mask > 0]).any(),
                       f'img{i}: hole left as input')
-    finally:
-        hook.remove()
     for i in range(len(sizes)):
         a, b = (read_png(os.path.join(work, f'out_{label}_bf16_{wire}',
                                       f'img{i}_mask.png'))
@@ -1307,18 +1335,21 @@ def _params_and_stats(trainer):
 
 
 def train_run(work, precision, config_name='big-lama', steps=TRAIN_STEPS,
-              per_step=PER_TRAIN_STEP):
+              per_step=PER_TRAIN_STEP, val_dir=None):
     """`python -m lama_tpu_torch.train -cn <config_name>` (in this process,
     as `-m` runs it) at batch TRAIN_BATCH, TRAIN_SIZE^2, for `steps` steps
     of one epoch. The trainer's step is wrapped for the run: each step is
     synchronised before and after and timed, its metrics read, and its
-    launches counted (each must equal `per_step`). Returns the run's record
-    and the trainer."""
+    launches counted (each must equal `per_step`). With `val_dir` the
+    epoch ends with validation on it, whose launches and generator
+    forwards are counted apart (`val_counts`, `val_forwards`) and left out
+    of the run's `launches`. Returns the run's record and the trainer."""
     import torch
     from lama_tpu_torch.training import step as step_mod
     from lama_tpu_torch.training import trainer as trainer_mod
     rec = dict(step_ms=[], metrics=[], counts=[])
     call, fit = step_mod.InpaintingTrainStep.__call__, trainer_mod.InpaintingTrainer.fit
+    validate = trainer_mod.InpaintingTrainer.validate
 
     def timed_call(self, state, image, mask):
         fns = kernel_wrappers()
@@ -1338,6 +1369,18 @@ def train_run(work, precision, config_name='big-lama', steps=TRAIN_STEPS,
         torch.cuda.reset_peak_memory_stats()
         return fit(self, resume_from)
 
+    def counted_validate(self, epoch):
+        fns = kernel_wrappers()
+        before = {k: f.launches for k, f in fns.items()}
+        t0 = time.perf_counter()
+        with counting_forwards() as forwards:
+            out = validate(self, epoch)
+        rec['val_seconds'] = time.perf_counter() - t0
+        rec['val_counts'] = {k: f.launches - before[k] for k, f in fns.items()}
+        rec['val_forwards'] = forwards[0]
+        rec['val_metrics'] = out
+        return out
+
     data = os.path.join(work, 'train_data')
     run_dir = os.path.join(work, f'train_{config_name}_{precision}')
     argv = ['-cn', config_name, f'location.data_root_dir={data}',
@@ -1349,8 +1392,11 @@ def train_run(work, precision, config_name='big-lama', steps=TRAIN_STEPS,
             'trainer.kwargs.log_every_n_steps=1',
             f'trainer.kwargs.precision={"bf16" if precision == "bf16" else 32}',
             'losses.resnet_pl.allow_random_weights=true', 'device=cuda']
+    if val_dir:
+        argv += [f'data.val.indir={val_dir}', 'data.val.img_suffix=.png']
     step_mod.InpaintingTrainStep.__call__ = timed_call
     trainer_mod.InpaintingTrainer.fit = recording_fit
+    trainer_mod.InpaintingTrainer.validate = counted_validate
     fns = reset_counts()
     t0 = time.perf_counter()
     try:
@@ -1358,8 +1404,10 @@ def train_run(work, precision, config_name='big-lama', steps=TRAIN_STEPS,
     finally:
         step_mod.InpaintingTrainStep.__call__ = call
         trainer_mod.InpaintingTrainer.fit = fit
+        trainer_mod.InpaintingTrainer.validate = validate
     rec['seconds'] = time.perf_counter() - t0
-    rec['launches'] = {k: fn.launches for k, fn in fns.items()}
+    rec['launches'] = {k: fn.launches - rec['val_counts'][k]
+                       for k, fn in fns.items()}
     rec['peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
     rec['run_dir'] = run_dir
     trainer = rec.pop('trainer')
@@ -1393,7 +1441,63 @@ def train_run(work, precision, config_name='big-lama', steps=TRAIN_STEPS,
         f'{k} {first[k]:.4f} -> {last[k]:.4f}' for k in sorted(first)))
     log(f'train {label}: G and D weights and BN statistics all moved')
     del rec['before']
+    if val_dir:
+        check_validation(rec, run_dir, label)
     return rec, trainer
+
+
+VAL_N, VAL_SIZE = 8, 256   # the bf16 big-lama train run's val set
+
+
+def write_val_images(root, rng, n=VAL_N, size=VAL_SIZE):
+    """n image + mask PNG pairs (eval layout, .png images), the masks'
+    areas one in each of n mask-area bins."""
+    os.makedirs(root)
+    yy, xx = np.mgrid[0:size, 0:size] / 24.0
+    for i in range(n):
+        img = np.stack([np.sin(yy + i), np.cos(xx - i), np.sin(xx + yy)], -1)
+        img = np.clip(0.5 + 0.4 * img + 0.05 * rng.randn(size, size, 3), 0, 1)
+        mask = np.zeros((size, size), np.uint8)
+        rows = int(round((0.05 + 0.1 * i) * size))
+        y0 = rng.randint(0, size - rows + 1)
+        mask[y0:y0 + rows] = 255
+        write_png(os.path.join(root, f'v{i}.png'),
+                  np.rint(img * 255).astype(np.uint8))
+        write_png(os.path.join(root, f'v{i}_mask.png'), mask)
+
+
+def check_validation(rec, run_dir, label):
+    """The run's validation: val_* metrics finite and logged, each eval
+    forward launching the served counts, the best-k checkpoint written
+    beside last.ckpt."""
+    val = rec['val_metrics']
+    n, counts = rec['val_forwards'], rec['val_counts']
+    check(n > 0 and val, f'train {label}: no validation ran')
+    for k, per in PER_FORWARD.items():
+        check(counts[k] == per * n, f'train {label} validation: {k} '
+              f'{counts[k]} launches in {n} forwards, expected {per} each')
+    totals = {k: v for k, v in val.items() if '_total_' in k}
+    for key in ('val_ssim_total_mean', 'val_lpips_total_mean',
+                'val_fid_total_mean', 'val_ssim_fid100_f1_total_mean'):
+        check(key in totals and math.isfinite(totals[key]),
+              f'train {label} validation: {key} {totals.get(key)}')
+    with open(os.path.join(run_dir, 'metrics.jsonl')) as f:
+        logged = [json.loads(ln) for ln in f]
+    check(any(ln.get('val_ssim_total_mean') == val['val_ssim_total_mean']
+              for ln in logged), f'train {label}: val metrics not logged')
+    models = os.path.join(run_dir, 'models')
+    with open(os.path.join(models, 'index.json')) as f:
+        records = json.load(f)
+    check(len(records) == 1 and records[0]['value'] ==
+          val['val_ssim_fid100_f1_total_mean'] and
+          os.path.isfile(os.path.join(models, records[0]['name'])) and
+          os.path.isfile(os.path.join(models, 'last.ckpt')),
+          f'train {label}: best-k checkpoints {records}')
+    rec['best_checkpoint'] = records[0]['name']
+    log(f'train {label} validation: {len(val)} metrics from {n} forwards in '
+        f'{rec["val_seconds"]:.1f} s, launches {counts}; '
+        + ', '.join(f'{k} {v:.4f}' for k, v in totals.items())
+        + f'; best-k {records[0]["name"]} beside last.ckpt')
 
 
 def run_module(name, argv):
@@ -1534,6 +1638,9 @@ def train_gradient_vs_plain(trainer, image, mask):
         f'||d|| {ours_d[1]:.3e}, 1-cos {ours_d[2]:.3e}; plain vs plain with '
         f'images x (1 + {TRAIN_X_EPS} noise), largest of {TRAIN_DRAWS}: '
         + ', '.join(f'{f:.3e}' for f in floor)
+        + f'; ours / ({TRAIN_FLOOR_FACTOR} x largest), pass <= 1: '
+        + ', '.join(f'{x / (TRAIN_FLOOR_FACTOR * f):.3f}' if f else 'inf'
+                    for x, f in zip(ours_d, floor))
         + f'; control (stem gradient dropped): '
         + ', '.join(f'{c:.3e}' for c in control)
         + (': passes the check' if passes(control) else ': rejected'))
@@ -1544,12 +1651,12 @@ def train_gradient_vs_plain(trainer, image, mask):
     return dict(ours=ours_d, floor=floor, control=control)
 
 
-def serve_checkpoint(work, run_dir):
+def serve_checkpoint(work, run_dir, ckpt='last.ckpt'):
     """The trained run dir served by `python -m lama_tpu_torch.predict`
-    (its last.ckpt) on the serve phase's images."""
+    (its checkpoint `ckpt`) on the serve phase's images."""
     indir = os.path.join(work, 'in')
-    outdir = f'{run_dir}_served'
-    run_predict([f'model.path={run_dir}', 'model.checkpoint=last.ckpt',
+    outdir = f'{run_dir}_served_{ckpt}'
+    run_predict([f'model.path={run_dir}', f'model.checkpoint={ckpt}',
                  f'indir={indir}', f'outdir={outdir}', 'device=cuda',
                  f'batch_size={BATCH}', 'precision=bf16'])
     n = 0
@@ -1563,7 +1670,7 @@ def serve_checkpoint(work, run_dir):
                   f'trained serve {name}: known pixels changed')
             n += 1
     check(n > 0, 'trained serve: no images')
-    log(f'train: {run_dir}/models/last.ckpt served {n} images')
+    log(f'train: {run_dir}/models/{ckpt} served {n} images')
 
 
 def train(work, config_name='big-lama', steps=TRAIN_STEPS,
@@ -1573,9 +1680,14 @@ def train(work, config_name='big-lama', steps=TRAIN_STEPS,
     step; the fp32 G step against the plain path; the checkpoint served."""
     write_train_images(os.path.join(work, 'train_data'), TRAIN_BATCH * steps,
                        np.random.RandomState(3))
+    val_dir = None
+    if config_name == 'big-lama':
+        val_dir = os.path.join(work, 'val_data')
+        write_val_images(val_dir, np.random.RandomState(4))
     out = {}
     for precision in ('bf16', 'fp32'):
-        rec, trainer = train_run(work, precision, config_name, steps, per_step)
+        rec, trainer = train_run(work, precision, config_name, steps, per_step,
+                                 val_dir if precision == 'bf16' else None)
         image, mask = rec.pop('batch')
         rec['split'] = train_step_split(trainer, image, mask, precision,
                                         label=config_name)
@@ -1584,7 +1696,232 @@ def train(work, config_name='big-lama', steps=TRAIN_STEPS,
         out[precision] = rec
         del trainer
     serve_checkpoint(work, out['bf16']['run_dir'])
+    if val_dir:
+        serve_checkpoint(work, out['bf16']['run_dir'],
+                         out['bf16']['best_checkpoint'])
     return out
+
+
+# ---------------------------------------------------------------- evaluate
+EVAL_N, EVAL_SIZE, EVAL_BATCH = 32, 512, 8   # configs/eval2.yaml: batch 8
+EVAL2 = os.path.join(REPO, 'configs', 'eval2.yaml')
+
+
+def write_eval_images(root, rng, n=EVAL_N, size=EVAL_SIZE):
+    """The eval2 layout: <root>/data/imgNN.png + imgNN_mask.png (a band of
+    rows covering 2% to 48% of the image: mask-area bins 0-4, 6 or 7
+    images each), and <root>/gt/imgNN_mask.png, the ground truth under the
+    prediction's name. Returns the two dirs and the masks' bins."""
+    data, gt = os.path.join(root, 'data'), os.path.join(root, 'gt')
+    os.makedirs(data)
+    os.makedirs(gt)
+    yy, xx = np.mgrid[0:size, 0:size] / 64.0
+    bins = []
+    for i in range(n):
+        img = np.stack([np.sin(yy + i), np.cos(xx - 2 * i), np.sin(xx + yy)],
+                       -1)
+        img = np.clip(0.5 + 0.4 * img + 0.05 * rng.randn(size, size, 3), 0, 1)
+        img = np.rint(img * 255).astype(np.uint8)
+        rows = int(round((0.02 + 0.46 * i / (n - 1)) * size))
+        y0 = rng.randint(0, size - rows + 1)
+        mask = np.zeros((size, size), np.uint8)
+        mask[y0:y0 + rows] = 255
+        bins.append(min(int(rows / size * 10), 9))
+        write_png(os.path.join(data, f'img{i:02d}.png'), img)
+        write_png(os.path.join(data, f'img{i:02d}_mask.png'), mask)
+        write_png(os.path.join(gt, f'img{i:02d}_mask.png'), img)
+    return data, gt, bins
+
+
+def per_image_scores(data, pred, device):
+    """Per-image SSIM and LPIPS and the Inception activations of every
+    (prediction, image) pair, in the evaluator's order and batches, on
+    `device`."""
+    from lama_tpu_torch.data.datasets import (BatchLoader,
+                                              PrecomputedInpaintingResultsDataset)
+    from lama_tpu_torch.evaluation.fid import InceptionActivations
+    from lama_tpu_torch.evaluation.scores import LPIPSScore, SSIMScore
+    ds = PrecomputedInpaintingResultsDataset(data, pred, img_suffix='.png',
+                                             inpainted_suffix='.png')
+    ssim, lpips = SSIMScore(device=device), LPIPSScore(device=device)
+    inception = InceptionActivations.get(device=device)
+    out = dict(ssim=[], lpips=[], act_pred=[], act_target=[])
+    for batch in BatchLoader(ds, batch_size=EVAL_BATCH, drop_last=False):
+        out['ssim'].append(ssim(batch['inpainted'], batch['image']))
+        out['lpips'].append(lpips(batch['inpainted'], batch['image']))
+        out['act_pred'].append(inception(batch['inpainted']))
+        out['act_target'].append(inception(batch['image']))
+    return {k: np.concatenate(v) for k, v in out.items()}
+
+
+def score_rates(data, pred):
+    """images/s of each score's device work on one batch of EVAL_BATCH
+    pairs at EVAL_SIZE^2 (CUDA events, median of 10; FID: the InceptionV3
+    forward of the batch's predictions)."""
+    import torch
+    from lama_tpu_torch.data.io import load_image
+    from lama_tpu_torch.evaluation.fid import InceptionActivations
+    from lama_tpu_torch.evaluation.scores import (LPIPSScore, SSIMScore,
+                                                  to_device_nchw)
+    names = sorted(f for f in os.listdir(pred))[:EVAL_BATCH]
+    p = to_device_nchw(np.stack([load_image(os.path.join(pred, f))
+                                 for f in names]), 'cuda')
+    t = to_device_nchw(np.stack([load_image(os.path.join(
+        data, f.replace('_mask', ''))) for f in names]), 'cuda')
+    ssim, lpips = SSIMScore(device='cuda'), LPIPSScore(device='cuda')
+    inception = InceptionActivations.get(device='cuda')
+    rates = {}
+    with torch.no_grad():
+        for name, fn in (('ssim', lambda: ssim.values(p, t)),
+                         ('lpips', lambda: lpips.values(p, t)),
+                         ('fid', lambda: inception.activations(p))):
+            rates[name] = EVAL_BATCH / median_ms(fn) * 1e3
+    return rates
+
+
+def read_table(path):
+    """The evaluate_predicts TSV: {(metric, stat): {group: value or None}}."""
+    import csv
+    with open(path) as f:
+        rows = list(csv.reader(f, delimiter='\t'))
+    metrics, stats = rows[0][1:], rows[1][1:]
+    table = {}
+    for row in rows[2:]:
+        for m, st, v in zip(metrics, stats, row[1:]):
+            table.setdefault((m, st), {})[row[0]] = float(v) if v else None
+    return table
+
+
+def evaluate(work, model_dir, card_line):
+    """Phase 13: predict, evaluate_predicts and fid_score on the card, with
+    the identity control and the card-vs-CPU check."""
+    import io
+    from lama_tpu_torch.data import datasets as datasets_mod
+    from lama_tpu_torch.evaluation import scores as scores_mod
+    from lama_tpu_torch.evaluation.evaluator import _interval_names
+    from lama_tpu_torch.evaluation.fid import fid_from_activations
+
+    root = os.path.join(work, 'eval')
+    data, gt, bins = write_eval_images(root, np.random.RandomState(5))
+    pred = os.path.join(root, 'pred')
+    fns = reset_counts()
+    t0 = time.perf_counter()
+    with counting_forwards() as forwards:
+        run_predict([f'model.path={model_dir}', f'indir={data}',
+                     f'outdir={pred}', 'device=cuda', f'batch_size={BATCH}',
+                     'precision=bf16', 'dataset.img_suffix=.png'])
+    n = forwards[0]
+    counts = {k: fn.launches for k, fn in fns.items()}
+    check(n > 0 and all(counts[k] == per * n for k, per in PER_FORWARD.items()),
+          f'evaluate: predict launches {counts} in {n} forwards')
+    check(len(os.listdir(pred)) == EVAL_N, f'evaluate: {os.listdir(pred)}')
+    log(f'evaluate: predict served {EVAL_N} images at {EVAL_SIZE}^2 in '
+        f'{time.perf_counter() - t0:.1f} s, {n} forwards, launches {counts}')
+
+    # the CLI, with the host's sqrtm and PNG reads timed
+    host = dict(sqrtm=0.0, png=0.0, n_sqrtm=0, n_png=0)
+    frechet, load = scores_mod.calculate_frechet_distance, datasets_mod.load_image
+
+    def timed_frechet(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return frechet(*args, **kwargs)
+        finally:
+            host['sqrtm'] += time.perf_counter() - t
+            host['n_sqrtm'] += 1
+
+    def timed_load(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return load(*args, **kwargs)
+        finally:
+            host['png'] += time.perf_counter() - t
+            host['n_png'] += 1
+
+    table_path = os.path.join(root, 'metrics.tsv')
+    scores_mod.calculate_frechet_distance = timed_frechet
+    datasets_mod.load_image = timed_load
+    t0 = time.perf_counter()
+    try:
+        run_module('lama_tpu_torch.evaluate_predicts',
+                   [EVAL2, data, pred, table_path, '--device', 'cuda'])
+    finally:
+        scores_mod.calculate_frechet_distance = frechet
+        datasets_mod.load_image = load
+    secs = time.perf_counter() - t0
+    table = read_table(table_path)
+    _, names = _interval_names(10)
+    groups = ['total'] + [names[b] for b in sorted(set(bins))]
+    check(len(set(bins)) >= 5, f'evaluate: masks in bins {sorted(set(bins))}')
+    for metric in ('ssim', 'lpips', 'fid'):
+        for g in groups:
+            v = table.get((metric, 'mean'), {}).get(g)
+            check(v is not None and math.isfinite(v),
+                  f'evaluate: {metric} {g} = {v}')
+            check({'ssim': -1 < v <= 1, 'lpips': v >= 0, 'fid': v >= 0}[metric],
+                  f'evaluate: {metric} {g} = {v} out of range')
+    f1 = table.get(('lpips_fid100_f1', 'mean'), {}).get('total')
+    check(f1 is not None and math.isfinite(f1), f'evaluate: f1 {f1}')
+    log(f'evaluate: evaluate_predicts ({EVAL_N} pairs at {EVAL_SIZE}^2, batch '
+        f'{EVAL_BATCH}, on the card) {secs:.1f} s; host: {host["n_sqrtm"]} '
+        f'sqrtm {host["sqrtm"]:.1f} s ({host["sqrtm"] / secs:.3f} of the '
+        f'call), {host["n_png"]} PNG reads {host["png"]:.1f} thread-s '
+        f'({host["png"] / secs:.3f}); total ssim '
+        f'{table["ssim", "mean"]["total"]:.4f} lpips '
+        f'{table["lpips", "mean"]["total"]:.4f} fid '
+        f'{table["fid", "mean"]["total"]:.4f} lpips_fid100_f1 {f1:.4f}; '
+        f'groups {groups}')
+
+    rates = score_rates(data, pred)
+    log(f'evaluate: images/s at {EVAL_SIZE}^2 batch {EVAL_BATCH} (device '
+        'work, CUDA events): ' + ', '.join(f'{k} {v:.1f}' for k, v in rates.items())
+        + f' ({card_line})')
+
+    # the card against the port's own CPU run on the same files
+    card = per_image_scores(data, pred, 'cuda')
+    cpu = per_image_scores(data, pred, 'cpu')
+    d_ssim = float(np.abs(card['ssim'] - cpu['ssim']).max())
+    check(d_ssim <= 1e-6, f'evaluate: SSIM card vs CPU {d_ssim}')
+    for key in ('lpips', 'act_pred', 'act_target'):
+        a, b = card[key], cpu[key]
+        bad = np.abs(a - b) > 2e-4 + 1e-3 * np.abs(b)
+        check(not bad.any(), f'evaluate: {key} card vs CPU: {int(bad.sum())} '
+              f'beyond rtol 1e-3 / atol 2e-4, max |d| {np.abs(a - b).max()}')
+    check(abs(card['ssim'].mean() - table['ssim', 'mean']['total']) <= 1e-4
+          and abs(card['lpips'].mean() - table['lpips', 'mean']['total'])
+          <= 1e-4, 'evaluate: per-image means differ from the table')
+    log('evaluate: card vs CPU on the same files: max |d| ssim '
+        f'{d_ssim:.2e}, lpips {np.abs(card["lpips"] - cpu["lpips"]).max():.2e}, '
+        'activations '
+        f'{np.abs(card["act_pred"] - cpu["act_pred"]).max():.2e} (largest '
+        f'{np.abs(cpu["act_pred"]).max():.3f})')
+
+    # the identity control: the ground truth as the prediction
+    ident = per_image_scores(data, gt, 'cuda')
+    fid_id = fid_from_activations(ident['act_pred'], ident['act_target'])
+    var = float(np.trace(np.cov(ident['act_target'], rowvar=False)))
+    check(np.abs(ident['ssim'] - 1).max() <= 1e-6 and
+          np.abs(ident['lpips']).max() <= 1e-6,
+          f'evaluate: identity ssim {ident["ssim"]}, lpips {ident["lpips"]}')
+    check(abs(fid_id) <= 1e-5 * var, f'evaluate: identity FID {fid_id} '
+          f'(total variance {var})')
+    log(f'evaluate: identity control: max |ssim - 1| '
+        f'{np.abs(ident["ssim"] - 1).max():.2e}, max lpips '
+        f'{np.abs(ident["lpips"]).max():.2e}, FID {fid_id:.3e} (total '
+        f'variance of the activations {var:.3f})')
+
+    # fid_score between the folders against the table's FID
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run_module('lama_tpu_torch.fid_score',
+                   [gt, pred, '--batch-size', str(EVAL_BATCH), '--device', 'cuda'])
+    line = buf.getvalue().strip().splitlines()[-1]
+    fid_cli, fid_table = float(line.split()[1]), table['fid', 'mean']['total']
+    check(abs(fid_cli - fid_table) <= 1e-4 + 1e-3 * abs(fid_table),
+          f'evaluate: fid_score {line} vs the table {fid_table}')
+    log(f'evaluate: fid_score "{line}" vs evaluate_predicts total '
+        f'{fid_table:.4f}')
+    return dict(seconds=secs, host=host, rates=rates, counts=counts)
 
 
 def main():
@@ -1624,6 +1961,11 @@ def main():
     refine_step_split(gens['bf16', 'cuda'])
     throughput(gens, card_line)
     del gens
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        model_dir = os.path.join(work, 'model')
+        write_model_dir(model_dir, dict(kind='ffc_resnet', **gen_kwargs), sd)
+        evaluate(work, model_dir, card_line)
     torch.cuda.empty_cache()
 
     # big-lama-regular: the GlobalGenerator, kernel 6 on its block convs

@@ -2,8 +2,11 @@
 lama_tpu/training/convert.py).
 
 `state_dict_from_flax` turns the JAX package's {'params', 'batch_stats'}
-tree of the FFC generator, the GlobalGenerator, the N-layer discriminator or
-the ResNet encoder into reference-format tensors: conv kernels HWIO -> OIHW,
+tree of the FFC generator, the GlobalGenerator, the N-layer discriminator,
+the ResNet encoder or a score net (the VGG16, AlexNet and SqueezeNet trunks,
+whose `features_N` map to torchvision's `features.N`; the FID InceptionV3,
+whose names are pytorch-fid's as they stand) into reference-format tensors:
+conv kernels HWIO -> OIHW,
 the generator's ConvTranspose kernels HWIO -> IOHW, and a zero
 `num_batches_tracked` beside every BatchNorm, as
 bin/export_torch_checkpoint.py writes them.
@@ -16,13 +19,16 @@ import numpy as np
 import torch
 
 
-def flax_path_to_torch_key(path: Sequence[str], leaf: str) -> str:
+def flax_path_to_torch_key(path: Sequence[str], leaf: str,
+                           indexed: bool = True) -> str:
     """('model_5','conv1','ffc','convg2g','conv1_0'), 'kernel' ->
     'model.5.conv1.ffc.convg2g.conv1.0.weight'. A copy of
-    lama_tpu/training/convert.py:32-47 (that module imports flax lazily)."""
+    lama_tpu/training/convert.py:32-47 (that module imports flax lazily).
+    `indexed=False` keeps each name as it is (the InceptionV3's
+    'branch3x3dbl_1' is a torch attribute, not a sequential index)."""
     parts = []
     for p in path:
-        m = re.match(r'^(.*?)_(\d+)$', p)
+        m = re.match(r'^(.*?)_(\d+)$', p) if indexed else None
         parts.append(f'{m.group(1)}.{m.group(2)}' if m else p)
     leaf_map = {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias',
                 'mean': 'running_mean', 'var': 'running_var', 'angle': 'angle'}
@@ -62,15 +68,20 @@ def state_dict_from_flax(variables: Dict, n_downsampling: int = 0,
     give its n_downsampling and n_blocks, which place its ConvTranspose
     layers, and its `kind` (ffc_resnet or pix2pixhd_global; for the latter
     also `extra_blocks`, the sum of its dilated_blocks_n*); the
-    discriminator and the ResNet encoder have none (the defaults)."""
+    discriminator, the ResNet encoder and the VGG16, AlexNet and SqueezeNet
+    trunks have none (the defaults); the FID InceptionV3 is kind
+    'inception'."""
     if kind == 'pix2pixhd_global':
         tconv = transposed_conv_paths_global_generator(
             n_downsampling, n_blocks, extra_blocks)
     elif kind == 'ffc_resnet':
         tconv = transposed_conv_paths(n_downsampling, n_blocks)
+    elif kind == 'inception':
+        tconv = set()
     else:
-        raise ValueError(f'kind={kind!r}: expected ffc_resnet or '
-                         'pix2pixhd_global')
+        raise ValueError(f'kind={kind!r}: expected ffc_resnet, '
+                         'pix2pixhd_global or inception')
+    indexed = kind != 'inception'
     out: Dict[str, torch.Tensor] = {}
     for path, val in _flatten(dict(variables.get('params', {}))):
         *mpath, leaf = path
@@ -78,11 +89,11 @@ def state_dict_from_flax(variables: Dict, n_downsampling: int = 0,
         if leaf == 'kernel' and v.ndim == 4:
             v = np.transpose(v, (2, 3, 0, 1) if mpath[0] in tconv
                              else (3, 2, 0, 1))
-        out[flax_path_to_torch_key(mpath, leaf)] = torch.tensor(
+        out[flax_path_to_torch_key(mpath, leaf, indexed)] = torch.tensor(
             v, dtype=torch.float32)
     for path, val in _flatten(dict(variables.get('batch_stats', {}))):
         *mpath, leaf = path
-        out[flax_path_to_torch_key(mpath, leaf)] = torch.tensor(
+        out[flax_path_to_torch_key(mpath, leaf, indexed)] = torch.tensor(
             np.asarray(val), dtype=torch.float32)
     for key in [k for k in out if k.endswith('.running_mean')]:
         out[key[:-len('running_mean')] + 'num_batches_tracked'] = \

@@ -1,7 +1,9 @@
 """Datasets and loaders: copies of lama_tpu/data/datasets.py, so the port
-imports nothing of lama_tpu. Evaluation (the predict CLI): InpaintingDataset
-and OurInpaintingDataset (:232-297) and make_default_val_dataset (:603-623,
-kinds `default` and `our_eval`; `online` raises). Training:
+imports nothing of lama_tpu. Evaluation (the predict CLI, the evaluator and
+the trainer's validation): InpaintingDataset and OurInpaintingDataset
+(:232-297), their precomputed-results variants (:300-343), and
+make_default_val_dataset (:603-623, kinds `default` and `our_eval`;
+`online` raises). Training:
 InpaintingTrainDataset (:28), collate and BatchLoader (:394-511) and
 make_default_train_dataloader (:563, kind `default`; the web-shard and
 segmentation kinds raise). The train dataset decodes with cv2, where the
@@ -27,6 +29,8 @@ LOGGER = logging.getLogger(__name__)
 class InpaintingDataset:
     """Fixed eval pairs: *mask*.png + <stem><img_suffix>
     (reference evaluation/data.py:58-83), HWC."""
+
+    thread_safe_getitem = True  # pure IO: BatchLoader reads items in threads
 
     def __init__(self, datadir, img_suffix='.jpg', pad_out_to_modulo=None,
                  scale_factor=None):
@@ -62,6 +66,8 @@ class OurInpaintingDataset:
     """Alternative mask/ img/ directory layout (reference
     evaluation/data.py:85-108; the basename is split, not the full path)."""
 
+    thread_safe_getitem = True
+
     def __init__(self, datadir, img_suffix='.jpg', pad_out_to_modulo=None,
                  scale_factor=None):
         self.datadir = datadir
@@ -88,6 +94,54 @@ class OurInpaintingDataset:
                                                 self.pad_out_to_modulo)
             result['mask'] = pad_img_to_modulo(result['mask'],
                                                self.pad_out_to_modulo)
+        return result
+
+
+class PrecomputedInpaintingResultsDataset(InpaintingDataset):
+    """(image, mask, inpainted) triples for offline evaluation (reference
+    evaluation/data.py:110-124): the prediction of <datadir>/<rel>/x_mask.png
+    is <predictdir>/<rel>/x_mask<inpainted_suffix>, the name
+    `python -m lama_tpu_torch.predict` writes."""
+
+    def __init__(self, datadir, predictdir, inpainted_suffix='_inpainted.jpg', **kwargs):
+        super().__init__(datadir, **kwargs)
+        if not datadir.endswith('/'):
+            datadir += '/'
+        self.predictdir = predictdir
+        self.pred_filenames = [
+            os.path.join(predictdir, os.path.splitext(f[len(datadir):])[0] + inpainted_suffix)
+            for f in self.mask_filenames]
+
+    def __getitem__(self, i):
+        result = super().__getitem__(i)
+        result['inpainted'] = load_image(self.pred_filenames[i])
+        if self.pad_out_to_modulo is not None and self.pad_out_to_modulo > 1:
+            result['inpainted'] = pad_img_to_modulo(result['inpainted'],
+                                                    self.pad_out_to_modulo)
+        return result
+
+
+class OurPrecomputedInpaintingResultsDataset(OurInpaintingDataset):
+    """(image, mask, inpainted) triples for the mask/ img/ layout
+    (reference evaluation/data.py:126-143)."""
+
+    def __init__(self, datadir, predictdir, inpainted_suffix='png', **kwargs):
+        super().__init__(datadir, **kwargs)
+        if not datadir.endswith('/'):
+            datadir += '/'
+        self.predictdir = predictdir
+        self.pred_filenames = [
+            os.path.join(predictdir,
+                         os.path.basename(os.path.splitext(f)[0])
+                         + f'_inpainted.{inpainted_suffix}')
+            for f in self.mask_filenames]
+
+    def __getitem__(self, i):
+        result = super().__getitem__(i)
+        result['inpainted'] = load_image(self.pred_filenames[i])
+        if self.pad_out_to_modulo is not None and self.pad_out_to_modulo > 1:
+            result['inpainted'] = pad_img_to_modulo(result['inpainted'],
+                                                    self.pad_out_to_modulo)
         return result
 
 

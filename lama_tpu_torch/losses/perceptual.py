@@ -18,18 +18,10 @@ import torch
 import torch.nn as nn
 
 from ..models.aux.resnet import ResNetDilatedEncoder
+from ..models.aux.vgg import imagenet_normalize
 from ..ops.precision import widen
 
 LOGGER = logging.getLogger(__name__)
-IMAGENET_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_STD = (0.229, 0.224, 0.225)
-
-
-def imagenet_normalize(x):
-    """[0, 1] RGB NCHW -> ImageNet-normalised."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
-    return (x - mean[:, None, None]) / std[:, None, None]
 
 
 class ResNetPL(nn.Module):

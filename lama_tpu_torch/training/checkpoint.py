@@ -6,12 +6,20 @@ The port writes the reference's format instead: a `torch.save`d dict with
 'generator_average.*'), 'optimizer_states' [G, D], 'global_step' and
 'epoch', which `lama_tpu_torch.convert.load_checkpoint` (and so
 `python -m lama_tpu_torch.predict`) reads and `restore` resumes from.
+`CheckpointManager` keeps the best epochs by a validation metric beside
+`last.ckpt`, as the JAX package's does.
 """
+import json
+import logging
+import math
 import os
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from .state import TrainState
+
+LOGGER = logging.getLogger(__name__)
 
 
 def save(path: str, state: TrainState, epoch: int):
@@ -29,3 +37,90 @@ def restore(path: str, state: TrainState) -> int:
     ckpt = torch.load(path, map_location='cpu', weights_only=False)
     state.load_state_dict(ckpt)
     return int(ckpt['epoch'])
+
+
+class CheckpointManager:
+    """The top-k + last policy keyed on a monitor metric (counterpart of
+    lama_tpu/training/checkpoint.py:56-213; reference ModelCheckpoint(
+    save_top_k=5, save_last=True, monitor='val_ssim_fid100_f1_total_mean',
+    mode='max')): each epoch writes `epoch<N>.ckpt`, keeps the `save_top_k`
+    best by the monitor (records in `index.json`), rewrites `last.ckpt`,
+    and notes the epoch in `last_epoch.json`. A monitor value that is not
+    finite or lies outside its valid range ranks strictly worst."""
+
+    # valid ranges per monitor-name fragment, longest fragment first
+    DEFAULT_MONITOR_RANGES = (
+        ('ssim_fid100_f1', (0.0, 1.0)),
+        ('lpips_fid100_f1', (0.0, 1.0)),
+        ('ssim', (-1.0, 1.0)),
+        ('lpips', (0.0, float('inf'))),
+        ('fid', (0.0, float('inf'))),
+    )
+
+    @classmethod
+    def monitor_range_for(cls, monitor: str) -> Optional[Tuple[float, float]]:
+        for fragment, rng in cls.DEFAULT_MONITOR_RANGES:
+            if fragment in (monitor or ''):
+                return rng
+        return None
+
+    def __init__(self, directory: str,
+                 monitor: str = 'val_ssim_fid100_f1_total_mean',
+                 mode: str = 'max', save_top_k: int = 5, save_last: bool = True,
+                 monitor_range: Optional[Tuple[float, float]] = None):
+        self.directory = directory
+        self.monitor = monitor
+        self.mode = mode
+        self.save_top_k = save_top_k
+        self.save_last = save_last
+        self.monitor_range = (tuple(monitor_range) if monitor_range is not None
+                              else self.monitor_range_for(monitor))
+        self.records: List[Dict] = []
+        os.makedirs(directory, exist_ok=True)
+        self._index_path = os.path.join(directory, 'index.json')
+        if os.path.exists(self._index_path):
+            with open(self._index_path) as f:
+                self.records = json.load(f)
+
+    def _valid_value(self, value: float) -> bool:
+        if not math.isfinite(value):
+            return False
+        if self.monitor_range is not None:
+            lo, hi = self.monitor_range
+            return lo <= value <= hi
+        return True
+
+    def _ranked(self):
+        return sorted(self.records, key=lambda r: r['value'],
+                      reverse=(self.mode == 'max'))
+
+    def save(self, state: TrainState, epoch: int, metrics: Dict[str, float]):
+        worst = float('-inf') if self.mode == 'max' else float('inf')
+        value = float(metrics.get(self.monitor, worst))
+        if not self._valid_value(value):
+            if self.monitor in metrics:
+                LOGGER.warning(
+                    f'monitor {self.monitor}={value} is non-finite or '
+                    f'outside its valid range {self.monitor_range}; ranking '
+                    f'epoch {epoch} strictly worst')
+            value = worst
+        name = f'epoch{epoch}.ckpt'
+        path = os.path.join(self.directory, name)
+        save(path, state, epoch)
+        if self.save_last:
+            save(os.path.join(self.directory, 'last.ckpt'), state, epoch)
+        self.records.append({'name': name, 'epoch': epoch, 'value': value})
+        for r in self._ranked()[self.save_top_k:]:
+            stale = os.path.join(self.directory, r['name'])
+            if os.path.exists(stale):
+                os.remove(stale)
+            self.records.remove(r)
+        with open(self._index_path, 'w') as f:
+            json.dump(self.records, f)
+        with open(os.path.join(self.directory, 'last_epoch.json'), 'w') as f:
+            json.dump({'epoch': epoch}, f)
+
+    def best_path(self) -> Optional[str]:
+        if not self.records:
+            return None
+        return os.path.join(self.directory, self._ranked()[0]['name'])

@@ -5,13 +5,18 @@ the config tree, as the JAX trainer does (trainer.py:54-287), and `fit`
 runs epochs of `InpaintingTrainStep` on one device: `limit_train_batches`
 per epoch, `max_epochs`, scalars logged every `log_every_n_steps` (to the
 run log and `<run_dir>/metrics.jsonl`), the NaN screen
-(`terminate_on_nan`), sample grids every `visualize_each_iters`, and
-`<run_dir>/models/last.ckpt` after every epoch, from which `fit(resume_from)`
-continues. Validation does what the JAX trainer does when no validation
-data exists, which is to skip it (trainer.py:559-563); with validation data
-present it raises, as the evaluator is ROADMAP queue 1 item 9. More than
-one device, steps_per_dispatch > 1, the uint8 input wire, the web-shard
-dataset and the rescale/crop curricula raise NotImplementedError.
+(`terminate_on_nan`), sample grids every `visualize_each_iters`. After each
+epoch it validates, as the JAX trainer does (trainer.py:541-605): the val,
+visual_test and extra_val datasets that hold images each run the
+eval-mode generator (so the CUDA kernels) and the evaluator of the
+`evaluator` config (SSIM, LPIPS, FID and the integral metric on the same
+device), logged as `<prefix>_<metric>_<bin>_<stat>` (val, test,
+extra_val_<title>); then `training/checkpoint.py::CheckpointManager`
+writes `<run_dir>/models/epoch<N>.ckpt`, keeps the `save_top_k` best by
+`trainer.checkpoint_kwargs.monitor` (val_ssim_fid100_f1_total_mean) and
+rewrites `last.ckpt`, from which `fit(resume_from)` continues. More than one
+device, steps_per_dispatch > 1, the uint8 input wire, the web-shard and
+online datasets and the rescale/crop curricula raise NotImplementedError.
 """
 import json
 import logging
@@ -24,8 +29,10 @@ import numpy as np
 import torch
 
 from ..config.node import ConfigNode
-from ..data.datasets import (make_default_train_dataloader,
+from ..data.datasets import (BatchLoader, make_default_train_dataloader,
                              make_default_val_dataset)
+from ..evaluation import make_evaluator
+from ..evaluation.utils import results_to_tsv
 from ..losses.adversarial import make_discrim_loss
 from ..models import make_discriminator, make_generator
 from ..ops.resize import interpolate
@@ -171,8 +178,25 @@ class InpaintingTrainer:
         self.limit_train_batches = config.select('trainer.kwargs.limit_train_batches')
         self.terminate_on_nan = bool(
             config.select('trainer.kwargs.terminate_on_nan', False))
+        self.limit_val_batches = config.select('trainer.kwargs.limit_val_batches')
         self.metrics_path = os.path.join(run_dir, 'metrics.jsonl')
-        self.checkpoint_path = os.path.join(run_dir, 'models', 'last.ckpt')
+
+        # ---- evaluators (val, visual_test, extra_val), built at first use
+        self.evaluator_kwargs = dict(config.get('evaluator', {}) or {})
+        self.evaluator_kwargs.pop('kind', None)
+        self.evaluator_kwargs.pop('inpainted_key', None)
+        self.evaluators = {}
+        self.extra_val_titles = list(config.select('data.extra_val', None) or {})
+
+        # ---- checkpoints: top-k by the monitor, and last.ckpt
+        ckpt_kwargs = dict(config.select('trainer.checkpoint_kwargs', {}) or {})
+        self.checkpoints = checkpoint.CheckpointManager(
+            os.path.join(run_dir, 'models'),
+            monitor=ckpt_kwargs.get('monitor', 'val_ssim_fid100_f1_total_mean'),
+            mode=ckpt_kwargs.get('mode', 'max'),
+            save_top_k=int(ckpt_kwargs.get('save_top_k', 5)),
+            save_last=bool(ckpt_kwargs.get('save_last', True)),
+            monitor_range=ckpt_kwargs.get('monitor_range', None))
 
     @property
     def global_step(self) -> int:
@@ -217,8 +241,15 @@ class InpaintingTrainer:
                 self._bookkeeping(epoch, step, batch_i, batch, metrics)
             LOGGER.info(f'epoch {epoch} train done in '
                         f'{time.time() - t_epoch:.1f}s')
-            self.validate(epoch)
-            checkpoint.save(self.checkpoint_path, self.state, epoch)
+            t_val = time.time()
+            val_metrics = self.validate(epoch)
+            LOGGER.info(f'epoch {epoch} validation done in '
+                        f'{time.time() - t_val:.1f}s')
+            if val_metrics:
+                with open(self.metrics_path, 'a') as f:
+                    f.write(json.dumps(dict(step=self.global_step, epoch=epoch,
+                                            **val_metrics)) + '\n')
+            self.checkpoints.save(self.state, epoch, val_metrics)
         return self.state
 
     def _bookkeeping(self, epoch, step, batch_i, batch, metrics):
@@ -238,51 +269,115 @@ class InpaintingTrainer:
             self._visualize(epoch, batch_i, batch, suffix='_train')
 
     # ------------------------------------------------------------- validation
+    def val_dataloader(self, key='val'):
+        """The loader of data.val, data.visual_test or an extra_val title
+        (trainer.py:318-338 of the JAX package, on one device)."""
+        if key in ('val', 'visual_test'):
+            kwargs = dict(self.config.data[key])
+        else:
+            kwargs = dict(self.config.data.extra_val[key])
+        dl_kwargs = dict(kwargs.pop('dataloader_kwargs', {}) or {})
+        dl_kwargs.setdefault('batch_size',
+                             self.config.data.get('val_batch_size', 1))
+        dl_kwargs.pop('shuffle', None)
+        dl_kwargs.pop('num_workers', None)
+        kwargs.setdefault('kind', 'default')
+        dataset = make_default_val_dataset(**kwargs)
+        return BatchLoader(dataset, shuffle=False, drop_last=False, **dl_kwargs)
+
+    def evaluator(self, key):
+        if key not in self.evaluators:
+            self.evaluators[key] = make_evaluator(device=self.device,
+                                                  **self.evaluator_kwargs)
+        return self.evaluators[key]
+
     def validate(self, epoch: int) -> Dict[str, float]:
-        """The JAX trainer's val, visual_test and extra_val loops find no
-        data here and are skipped, as there; with data present this raises
-        (the evaluator, ROADMAP queue 1 item 9)."""
-        keys = ['val'] + (['visual_test'] if self.config.select('data.visual_test')
-                          else [])
-        extra = self.config.select('data.extra_val', None) or {}
-        for key in keys + list(extra):
-            kwargs = dict((self.config.data.get(key) if key in keys
-                           else extra[key]) or {})
-            kwargs.pop('dataloader_kwargs', None)
-            try:
-                n = len(make_default_val_dataset(**kwargs))
-            except Exception as e:
-                LOGGER.warning(f'No {key} data ({e}); skipping')
-                continue
-            if n:
-                raise _refuse(f'validation ({n} {key} images at '
-                              f'{kwargs.get("indir")}; the evaluator)', 9)
-            LOGGER.info(f'epoch {epoch}: no {key} data; skipping')
-        return {}
+        """The val, visual_test and extra_val loops, each giving
+        <prefix>_<metric>_<bin>_<stat> keys (reference trainers/base.py:
+        124-161, 180-222); a dataset with no images is skipped."""
+        out = self._run_eval_loop(epoch, 'val', prefix='val')
+        if self.config.select('data.visual_test'):
+            out.update(self._run_eval_loop(epoch, 'visual_test', prefix='test',
+                                           visualize_all=True))
+        for title in self.extra_val_titles:
+            out.update(self._run_eval_loop(epoch, title,
+                                           prefix=f'extra_val_{title}'))
+        return out
+
+    def _run_eval_loop(self, epoch: int, data_key: str, prefix: str,
+                       visualize_all: bool = False) -> Dict[str, float]:
+        loader = self.val_dataloader(data_key)
+        if not len(loader.dataset):
+            LOGGER.info(f'epoch {epoch}: no {data_key} data; skipping')
+            return {}
+        evaluator = self.evaluator(data_key)
+        states = []
+        for batch_i, batch in enumerate(loader):
+            if self.limit_val_batches and batch_i >= int(self.limit_val_batches):
+                break
+            image = np.asarray(batch['image'], np.float32)
+            mask = (batch['mask'] > 0).astype(np.float32)
+            pred, inpainted = self._eval_forward(image, mask)
+            ev_batch = {'image': image, 'mask': mask,
+                        'predicted_image': pred, 'inpainted': inpainted}
+            states.append(evaluator.process_batch(ev_batch))
+            if batch_i == 0 or visualize_all:
+                self._visualize(epoch, batch_i, ev_batch, suffix=f'_{prefix}')
+        if not states:
+            return {}
+        results = evaluator.evaluation_end(states=states)
+        out = {}
+        for (name, group), values in results.items():
+            group = group.replace('%', '').replace('-', '_')
+            for stat, val in values.items():
+                out[f'{prefix}_{name}_{group}_{stat}'] = float(val)
+        LOGGER.info(f'epoch {epoch} {data_key}: ' + ' '.join(
+            f'{k}={v:.4f}' for k, v in out.items() if 'total' in k))
+        LOGGER.info(f'{data_key} metrics after epoch #{epoch}:\n'
+                    + results_to_tsv(results))
+        return out
 
     # ---------------------------------------------------------------- helpers
     @torch.no_grad()
-    def _visualize(self, epoch, batch_i, batch, suffix=''):
-        """Sample grid of the eval-mode generator (and, if configured, the
-        discriminator's score maps), modules put back in train mode after."""
-        image, mask = self.to_device(batch)
-        gen, disc = self.state.generator, self.state.discriminator
+    def _eval_forward(self, image, mask):
+        """The eval-mode generator on an NHWC numpy batch: (predicted,
+        inpainted), NHWC float32 numpy; the generator is put back in train
+        mode after."""
+        gen = self.state.generator
         gen.eval()
-        disc.eval()
         try:
-            pred = gen(self.step_fn.generator_input(image, mask)).float()
-            vis = {'image': image, 'mask': mask, 'predicted_image': pred,
-                   'inpainted': mask * pred + (1 - mask) * image}
-            if self.store_discr_outputs_for_vis:
-                size = tuple(image.shape[2:])
-                real = interpolate(disc(image)[0].float(), size=size,
-                                   mode='nearest')
-                fake = interpolate(disc(pred)[0].float(), size=size,
-                                   mode='nearest')
-                vis.update(discr_output_real=real, discr_output_fake=fake,
-                           discr_output_diff=real - fake)
-            vis = {k: v.permute(0, 2, 3, 1).cpu().numpy() for k, v in vis.items()}
-            self.visualizer(epoch, batch_i, vis, suffix=suffix)
+            img, msk = (torch.from_numpy(np.ascontiguousarray(a)).to(
+                self.device).permute(0, 3, 1, 2) for a in (image, mask))
+            pred = gen(self.step_fn.generator_input(img, msk)).float()
+            inpainted = msk * pred + (1 - msk) * img
         finally:
             gen.train()
-            disc.train()
+        return tuple(t.permute(0, 2, 3, 1).cpu().numpy()
+                     for t in (pred, inpainted))
+
+    @torch.no_grad()
+    def _visualize(self, epoch, batch_i, batch, suffix=''):
+        """Sample grid of the eval-mode generator (its outputs computed here
+        unless the batch holds them) and, if configured, the
+        discriminator's score maps; modules put back in train mode after."""
+        vis = {k: np.asarray(v, np.float32) for k, v in batch.items()
+               if k in ('image', 'mask', 'predicted_image', 'inpainted')}
+        vis['mask'] = (vis['mask'] > 0).astype(np.float32)
+        if 'inpainted' not in vis:
+            vis['predicted_image'], vis['inpainted'] = self._eval_forward(
+                vis['image'], vis['mask'])
+        if self.store_discr_outputs_for_vis:
+            disc = self.state.discriminator
+            disc.eval()
+            try:
+                image, pred = (torch.from_numpy(vis[k]).to(self.device).permute(
+                    0, 3, 1, 2) for k in ('image', 'predicted_image'))
+                size = tuple(image.shape[2:])
+                real, fake = (interpolate(disc(x)[0].float(), size=size,
+                                          mode='nearest').permute(0, 2, 3, 1)
+                              .cpu().numpy() for x in (image, pred))
+            finally:
+                disc.train()
+            vis.update(discr_output_real=real, discr_output_fake=fake,
+                       discr_output_diff=real - fake)
+        self.visualizer(epoch, batch_i, vis, suffix=suffix)

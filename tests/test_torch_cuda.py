@@ -14,6 +14,8 @@ largest gradient (cuDNN's algorithm choice only).
 chip_smoke.py holds the same kernels at the big-lama and big-lama-regular
 shapes.
 """
+import contextlib
+
 import pytest
 import torch
 
@@ -686,3 +688,66 @@ def test_global_generator_kernels_match_plain(device):
     after = [fn.launches for fn in fns]
     assert [a - b for a, b in zip(after, before)] == [0, 0, 0, 1, 0, 1, 2]
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------- the scores
+# each score on the card against its own CPU run on the same inputs; TF32
+# is switched on around the calls, and the scores must turn it off
+# (evaluation/utils.py::no_tf32): SSIM atol 1e-6, the nets rtol 1e-3 /
+# atol 2e-4, as the CPU tests hold them to lama_tpu
+
+def _score_inputs(n=4, h=96, w=128, seed=0):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w] / 11.0
+    target = np.stack([np.clip(0.5 + 0.4 * np.sin(yy + i) * np.cos(xx - i)
+                               + 0.05 * rng.randn(h, w), 0, 1)
+                       for i in range(n * 3)]).reshape(n, 3, h, w)
+    target = target.transpose(0, 2, 3, 1).astype(np.float32)
+    pred = np.clip(target + 0.1 * rng.randn(*target.shape), 0, 1)
+    return pred.astype(np.float32), target
+
+
+@contextlib.contextmanager
+def _tf32_on():
+    """TF32 on for cuBLAS and cuDNN around a score call, which must turn it
+    off for itself and put it back: the flags read True again after the
+    call, and the values from before the block are restored after it."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+@pytest.mark.parametrize('name', ['ssim', 'lpips'])
+def test_pairwise_score_on_the_card_matches_cpu(device, name):
+    import numpy as np
+    from lama_tpu_torch.evaluation.scores import LPIPSScore, SSIMScore
+    cls = SSIMScore if name == 'ssim' else LPIPSScore
+    pred, target = _score_inputs()
+    cpu = cls(device='cpu')(pred, target)
+    with _tf32_on():
+        card = cls(device=device)(pred, target)
+    if name == 'ssim':
+        np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-6)
+    else:
+        np.testing.assert_allclose(card, cpu, rtol=1e-3, atol=2e-4)
+
+
+def test_inception_activations_on_the_card_match_cpu(device):
+    import numpy as np
+    from lama_tpu_torch.evaluation.fid import InceptionActivations
+    pred, _ = _score_inputs(n=3)
+    cpu = InceptionActivations(device='cpu', seed=0)(pred)
+    with _tf32_on():
+        card = InceptionActivations(device=device, seed=0)(pred)
+    assert card.shape == (3, 2048)
+    np.testing.assert_allclose(card, cpu, rtol=1e-3, atol=2e-4)
+    assert np.abs(cpu).max() > 0.1

@@ -169,9 +169,10 @@ def test_port_imports_no_jax():
 
 
 def test_port_and_chip_smoke_import_nothing_of_lama_tpu():
-    """The port (its serving, refining and training entry points and
-    modules) and chip_smoke.py load no module of lama_tpu, jax or flax, also
-    while chip_smoke.py reads the big-lama config."""
+    """The port (its serving, refining, training and evaluation entry points
+    and modules) and chip_smoke.py load no module of lama_tpu, jax or flax,
+    also while chip_smoke.py reads the big-lama config and an evaluator is
+    built."""
     code = ('import sys; import lama_tpu_torch, lama_tpu_torch.serving, '
             'lama_tpu_torch.predict, lama_tpu_torch.evaluation.refinement, '
             'lama_tpu_torch.train, lama_tpu_torch.training.trainer, '
@@ -183,7 +184,14 @@ def test_port_and_chip_smoke_import_nothing_of_lama_tpu():
             'lama_tpu_torch.models.pix2pixhd, lama_tpu_torch.models.aux.resnet, '
             'lama_tpu_torch.data.masks, lama_tpu_torch.data.transforms, '
             'lama_tpu_torch.utils.ramps, lama_tpu_torch.ops.kernels.halo_conv, '
+            'lama_tpu_torch.evaluation, lama_tpu_torch.evaluate_predicts, '
+            'lama_tpu_torch.fid_score, lama_tpu_torch.evaluation.scores, '
+            'lama_tpu_torch.evaluation.evaluator, '
+            'lama_tpu_torch.evaluation.utils, '
+            'lama_tpu_torch.models.aux.inception, '
+            'lama_tpu_torch.models.aux.small_nets, '
             'chip_smoke; chip_smoke.big_lama_kwargs(); '
+            'lama_tpu_torch.evaluation.make_evaluator(device="cpu"); '
             'print(sorted(m for m in sys.modules if m.split(".")[0] in '
             '("lama_tpu", "jax", "flax", "jaxlib")))')
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO,

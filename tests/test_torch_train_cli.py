@@ -9,8 +9,9 @@ ResNetPL with random weights, one batch per epoch, on synthetic JPEGs:
 - resumed from that checkpoint for a third epoch, the run ends where an
   unbroken 3-epoch run ends: weights, BN statistics, optimizer states and
   the step counter equal;
-- the options that belong to later items raise, and validation data
-  present raises (the evaluator is ROADMAP queue 1 item 9).
+- the options that belong to later items raise, among them validation
+  data of the `online` kind (generated masks, ROADMAP queue 1 item 10);
+  validation itself is held by tests/test_torch_train_val.py.
 """
 import json
 import os
@@ -140,11 +141,14 @@ def test_options_of_later_items_raise(tmp_path, override):
 
 
 def test_validation_data_raises(tmp_path):
+    """Validation data of the `online` kind, which no slice has ported yet,
+    raises; the other kinds validate (tests/test_torch_train_val.py)."""
     _write_jpegs(str(tmp_path / 'data' / 'train'))
     save_image(str(tmp_path / 'data' / 'val' / 'v.png'), np.ones((8, 8, 3)))
     save_image(str(tmp_path / 'data' / 'val' / 'v_mask.png'), np.ones((8, 8, 1)))
-    with pytest.raises(NotImplementedError, match='item 9'):
-        _train(tmp_path, 'never', 1, 'data.val.img_suffix=.png')
+    with pytest.raises(NotImplementedError, match='item 10'):
+        _train(tmp_path, 'never', 1, 'data.val.img_suffix=.png',
+               'data.val.kind=online')
 
 
 def test_cuda_without_a_card_raises(tmp_path):
