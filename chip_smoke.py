@@ -100,13 +100,39 @@ version):
      files; the identity control (ground truth as the prediction: SSIM 1
      and LPIPS 0 within 1e-6 per image, FID within 1e-5 of the
      activations' total variance); `python -m lama_tpu_torch.fid_score`
-     between the ground truth and the predictions against the table's FID.
+     between the ground truth and the predictions against the table's FID;
+ 14. segmentation (right after phase 13, on its 32 pairs and their big-lama
+     bf16 predictions; no kernel of the port is on this path): the ADE20k
+     segmenters at full width (resnet50dilated + PPM-deepsup and
+     mobilenetv2dilated + C1-deepsup, 150 classes, seeded He-scaled random
+     weights with BatchNorm statistics from one train-mode forward on the
+     first 8 images, fp32, TF32 off) on the 32 ground-truth images at
+     batch 8:
+     class scores finite and summing to 1 per pixel within 1e-5, the
+     classes the labels hold, images/s of each net beside its FLOP bound,
+     and the card against the port's own CPU run on 2 images (scores within
+     SEG_ATOL, labels equal wherever the top-2 margin exceeds it, near-ties
+     counted); `python -m lama_tpu_torch.evaluate_predicts
+     configs/eval2_segm.yaml --metrics segm_stats,segm_ssim,segm_lpips` on
+     the card: every value finite, the per-class columns there, each bin's
+     total_freq/* summing to 1 within 1e-4, segm_ssim and segm_lpips means
+     equal to phase 13's per-image SSIM and LPIPS means within 1e-6, total
+     and per bin; segm_fid on 4 of the pairs without groups (N + 1 host
+     sqrtm) equal to `python -m lama_tpu_torch.fid_score` on the same pairs
+     within 1e-4 relative; object-shaped masks (SegmentationMask with the
+     ADE20k panoptic predictor on the card, seeded rng) on 8 images, each
+     binary, image-sized and above min_mask_area; the card's and the CPU's
+     maps differ only at the CPU's near-ties (top-2 margin within
+     SEG_ATOL), and the masks equal those the same host code makes from
+     the CPU's map with its near-ties given the card's labels; at least
+     one mask is so compared.
 Prints the `kernels` JSON line, then, as its last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device, and
 when run outside a checkout of the repository.
 """
 import contextlib
 import functools
+import io
 import json
 import math
 import os
@@ -1921,7 +1947,263 @@ def evaluate(work, model_dir, card_line):
           f'evaluate: fid_score {line} vs the table {fid_table}')
     log(f'evaluate: fid_score "{line}" vs evaluate_predicts total '
         f'{fid_table:.4f}')
-    return dict(seconds=secs, host=host, rates=rates, counts=counts)
+    return dict(seconds=secs, host=host, rates=rates, counts=counts,
+                data=data, gt=gt, pred=pred, bins=bins, per_image=card)
+
+
+# ------------------------------------------------------------ segmentation
+SEG_ARCHS = ('resnet50dilated', 'mobilenetv2dilated')
+EVAL2_SEGM = os.path.join(REPO, 'configs', 'eval2_segm.yaml')
+# card vs the port's CPU run, fp32 with TF32 off: class scores (probabilities)
+# within SEG_ATOL; a label may differ only where the top-2 margin is below it.
+# The seeded weights' BatchNorm statistics come from the phase's own images
+# (calibrate_batchnorm_): under identity statistics the resnet50dilated's
+# logits reach ~1e3 and one class covers most of every image. Calibrated,
+# the resnet50dilated read 1.0e-4 on an H100 at 512^2 (PERF.md §6)
+SEG_ATOL = 5e-4
+SEG_CPU_N, SEG_FID_N, SEG_MASK_N = 2, 4, 8
+SEG_DEVICE = 'cuda'   # main() stops without a card
+
+
+def segmenter_flop(seg, x):
+    """FLOP of one forward of `seg` on `x` (torch's FlopCounterMode:
+    convs and matmuls, 2 per multiply-add)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    counter = FlopCounterMode(display=False)
+    with torch.no_grad(), counter:
+        seg.net(x, seg_size=tuple(x.shape[2:]))
+    return counter.get_total_flops()
+
+
+def segmenters(images, card_line):
+    """Phase 14, part 1: both segmenters on the card at batch 8, the
+    card against the CPU on SEG_CPU_N images. Returns the resnet50dilated
+    modules (card, CPU) and the CPU's label maps."""
+    import torch
+    from lama_tpu_torch.evaluation.utils import no_tf32
+    from lama_tpu_torch.models.aux.random_init import calibrate_batchnorm_
+    from lama_tpu_torch.models.aux.segmentation import SegmentationModule
+    out = {}
+    for arch in SEG_ARCHS:
+        seg = SegmentationModule(arch_encoder=arch, device=SEG_DEVICE)
+        with torch.no_grad(), no_tf32():
+            calibrate_batchnorm_(seg.net, seg._input(images[:EVAL_BATCH]))
+        labels = []
+        for start in range(0, len(images), EVAL_BATCH):
+            lab, scores = seg.predict(images[start:start + EVAL_BATCH])
+            check(bool(torch.isfinite(scores).all()), f'segm {arch}: scores')
+            dsum = float((scores.sum(1) - 1).abs().max())
+            check(dsum <= 1e-5, f'segm {arch}: scores sum to 1 within {dsum}')
+            labels.append(lab)
+        labels = np.concatenate(labels)
+        classes = np.unique(labels)
+        check(len(classes) > 5, f'segm {arch}: classes {classes}')
+        x = seg._input(images[:EVAL_BATCH])
+        with torch.no_grad(), no_tf32():
+            ms = median_ms(lambda: seg.net(x, seg_size=(EVAL_SIZE, EVAL_SIZE)),
+                           iters=5, warmup=2)
+        flop = segmenter_flop(seg, x) / EVAL_BATCH
+        bound = flop / FP32_FLOPS * 1e3
+        rate = EVAL_BATCH / ms * 1e3
+        cpu = SegmentationModule(arch_encoder=arch, device='cpu',
+                                 state_dict=seg.net.state_dict())
+        t0 = time.perf_counter()
+        cpu_labels, cpu_scores = cpu.predict(images[:SEG_CPU_N])
+        cpu_secs = time.perf_counter() - t0
+        card_labels, card_scores = seg.predict(images[:SEG_CPU_N])
+        card_scores, cpu_scores = card_scores.cpu().numpy(), cpu_scores.numpy()
+        d = float(np.abs(card_scores - cpu_scores).max())
+        check(d <= SEG_ATOL, f'segm {arch}: card vs CPU scores {d}')
+        top2 = np.sort(cpu_scores, axis=1)[:, -2:]
+        clear = top2[:, 1] - top2[:, 0] > SEG_ATOL
+        check(np.array_equal(card_labels[clear], cpu_labels[clear]),
+              f'segm {arch}: labels differ outside the near-ties')
+        d_clear = float(np.abs(card_scores - cpu_scores).max(axis=1)[clear].max())
+        log(f'segm {arch}: {len(images)} images at {EVAL_SIZE}^2, {len(classes)} '
+            f'classes in the labels; {rate:.1f} images/s at batch {EVAL_BATCH} '
+            f'({ms / EVAL_BATCH:.2f} ms an image, CUDA events; bound '
+            f'{bound:.2f} ms: {flop / 1e9:.1f} GFLOP an image at 67 TFLOP/s '
+            f'fp32, {bound / (ms / EVAL_BATCH):.3f} of it) ({card_line}); card '
+            f'vs CPU on {SEG_CPU_N} images: max |d| scores {d:.2e} (atol '
+            f'{SEG_ATOL}; {d_clear:.2e} outside the near-ties), near-tie '
+            f'pixels {int((~clear).sum())} of '
+            f'{clear.size}, labels differing {int((card_labels != cpu_labels).sum())}'
+            f'; CPU forward {cpu_secs:.1f} s')
+        out[arch] = dict(seg=seg, cpu=cpu, rate=rate, ms=ms, bound_ms=bound)
+    return out
+
+
+def segm_table(ev, root):
+    """Phase 14, part 2: the segm table of evaluate_predicts on the card."""
+    from lama_tpu_torch import evaluate_predicts
+    from lama_tpu_torch.evaluation.evaluator import _interval_names
+    out = os.path.join(root, 'segm.tsv')
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):   # the wide table: in `out`
+        results = evaluate_predicts.main(evaluate_predicts.parse_args(
+            [EVAL2_SEGM, ev['data'], ev['pred'], out, '--metrics',
+             'segm_stats,segm_ssim,segm_lpips', '--device', SEG_DEVICE]))
+    secs = time.perf_counter() - t0
+    _, names = _interval_names(10)
+    bins = np.array(ev['bins'])
+    groups = {'total': np.arange(len(bins))}
+    groups.update({names[b]: np.flatnonzero(bins == b) for b in sorted(set(bins))})
+    for metric in ('segm_stats', 'segm_ssim', 'segm_lpips'):
+        for g in groups:
+            vals = results[(metric, g)]
+            bad = {k: v for k, v in vals.items() if not math.isfinite(v)}
+            check(not bad, f'segm table: {metric} {g} not finite: {bad}')
+            classes = [k for k in vals if k not in ('mean', 'std')]
+            check(len(classes) > 0, f'segm table: no class column in {metric} {g}')
+    worst_tf = 0.0
+    for g in groups:
+        tf = sum(v for k, v in results[('segm_stats', g)].items()
+                 if k.startswith('total_freq/'))
+        worst_tf = max(worst_tf, abs(tf - 1))
+        check(abs(tf - 1) <= 1e-4, f'segm table: total_freq of {g} sums to {tf}')
+    worst = 0.0
+    for metric, key in (('segm_ssim', 'ssim'), ('segm_lpips', 'lpips')):
+        for g, idx in groups.items():
+            d = abs(float(results[(metric, g)]['mean'])
+                    - float(ev['per_image'][key][idx].mean()))
+            worst = max(worst, d)
+            check(d <= 1e-6, f'segm table: {metric} {g} mean vs phase 13: {d}')
+    with open(out) as f:
+        header = f.readline().rstrip('\n').split('\t')
+    log(f'segm: evaluate_predicts eval2_segm.yaml --metrics segm_stats,'
+        f'segm_ssim,segm_lpips ({len(bins)} pairs at {EVAL_SIZE}^2, batch '
+        f'{EVAL_BATCH}, on the card) {secs:.1f} s; {len(header) - 1} columns, '
+        f'groups {list(groups)}; classes in the total: '
+        f'{len(results[("segm_ssim", "total")]) - 2}; total_freq sums vs 1 '
+        f'max |d| {worst_tf:.2e} over the {len(groups)} groups; segm_ssim / '
+        f'segm_lpips means vs phase 13 max |d| {worst:.2e}; segm_ssim total '
+        f'{float(results[("segm_ssim", "total")]["mean"]):.4f}')
+    return secs
+
+
+def segm_fid(ev, root):
+    """Phase 14, part 3: segm_fid on SEG_FID_N pairs without groups against
+    fid_score on the same pairs."""
+    import shutil
+    from lama_tpu_torch import fid_score
+    from lama_tpu_torch.evaluate_predicts import run_evaluation
+    dirs = {k: os.path.join(root, f'fid_{k}') for k in ('data', 'pred', 'gt')}
+    for d in dirs.values():
+        os.makedirs(d)
+    for i in range(SEG_FID_N):
+        for k, names in (('data', [f'img{i:02d}.png', f'img{i:02d}_mask.png']),
+                         ('pred', [f'img{i:02d}_mask.png']),
+                         ('gt', [f'img{i:02d}_mask.png'])):
+            for name in names:
+                shutil.copy(os.path.join(ev[k], name), dirs[k])
+    config = dict(evaluator_kwargs=dict(batch_size=EVAL_BATCH,
+                                        area_grouping=False),
+                  dataset_kwargs=dict(img_suffix='.png', inpainted_suffix='.png'))
+    t0 = time.perf_counter()
+    res = run_evaluation(config, dirs['data'], dirs['pred'], metrics='segm_fid',
+                         device=SEG_DEVICE)
+    secs = time.perf_counter() - t0
+    total = res[('segm_fid', 'total')]
+    check(list(res) == [('segm_fid', 'total')], f'segm_fid groups: {list(res)}')
+    check(all(math.isfinite(v) for v in total.values()),
+          f'segm_fid: not finite: {total}')
+    # the value `python -m lama_tpu_torch.fid_score` prints to 4 decimals
+    with contextlib.redirect_stdout(io.StringIO()):
+        fid_cli = fid_score.main(fid_score.parse_args(
+            [dirs['pred'], dirs['gt'], '--batch-size', str(EVAL_BATCH),
+             '--device', SEG_DEVICE]))
+    rel = abs(total['mean'] - fid_cli) / abs(fid_cli)
+    check(rel <= 1e-4, f'segm_fid {total["mean"]} vs fid_score {fid_cli}')
+    log(f'segm: segm_fid on {SEG_FID_N} pairs, no groups: mean '
+        f'{total["mean"]:.6f} vs fid_score {fid_cli:.6f} (rel {rel:.2e}); '
+        f'{len(total) - 2} class attributions; {secs:.1f} s ({SEG_FID_N + 1} '
+        'host sqrtm of 2048^2)')
+    return secs
+
+
+def object_masks(images, segs):
+    """Phase 14, part 4: object-shaped masks from the card's panoptic map,
+    and the masks the same host code makes from the CPU's map, whose
+    near-ties take the card's labels."""
+    import torch
+    from lama_tpu_torch.evaluation.masks import SegmentationMask
+    from lama_tpu_torch.evaluation.segm_backend import ADE20kPanopticPredictor
+    r50 = segs['resnet50dilated']
+    pred = ADE20kPanopticPredictor(segmentation_module=r50['seg'],
+                                   allow_random_weights=True)
+    sm = SegmentationMask(predictor=pred)
+    t0 = time.perf_counter()
+    per_image, n_things, ties, differing, compared = [], 0, 0, 0, 0
+    for i, img in enumerate(images[:SEG_MASK_N]):
+        got, panoptic = sm.get_masks(img, return_panoptic=True,
+                                     rng=np.random.RandomState(i))
+        labels = pred.module.predict(img[None])[0][0]
+        _, info = pred.panoptic(labels)
+        things = sum(s['isthing'] for s in info)
+        n_things += things
+        candidates = len(sm.identify_candidates(panoptic, info))
+        largest = max([float((panoptic == s['id']).mean()) for s in info
+                       if s['isthing']], default=0.0)
+        for m in got:
+            check(m.shape == img.shape[:2] and set(np.unique(m)) <= {0, 1}
+                  and m.mean() > sm.min_mask_area,
+                  f'masks: image {i}: shape {m.shape}, values '
+                  f'{np.unique(m)}, area {m.mean()}')
+        per_image.append((things, candidates, len(got), round(largest, 3)))
+        # the CPU's map, its near-ties (top-2 margin within SEG_ATOL) given
+        # the card's label: every pixel where the maps differ must be one
+        cpu_labels, cpu_scores = r50['cpu'].predict(img[None])
+        top2 = torch.topk(cpu_scores[0], 2, dim=0).values.numpy()
+        tie = top2[0] - top2[1] <= SEG_ATOL
+        differ = cpu_labels[0] != labels
+        check(not (differ & ~tie).any(), f'masks: image {i}: card and CPU '
+              f'maps differ outside the near-ties')
+        ties += int(tie.sum())
+        differing += int(differ.sum())
+        merged = np.where(tie, labels, cpu_labels[0])
+        cpu_sm = SegmentationMask(
+            predictor=lambda _, lab=merged: pred.panoptic(lab))
+        want = cpu_sm.get_masks(img, rng=np.random.RandomState(i))
+        check(len(want) == len(got) and all(
+            np.array_equal(a, b) for a, b in zip(got, want)),
+            f'masks: image {i}: card and CPU masks differ')
+        compared += len(got)
+    secs = time.perf_counter() - t0
+    if n_things == 0:
+        log('masks: the seeded weights gave no thing-class component on '
+            f'any of the {SEG_MASK_N} images: no candidates, no masks')
+    elif not any(n for _, _, n, _ in per_image):
+        log('masks: no mask on any image: each candidate is under '
+            f'min_mask_area {sm.min_mask_area} or finds no placement clear '
+            'of the scene\'s thing components (the largest one\'s share of '
+            'the image is last in each tuple below)')
+    log(f'masks: {SEG_MASK_N} images at {EVAL_SIZE}^2, (thing components, '
+        f'candidates, masks, largest thing share) per image {per_image}; '
+        f'{secs:.1f} s with the CPU maps; card and CPU maps differ at '
+        f'{differing} pixels, all among the CPU\'s {ties} near-ties; '
+        f'{compared} masks equal to those of the CPU\'s maps')
+    check(compared > 0, 'masks: no mask was compared with the CPU map\'s')
+    return secs
+
+
+def segmentation(work, ev, card_line):
+    """Phase 14 on phase 13's pairs and predictions."""
+    from lama_tpu_torch.data.io import load_image
+    root = os.path.join(work, 'segm')
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    images = np.stack([load_image(os.path.join(ev['data'], f'img{i:02d}.png'))
+                       for i in range(len(ev['bins']))])
+    segs = segmenters(images, card_line)
+    secs = dict(nets=time.perf_counter() - t0)
+    secs['table'] = segm_table(ev, root)
+    secs['fid'] = segm_fid(ev, root)
+    secs['masks'] = object_masks(images, segs)
+    total = time.perf_counter() - t0
+    log(f'segm: phase 14 {total:.1f} s (' + ', '.join(
+        f'{k} {v:.1f}' for k, v in secs.items()) + ')')
+    return segs
 
 
 def main():
@@ -1965,7 +2247,8 @@ def main():
     with tempfile.TemporaryDirectory() as work:
         model_dir = os.path.join(work, 'model')
         write_model_dir(model_dir, dict(kind='ffc_resnet', **gen_kwargs), sd)
-        evaluate(work, model_dir, card_line)
+        ev = evaluate(work, model_dir, card_line)
+        segmentation(work, ev, card_line)
     torch.cuda.empty_cache()
 
     # big-lama-regular: the GlobalGenerator, kernel 6 on its block convs

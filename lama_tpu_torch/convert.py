@@ -5,7 +5,9 @@ lama_tpu/training/convert.py).
 tree of the FFC generator, the GlobalGenerator, the N-layer discriminator,
 the ResNet encoder or a score net (the VGG16, AlexNet and SqueezeNet trunks,
 whose `features_N` map to torchvision's `features.N`; the FID InceptionV3,
-whose names are pytorch-fid's as they stand) into reference-format tensors:
+whose names are pytorch-fid's as they stand; the ADE20k segmenter, whose
+`ppm_{i}_{j}` map to `ppm.{i}.{j}` and whose MobileNetV2 stem
+`features_0/conv_{j}` to `features.0.{j}`) into reference-format tensors:
 conv kernels HWIO -> OIHW,
 the generator's ConvTranspose kernels HWIO -> IOHW, and a zero
 `num_batches_tracked` beside every BatchNorm, as
@@ -52,6 +54,10 @@ def transposed_conv_paths_global_generator(n_downsampling: int, n_blocks: int,
     return {f'model_{base + 3 * i}' for i in range(n_downsampling)}
 
 
+# the PPM branches: lama_tpu's 'ppm_0_1' splits as 'ppm_0.1'
+_SEGMENTATION_KEY = re.compile(r'(^|\.)ppm_(\d+)\.')
+
+
 def _flatten(tree: Dict, prefix=()) -> Iterable[Tuple[Tuple[str, ...], Any]]:
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -70,17 +76,19 @@ def state_dict_from_flax(variables: Dict, n_downsampling: int = 0,
     also `extra_blocks`, the sum of its dilated_blocks_n*); the
     discriminator, the ResNet encoder and the VGG16, AlexNet and SqueezeNet
     trunks have none (the defaults); the FID InceptionV3 is kind
-    'inception'."""
+    'inception' and the ADE20k segmenter (either encoder, either decoder;
+    a depthwise kernel (3, 3, 1, C) becomes (C, 1, 3, 3) like any other)
+    kind 'segmentation'."""
     if kind == 'pix2pixhd_global':
         tconv = transposed_conv_paths_global_generator(
             n_downsampling, n_blocks, extra_blocks)
     elif kind == 'ffc_resnet':
         tconv = transposed_conv_paths(n_downsampling, n_blocks)
-    elif kind == 'inception':
+    elif kind in ('inception', 'segmentation'):
         tconv = set()
     else:
         raise ValueError(f'kind={kind!r}: expected ffc_resnet, '
-                         'pix2pixhd_global or inception')
+                         'pix2pixhd_global, inception or segmentation')
     indexed = kind != 'inception'
     out: Dict[str, torch.Tensor] = {}
     for path, val in _flatten(dict(variables.get('params', {}))):
@@ -95,6 +103,9 @@ def state_dict_from_flax(variables: Dict, n_downsampling: int = 0,
         *mpath, leaf = path
         out[flax_path_to_torch_key(mpath, leaf, indexed)] = torch.tensor(
             np.asarray(val), dtype=torch.float32)
+    if kind == 'segmentation':
+        out = {_SEGMENTATION_KEY.sub(r'\1ppm.\2.', k).replace(
+            'features.0.conv.', 'features.0.'): v for k, v in out.items()}
     for key in [k for k in out if k.endswith('.running_mean')]:
         out[key[:-len('running_mean')] + 'num_batches_tracked'] = \
             torch.zeros((), dtype=torch.long)

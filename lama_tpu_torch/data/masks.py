@@ -2,8 +2,8 @@
 pipeline.
 
 A copy of lama_tpu/data/masks.py, so the port imports nothing of lama_tpu;
-the segmentation-mask kind (a panoptic segmenter) raises, as its evaluation
-backend is not ported.
+the segmentation-mask kind runs the port's object-shaped masks
+(evaluation/masks.py) with the ADE20k segmenter (evaluation/segm_backend.py).
 
 Same mask *distributions* as the reference (saicinpainting/training/data/
 masks.py): polyline brush strokes, random boxes, periodic super-resolution
@@ -23,6 +23,7 @@ explicit (H, W) tuple.
 import hashlib
 import logging
 import math
+import threading
 from enum import Enum
 from typing import Optional, Tuple
 
@@ -178,14 +179,39 @@ class RandomSuperresMaskGenerator:
 
 
 class RandomSegmentationMaskGenerator:
-    """Object-shaped masks from a panoptic segmenter. The reference uses
-    detectron2 (guarded import, evaluation/masks/mask.py:7-14); here the
-    segmenter backend is pluggable and lazily constructed. Raises a clear
-    error when no backend is available."""
+    """Object-shaped masks from a panoptic segmenter (reference
+    masks.py:104-123; lama_tpu/data/masks.py:176-205): `kwargs` go to
+    evaluation/masks.py::SegmentationMask, built on the first call (its
+    default predictor, the ADE20k segmenter on the card, needs the ADE20k
+    weights or `predictor=` in the kwargs). One of the image's masks that
+    holds both values is picked with `rng`, which also draws the
+    placements."""
 
     def __init__(self, **kwargs):
-        raise NotImplementedError('segmentation masks (segm_proba > 0) are '
-                                  'not ported yet (ROADMAP queue 1 item 9)')
+        self.impl = None
+        self.kwargs = kwargs
+        self._init_lock = threading.Lock()
+
+    def __call__(self, img, iter_i=None, raw_image=None, rng=None):
+        if self.impl is None:
+            # the loader's worker threads may call concurrently; build once
+            with self._init_lock:
+                if self.impl is None:
+                    from ..evaluation.masks import SegmentationMask
+                    self.impl = SegmentationMask(**self.kwargs)
+        # the datasets pass the (h, w) shape as `img` (the other generators
+        # need only that) and the pixels as `raw_image`
+        image = img if hasattr(img, 'ndim') else raw_image
+        if image is None or not hasattr(image, 'ndim'):
+            raise ValueError(
+                'RandomSegmentationMaskGenerator needs the image pixels: the '
+                'dataset must pass raw_image= (got only a shape tuple)')
+        hwc = (np.transpose(image, (1, 2, 0))
+               if image.ndim == 3 and image.shape[0] in (1, 3) else image)
+        r = _rng(rng)
+        masks = [m for m in self.impl.get_masks(hwc, rng=r)
+                 if len(np.unique(m)) > 1]
+        return masks[r.randint(len(masks))][..., None].astype(np.float32)
 
 
 class DumbAreaMaskGenerator:

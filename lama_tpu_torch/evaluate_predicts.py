@@ -11,7 +11,12 @@ prediction of <datadir>/<rel>/x_mask.png is read from
 <predictdir>/<rel>/x_mask<inpainted_suffix>, the name that
 `python -m lama_tpu_torch.predict` writes. SSIM, LPIPS (vgg16) and FID run
 on the card in float32 with TF32 off, unless --device cpu is asked for;
-without a card the default fails. Writes the tab-separated table of
+without a card the default fails. The segmentation-aware scores
+(segm_stats, segm_ssim, segm_lpips, segm_fid: per-ADE20k-class columns)
+are there when the config sets evaluator_kwargs.segmentation (e.g.
+configs/eval2_segm.yaml) or --metrics names one; they share one ADE20k
+segmenter, whose weights are the ADE20k pair under $TORCH_HOME, else
+seeded random weights. Without --metrics only ssim, lpips and fid run. Writes the tab-separated table of
 bin/evaluate_predicts.py (rows: total and each non-empty mask-area bin;
 columns: metric x mean / std, four decimals), built with the csv module:
 pandas is not a dependency of the port. The score nets take their
@@ -20,6 +25,7 @@ LAMA_LPIPS_VGG_WEIGHTS when those files exist, else seeded random weights.
 """
 import argparse
 import logging
+import os
 import time
 
 import yaml
@@ -41,19 +47,33 @@ def run_evaluation(config: dict, datadir: str, predictdir: str, metrics=None,
     dataset = PrecomputedInpaintingResultsDataset(
         datadir, predictdir, **config.get('dataset_kwargs', {}))
     ctors = {'ssim': SSIMScore, 'lpips': LPIPSScore, 'fid': FIDScore}
+    if config.get('evaluator_kwargs', {}).get('segmentation') or \
+            (metrics and 'segm' in metrics):
+        from .evaluation.segm_scores import (SegmentationAwareFID,
+                                             SegmentationAwareLPIPS,
+                                             SegmentationAwareSSIM,
+                                             SegmentationClassStats)
+        ctors.update({'segm_stats': SegmentationClassStats,
+                      'segm_ssim': SegmentationAwareSSIM,
+                      'segm_lpips': SegmentationAwareLPIPS,
+                      'segm_fid': SegmentationAwareFID})
     enabled = metrics.split(',') if metrics else ['ssim', 'lpips', 'fid']
-    for name in enabled:
-        if name not in ctors:
-            raise NotImplementedError(
-                f'metric {name!r} is not ported yet (the segmentation-aware '
-                'scores are left of ROADMAP queue 1 item 9)')
-    scores = {k: ctors[k](device=device) for k in enabled}
+    unknown = [name for name in enabled if name not in ctors]
+    if unknown:
+        raise ValueError(f'unknown metrics {unknown}: expected some of '
+                         f'{sorted(ctors)}')
+    segm_kwargs = {}
+    if any(name.startswith('segm') for name in enabled):
+        from .models.aux.segmentation import SegmentationModule
+        segm_kwargs = dict(segm_network=SegmentationModule(   # one for all
+            weights_path=os.environ.get('TORCH_HOME'), device=device))
+    scores = {k: ctors[k](device=device,
+                          **(segm_kwargs if k.startswith('segm') else {}))
+              for k in enabled}
 
     ev_kwargs = dict(config.get('evaluator_kwargs', {}))
     ev_kwargs.pop('device', None)
-    if ev_kwargs.pop('segmentation', None):
-        raise NotImplementedError('evaluator_kwargs.segmentation is not '
-                                  'ported yet (ROADMAP queue 1 item 9)')
+    ev_kwargs.pop('segmentation', None)
     has_integral = 'lpips' in scores and 'fid' in scores
     evaluator = InpaintingEvaluator(
         dataset, scores=scores,
@@ -86,7 +106,9 @@ def parse_args(argv=None):
     parser.add_argument('predictdir', help='dir with predictions')
     parser.add_argument('outpath', help='output table path (.tsv/.csv)')
     parser.add_argument('--metrics', default=None,
-                        help='comma list: ssim,lpips,fid (default all)')
+                        help='comma list of ssim, lpips, fid, segm_stats, '
+                        'segm_ssim, segm_lpips, segm_fid (default: ssim, '
+                        'lpips, fid)')
     parser.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
     return parser.parse_args(argv)
 

@@ -1,6 +1,8 @@
 """Evaluation of the port (counterpart of lama_tpu.evaluation): the
-multiscale refiner, and the scores (SSIM, LPIPS, FID), their evaluators and
-`make_evaluator` (reference saicinpainting/evaluation/__init__.py:9-33)."""
+multiscale refiner, the scores (SSIM, LPIPS, FID), their evaluators and
+`make_evaluator` (reference saicinpainting/evaluation/__init__.py:9-33),
+the segmentation-aware scores, the object-shaped masks and the LPIPS
+research tail."""
 import logging
 
 LOGGER = logging.getLogger(__name__)

@@ -751,3 +751,34 @@ def test_inception_activations_on_the_card_match_cpu(device):
     assert card.shape == (3, 2048)
     np.testing.assert_allclose(card, cpu, rtol=1e-3, atol=2e-4)
     assert np.abs(cpu).max() > 0.1
+
+
+@pytest.mark.parametrize('arch', ['resnet50dilated', 'mobilenetv2dilated'])
+def test_segmenter_on_the_card_matches_cpu(device, arch):
+    """The ADE20k segmenter (seeded random weights, BatchNorm statistics
+    from one train-mode forward on the inputs) on the card against its own
+    CPU run on the same weights, with TF32 on around the call (the
+    segmenter turns it off): class scores within atol 2e-4 and summing to
+    1, labels equal wherever the top two scores differ by more than twice
+    the largest score difference (at most 3% of the pixels are such
+    near-ties: calibrated, the softmax is flat, its top score ~0.05)."""
+    import numpy as np
+    from lama_tpu_torch.models.aux.random_init import calibrate_batchnorm_
+    from lama_tpu_torch.models.aux.segmentation import SegmentationModule
+    pred, _ = _score_inputs(n=2, h=96, w=128)
+    cpu = SegmentationModule(arch_encoder=arch, device='cpu')
+    calibrate_batchnorm_(cpu.net, cpu._input(pred))
+    cpu_labels, cpu_scores = cpu.predict(pred)
+    with _tf32_on():
+        labels, scores = SegmentationModule(
+            arch_encoder=arch, device=device,
+            state_dict=cpu.net.state_dict()).predict(pred)
+    assert scores.is_cuda and scores.shape == (2, 150, 96, 128)
+    scores, cpu_scores = scores.cpu().numpy(), cpu_scores.numpy()
+    np.testing.assert_allclose(scores, cpu_scores, rtol=0, atol=2e-4)
+    np.testing.assert_allclose(scores.sum(1), 1, atol=1e-5)
+    top2 = np.sort(cpu_scores, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 2 * np.abs(scores - cpu_scores).max()
+    assert clear.mean() >= 0.97
+    np.testing.assert_array_equal(labels[clear], cpu_labels[clear])
+    assert len(np.unique(cpu_labels)) > 3

@@ -137,8 +137,10 @@ def test_mask_generators_match_jax(kind, kwargs):
         a = ours((256, 200), iter_i=i, rng=np.random.RandomState(i))
         b = theirs((256, 200), iter_i=i, rng=np.random.RandomState(i))
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match='segmentation'):
-        tmasks.get_mask_generator('mixed', dict(segm_proba=1))
+    # segm_proba > 0 builds its segmenter on the first call, not here
+    segm = tmasks.get_mask_generator('mixed', dict(segm_proba=1))
+    assert isinstance(segm.gens[-1], tmasks.RandomSegmentationMaskGenerator)
+    assert segm.gens[-1].impl is None
 
 
 @pytest.mark.parametrize('variant', ['default', 'distortions',

@@ -190,14 +190,55 @@ def test_port_and_chip_smoke_import_nothing_of_lama_tpu():
             'lama_tpu_torch.evaluation.utils, '
             'lama_tpu_torch.models.aux.inception, '
             'lama_tpu_torch.models.aux.small_nets, '
+            'lama_tpu_torch.models.aux.segmentation, '
+            'lama_tpu_torch.models.aux.mobilenet, '
+            'lama_tpu_torch.evaluation.segm_scores, '
+            'lama_tpu_torch.evaluation.segm_backend, '
+            'lama_tpu_torch.evaluation.masks, '
+            'lama_tpu_torch.evaluation.countless, '
+            'lama_tpu_torch.evaluation.lpips_research, '
+            'lama_tpu_torch.evaluation.vis, '
+            'lama_tpu_torch.losses.segmentation, '
+            'lama_tpu_torch.gen_mask_dataset, '
             'chip_smoke; chip_smoke.big_lama_kwargs(); '
             'lama_tpu_torch.evaluation.make_evaluator(device="cpu"); '
+            'lama_tpu_torch.models.aux.segmentation.SegmentationModule('
+            'arch_encoder="mobilenetv2dilated", device="cpu"); '
             'print(sorted(m for m in sys.modules if m.split(".")[0] in '
             '("lama_tpu", "jax", "flax", "jaxlib")))')
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
     assert res.stdout.strip() == '[]'
+
+
+def test_gen_mask_dataset_cli_imports_nothing_of_lama_tpu(tmp_path):
+    """`python -m lama_tpu_torch.gen_mask_dataset` (run as -m runs it, on
+    a tiny image with a random-kind config) loads no module of lama_tpu,
+    jax or flax and writes its pair."""
+    import yaml
+    from PIL import Image
+    (tmp_path / 'in').mkdir()
+    Image.fromarray(np.full((40, 56, 3), 128, np.uint8)).save(
+        tmp_path / 'in' / 'a.jpg')
+    config = tmp_path / 'gen.yaml'
+    config.write_text(yaml.safe_dump(dict(
+        generator_kind='random', cropping=dict(out_min_size=32),
+        mask_generator_kwargs=dict(irregular_proba=1, box_proba=0,
+                                   segm_proba=0, variants_n=1))))
+    code = ('import runpy, sys; sys.argv = ["gen_mask_dataset", '
+            f'"{config}", "{tmp_path / "in"}", "{tmp_path / "out"}", '
+            '"--seed", "0", "--device", "cpu"]; '
+            'runpy.run_module("lama_tpu_torch.gen_mask_dataset", '
+            'run_name="__main__"); '
+            'print(sorted(m for m in sys.modules if m.split(".")[0] in '
+            '("lama_tpu", "jax", "flax", "jaxlib")))')
+    res = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().splitlines()[-1] == '[]'
+    assert sorted(os.listdir(tmp_path / 'out')) == ['a_crop000.png',
+                                                    'a_crop000_mask000.png']
 
 
 @pytest.mark.parametrize('override', ['precision=int8',
