@@ -126,6 +126,27 @@ version):
      SEG_ATOL), and the masks equal those the same host code makes from
      the CPU's map with its near-ties given the card's labels; at least
      one mask is so compared.
+ 15. the rest of training (last), `python -m lama_tpu_torch.train` in this
+     process at b10 256^2, 4 steps a run (2 warm up), each step's losses
+     finite, its launches exact and every G and D weight and BN statistic
+     moved, one step profiled: run A `-cn ablv2_work_no_segmpl_vgg` as
+     shipped, bf16 (the GlobalGenerator of 9 blocks, the NLayer D, the
+     VGG19 perceptual loss at 0.03: gen_pl finite and non-zero; kernel 6
+     36, stem 2, head 2 per step); run B `-cn big-lama` in bf16 and fp32
+     with the FFC discriminator, fake fakes (0.5), pps distance weighting
+     also for the adversarial G loss, 4 scales of input noise (the stem's
+     C 8, on stem_conv.cu), lazy R1 (r1_every 2), a ladder rescale ramp
+     and the constant-area crop, the uint8 wire (per step big-lama's counts
+     plus the FFC D's kernel 6 2 and kernel 4 3 per D forward, 4 forwards,
+     5 when that step's fake-fakes draw is 1); run C `-cn big-lama` bf16
+     on web shards with bce, steps_per_dispatch 2 and an online val set of
+     8 images (validated, the served counts per eval forward). Then, on
+     run B's fp32 trainer, the gradient of the D loss with R1 w.r.t. the
+     FFC D's weights, kernels vs kernels='plain', on 10 batches, each
+     within TRAIN_FLOOR_FACTOR x the plain path's spread, the detached-R1
+     control rejected each time. Kernel rows at the FFC D's shapes (kernel
+     6 at L0 (10,3,256^2)->64 and L4 (10,512,32^2)->512, kernel 4 at L1-L3)
+     join phase 3's, with run B's launches per step.
 Prints the `kernels` JSON line, then, as its last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device, and
 when run outside a checkout of the repository.
@@ -415,6 +436,18 @@ def kernel_cases(gen):
                                                          b=10)),
         ('reflect_out_conv7x7', 'refine_head_1024',
          conv_case(64, 3, 1024, 7, True, b=1)),
+        # the FFC discriminator's layers at training's b10 256^2 (ndf 64,
+        # n_layers 4, no bias: phase 15): kernel 6 at L0 and L4, kernel 4
+        # at L1-L3
+        ('halo_conv3x3_reflect', 'd_l0', conv_case(3, 64, 256, 3, False, b=10)),
+        ('reflect_down_conv3x3', 'd_l1',
+         conv_case(64, 128, 256, 3, False, b=10)),
+        ('reflect_down_conv3x3', 'd_l2',
+         conv_case(128, 256, 128, 3, False, b=10)),
+        ('reflect_down_conv3x3', 'd_l3',
+         conv_case(256, 512, 64, 3, False, b=10)),
+        ('halo_conv3x3_reflect', 'd_l4',
+         conv_case(512, 512, 32, 3, False, b=10)),
     ]
     src = 'lama_tpu/ops/pallas/'
 
@@ -1166,7 +1199,7 @@ def device_profile(fn, label, top=10, tries=3):
     if not kernels:
         log(f'{label} profiled: wall {wall:.1f} ms, device kernels not '
             'measured')
-        return
+        return dict(wall_ms=wall, device_ms=None, idle=None)
     dev = {e.key: e.self_device_time_total for e in kernels}
     counts = {e.key: e.count for e in kernels}
     busy = sum(dev.values()) / 1e3
@@ -1176,6 +1209,7 @@ def device_profile(fn, label, top=10, tries=3):
     for i, (name, us) in enumerate(ranked):
         if i < top or (OWN_KERNEL_NS in name and 'at::' not in name):
             log(f'  {us / 1e3:8.2f} ms {counts[name]:5d}x {name[:100]}')
+    return dict(wall_ms=wall, device_ms=busy, idle=1 - busy / wall)
 
 
 def wrapper_device_ms(fn, label):
@@ -1361,32 +1395,38 @@ def _params_and_stats(trainer):
 
 
 def train_run(work, precision, config_name='big-lama', steps=TRAIN_STEPS,
-              per_step=PER_TRAIN_STEP, val_dir=None):
-    """`python -m lama_tpu_torch.train -cn <config_name>` (in this process,
-    as `-m` runs it) at batch TRAIN_BATCH, TRAIN_SIZE^2, for `steps` steps
-    of one epoch. The trainer's step is wrapped for the run: each step is
-    synchronised before and after and timed, its metrics read, and its
-    launches counted (each must equal `per_step`). With `val_dir` the
-    epoch ends with validation on it, whose launches and generator
-    forwards are counted apart (`val_counts`, `val_forwards`) and left out
-    of the run's `launches`. Returns the run's record and the trainer."""
+              per_step=PER_TRAIN_STEP, val_dir=None, extra=(), tag=''):
+    """`python -m lama_tpu_torch.train -cn <config_name> <extra>` (in this
+    process, as `-m` runs it) at batch TRAIN_BATCH, TRAIN_SIZE^2, for
+    `steps` steps of one epoch. The trainer's step is wrapped for the run:
+    each step is synchronised before and after and timed (its draws,
+    `InpaintingTrainStep.draw`, included), its metrics read, its
+    fake-fakes draw kept, and its launches counted (each must equal
+    `per_step`, or `per_step(use_ff)` when that is a function of the
+    step's fake-fakes draw). With `val_dir` the epoch ends with validation
+    on it, whose launches and generator forwards are counted apart
+    (`val_counts`, `val_forwards`) and left out of the run's `launches`.
+    Returns the run's record and the trainer."""
     import torch
     from lama_tpu_torch.training import step as step_mod
     from lama_tpu_torch.training import trainer as trainer_mod
-    rec = dict(step_ms=[], metrics=[], counts=[])
+    rec = dict(step_ms=[], metrics=[], counts=[], use_ff=[])
     call, fit = step_mod.InpaintingTrainStep.__call__, trainer_mod.InpaintingTrainer.fit
     validate = trainer_mod.InpaintingTrainer.validate
 
-    def timed_call(self, state, image, mask):
+    def timed_call(self, state, image, mask, draws=None):
         fns = kernel_wrappers()
         before = {k: f.launches for k, f in fns.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        metrics = {k: float(v) for k, v in call(self, state, image, mask).items()}
+        draws = self.draw(state.step, image) if draws is None else draws
+        metrics = {k: float(v) for k, v in
+                   call(self, state, image, mask, draws).items()}
         torch.cuda.synchronize()
         rec['step_ms'].append((time.perf_counter() - t0) * 1e3)
         rec['counts'].append({k: f.launches - before[k] for k, f in fns.items()})
         rec['metrics'].append(metrics)
+        rec['use_ff'].append(draws.use_ff)
         rec['batch'] = (image, mask)
         return metrics
 
@@ -1408,7 +1448,7 @@ def train_run(work, precision, config_name='big-lama', steps=TRAIN_STEPS,
         return out
 
     data = os.path.join(work, 'train_data')
-    run_dir = os.path.join(work, f'train_{config_name}_{precision}')
+    run_dir = os.path.join(work, f'train_{config_name}_{precision}{tag}')
     argv = ['-cn', config_name, f'location.data_root_dir={data}',
             f'location.out_root_dir={work}', f'location.tb_dir={work}',
             f'location.pretrained_models={work}', f'run_dir={run_dir}',
@@ -1420,6 +1460,7 @@ def train_run(work, precision, config_name='big-lama', steps=TRAIN_STEPS,
             'losses.resnet_pl.allow_random_weights=true', 'device=cuda']
     if val_dir:
         argv += [f'data.val.indir={val_dir}', 'data.val.img_suffix=.png']
+    argv += list(extra)
     step_mod.InpaintingTrainStep.__call__ = timed_call
     trainer_mod.InpaintingTrainer.fit = recording_fit
     trainer_mod.InpaintingTrainer.validate = counted_validate
@@ -1438,13 +1479,15 @@ def train_run(work, precision, config_name='big-lama', steps=TRAIN_STEPS,
     rec['run_dir'] = run_dir
     trainer = rec.pop('trainer')
     n = len(rec['step_ms'])
-    label = f'{config_name} {precision}'
+    label = f'{config_name}{tag} {precision}'
     check(n == steps, f'train {label}: {n} steps, expected {steps}')
-    for i, (m, c) in enumerate(zip(rec['metrics'], rec['counts'])):
+    for i, (m, c, ff) in enumerate(zip(rec['metrics'], rec['counts'],
+                                      rec['use_ff'])):
         check(all(math.isfinite(v) for v in m.values()),
               f'train {label} step {i}: non-finite loss {m}')
-        check(c == per_step,
-              f'train {label} step {i}: launches {c}, expected {per_step}')
+        expected = per_step(ff) if callable(per_step) else per_step
+        check(c == expected,
+              f'train {label} step {i}: launches {c}, expected {expected}')
     after = _params_and_stats(trainer)
     for group in ('G.', 'D.'):
         for kind in ('weight', 'running_mean', 'running_var'):
@@ -1725,6 +1768,236 @@ def train(work, config_name='big-lama', steps=TRAIN_STEPS,
     if val_dir:
         serve_checkpoint(work, out['bf16']['run_dir'],
                          out['bf16']['best_checkpoint'])
+    return out
+
+
+# -------------------------------------------------- the rest of training
+REST_STEPS = 4   # each phase-15 run: 2 timed after 2 warm-up
+# -cn ablv2_work_no_segmpl_vgg: the GlobalGenerator of 9 ResnetBlocks (two
+# kernel-6 convs each), the stem and the head per forward, two forwards a
+# step; the pix2pixHD discriminator and the VGG19 trunk are zero-padded
+ABLV2_PER_TRAIN_STEP = dict(REGULAR_PER_TRAIN_STEP, halo_conv3x3_reflect=36)
+# run B: big-lama's G step counts, and the FFC discriminator (ndf 64,
+# n_layers 4) per forward: kernel 6 at L0 and L4, kernel 4 at L1-L3; four
+# forwards a step (G step: reals, fakes; D step: reals with R1, fakes),
+# a fifth when the step's fake-fakes draw is 1
+FFC_D_PER_FORWARD = dict(halo_conv3x3_reflect=2, reflect_down_conv3x3=3)
+REST_B = [
+    'discriminator.kind=ffc_nlayer', '+training_model.fake_fakes_proba=0.5',
+    '+training_model.distance_weighter_kwargs.kind=pps',
+    '+training_model.distance_weighted_mask_for_discr=true',
+    '+training_model.add_noise_kwargs.scales=4', 'generator.input_nc=8',
+    'losses.adversarial.r1_every=2',
+    '+training_model.rescale_scheduler_kwargs.kind=ladder',
+    '+training_model.rescale_scheduler_kwargs.start_iters=[2]',
+    '+training_model.rescale_scheduler_kwargs.values=[224,256]',
+    '+training_model.const_area_crop_kwargs.min_size=192',
+    '+training_model.const_area_crop_kwargs.max_size=256',
+    '+training_model.const_area_crop_kwargs.area=50176',
+    'trainer.kwargs.input_transfer_dtype=uint8']
+# the D-step check (fp32, run B's trainer): the gradient of the D loss with
+# R1 w.r.t. the FFC discriminator's weights, kernels vs kernels='plain',
+# within TRAIN_FLOOR_FACTOR times the plain path's own spread, as for G
+# (the largest of TRAIN_DRAWS draws of TRAIN_X_EPS noise on the images), by
+# the G check's three measures; the control (R1's gradient detached: the
+# penalty's second-order term dropped) must fall outside. D_REPEATS batches.
+D_REPEATS = 10
+
+
+def rest_b_per_step(use_ff):
+    forwards = 4 + int(use_ff)
+    out = dict(PER_TRAIN_STEP)
+    for k, v in FFC_D_PER_FORWARD.items():
+        out[k] += v * forwards
+    return out
+
+
+def write_shards(root, images, n_shards=4):
+    """The JPEGs of `images` (a directory) as tar shards
+    root/part{00000..n-1}.tar, the web dataset's layout."""
+    import tarfile
+    os.makedirs(root)
+    names = sorted(os.listdir(images))
+    for s in range(n_shards):
+        with tarfile.open(os.path.join(root, f'part{s:05d}.tar'), 'w') as tf:
+            for name in names[s::n_shards]:
+                tf.add(os.path.join(images, name), arcname=name)
+    return os.path.join(root, f'part{{00000..{n_shards - 1:05d}}}.tar')
+
+
+def write_online_val_images(root, rng, n=VAL_N, size=VAL_SIZE):
+    """n PNG images (no masks: the online val set draws them on load)."""
+    os.makedirs(root)
+    yy, xx = np.mgrid[0:size, 0:size] / 20.0
+    for i in range(n):
+        img = np.stack([np.cos(yy - i), np.sin(xx + i), np.cos(xx - yy)], -1)
+        img = np.clip(0.5 + 0.4 * img + 0.05 * rng.randn(size, size, 3), 0, 1)
+        write_png(os.path.join(root, f'o{i}.png'),
+                  np.rint(img * 255).astype(np.uint8))
+
+
+def one_image_fid(val_metrics, key):
+    """Whether `key` is the FID of a mask-area group that holds one image,
+    which the evaluator defines as NaN (evaluation/scores.py, as lama_tpu's):
+    its SSIM and LPIPS spreads are 0. The online val set draws its masks
+    from an unseeded generator, as lama_tpu's and the reference's do, so a
+    group of one image comes and goes between runs."""
+    if not (key.startswith('val_fid_') and key.endswith('_mean')):
+        return False
+    group = key[len('val_fid_'):-len('_mean')]
+    return group != 'total' and all(
+        val_metrics.get(f'val_{m}_{group}_std') == 0 for m in ('ssim', 'lpips'))
+
+
+def d_step_gradient_vs_plain(trainer):
+    """fp32: the gradient of the D objective with R1 (run B's step: fake
+    fakes aside) w.r.t. the FFC discriminator's weights, with kernels and
+    with kernels='plain' (the same weights), on D_REPEATS batches (reals
+    and fakes drawn from seeds, run B's masks); each against the plain
+    path's own spread, and the detached-R1 control, which must fall
+    outside it. Returns the largest ratio of each measure over the
+    repeats, the control's smallest and the seconds."""
+    import torch
+    from lama_tpu_torch.models import make_discriminator
+    from lama_tpu_torch.ops.precision import widen
+    t_start = time.perf_counter()
+    step, disc = trainer.step_fn, trainer.state.discriminator
+    kw = dict(trainer.config.discriminator)
+    plain = make_discriminator(kw.pop('kind'), dtype=torch.float32,
+                               kernels='plain', **kw)
+    plain.load_state_dict(disc.state_dict())
+    plain = plain.cuda().train()
+    adv = step.adversarial
+    g = torch.Generator().manual_seed(19)
+
+    def detached_r1(score, real):   # the planted fault
+        grad, = torch.autograd.grad(score.sum(), real, retain_graph=True)
+        return widen(grad).reshape(grad.shape[0], -1).square().sum(1).mean()
+
+    def grads(model, img, pred, mask, eps=0.0, fault=False):
+        if eps:
+            img = img * (1 + eps * torch.randn(img.shape, generator=g).cuda())
+            pred = pred * (1 + eps * torch.randn(pred.shape, generator=g).cuda())
+        if fault:
+            adv.r1_penalty = detached_r1
+        try:
+            loss, metrics = step.discriminator_loss(model, img, pred, mask,
+                                                    take_r1=True)
+        finally:
+            adv.__dict__.pop('r1_penalty', None)
+        params = list(model.parameters())
+        out = torch.autograd.grad(loss, params)
+        return float(loss.detach()), float(metrics['discr_real_gp']), out
+
+    worst, control_min = [0.0, 0.0, 0.0], [math.inf] * 3
+    shape = (TRAIN_BATCH, 3, TRAIN_SIZE, TRAIN_SIZE)
+    for r in range(D_REPEATS):
+        mask = random_batch(TRAIN_BATCH, TRAIN_SIZE, 41 + r)[:, 3:]
+        img, pred = (torch.rand(shape, generator=g).cuda() for _ in range(2))
+        ref_l, ref_gp, ref = grads(plain, img, pred, mask)
+        ours_l, ours_gp, ours = grads(disc, img, pred, mask)
+        check(abs(ours_l - ref_l) <= TRAIN_LOSS_RTOL * abs(ref_l)
+              and abs(ours_gp - ref_gp) <= 1e-3 * abs(ref_gp) and ref_gp > 0,
+              f'D step {r}: loss {ours_l}/{ref_l}, R1 {ours_gp}/{ref_gp}')
+
+        def diff(a):
+            d = _grad_diff(a, ref)
+            return (d[0], _normed_diff(a, ref), 1 - d[2])
+
+        draws = [diff(grads(plain, img, pred, mask, TRAIN_X_EPS)[2])
+                 for _ in range(TRAIN_DRAWS)]
+        floor = [max(d[i] for d in draws) for i in range(3)]
+        ratios = [x / (TRAIN_FLOOR_FACTOR * f) if f else (0.0 if x == 0 else
+                                                       math.inf)
+                  for x, f in zip(diff(ours), floor)]
+        control = diff(grads(disc, img, pred, mask, fault=True)[2])
+        c_ratios = [x / (TRAIN_FLOOR_FACTOR * f) if f else math.inf
+                    for x, f in zip(control, floor)]
+        log(f'D step {r} fp32 kernels vs plain (R1 {ours_gp:.4e}): ours / '
+            f'({TRAIN_FLOOR_FACTOR} x plain spread), pass <= 1: '
+            + ', '.join(f'{x:.3f}' for x in ratios) + '; control (R1 '
+            'gradient detached): ' + ', '.join(f'{x:.3g}' for x in c_ratios))
+        check(all(x <= 1 + 1e-9 for x in ratios),
+              f"D step {r}: kernels vs plain beyond the plain path's spread")
+        check(any(x > 1 for x in c_ratios),
+              f'D step {r}: the check let a detached R1 gradient pass')
+        worst = [max(a, b) for a, b in zip(worst, ratios)]
+        control_min = [min(a, b) for a, b in zip(control_min, c_ratios)]
+    seconds = time.perf_counter() - t_start
+    log(f'D step check, {D_REPEATS} batches: largest ratio per measure '
+        + ', '.join(f'{x:.3f}' for x in worst) + '; the control\'s smallest '
+        + ', '.join(f'{x:.3g}' for x in control_min) + f' ({seconds:.1f} s)')
+    return dict(worst=worst, control_min=control_min, seconds=seconds)
+
+
+def rest_of_training(work):
+    """Phase 15: `python -m lama_tpu_torch.train` with the rest of
+    lama_tpu's training options at b10 256^2 (runs A, B, C; see the
+    module docstring), each run's step profiled once, the D-step check on
+    run B's fp32 trainer. Returns the records by run."""
+    import torch
+    from lama_tpu_torch.ops.kernels import halo_conv as hc
+    t0 = time.perf_counter()
+    write_train_images(os.path.join(work, 'train_data'),
+                       TRAIN_BATCH * REST_STEPS, np.random.RandomState(5))
+    shards = write_shards(os.path.join(work, 'shards'),
+                          os.path.join(work, 'train_data', 'train'))
+    val_dir = os.path.join(work, 'online_val')
+    write_online_val_images(val_dir, np.random.RandomState(6))
+    route = hc.tiled_route(TRAIN_SIZE, TRAIN_SIZE, 8, 64, 7, 1)
+    log('phase 15: the 8-channel stem of run B (4 noise scales) runs '
+        + (SOURCES['halo_conv_reflect_tiled'] if route is not None
+           else TILED_OTHER_SOURCE))
+    runs = [('A', 'bf16', 'ablv2_work_no_segmpl_vgg', ABLV2_PER_TRAIN_STEP, []),
+            ('B', 'bf16', 'big-lama', rest_b_per_step, REST_B),
+            ('B', 'fp32', 'big-lama', rest_b_per_step, REST_B),
+            ('C', 'bf16', 'big-lama', PER_TRAIN_STEP, [
+                'data.train.kind=default_web', f'data.train.indir={shards}',
+                'losses.adversarial.kind=bce', '~losses.adversarial.gp_coef',
+                '~losses.adversarial.mask_as_fake_target',
+                'trainer.kwargs.steps_per_dispatch=2',
+                f'data.val.indir={val_dir}', 'data.val.kind=online',
+                'data.val.img_suffix=.png',
+                '+data.val.mask_gen_kwargs.segm_proba=0'])]
+    out = {}
+    for name, precision, config_name, per_step, extra in runs:
+        rec, trainer = train_run(work, precision, config_name, REST_STEPS,
+                                 per_step, extra=extra, tag=f'_{name}')
+        label = f'run {name} ({config_name}) {precision}'
+        image, mask = rec.pop('batch')
+        if name == 'A':
+            pl = [m['gen_pl'] for m in rec['metrics']]
+            check(all(math.isfinite(v) and v != 0 for v in pl),
+                  f'{label}: gen_pl {pl}')
+        if name == 'B':
+            check(any(m['discr_real_gp'] > 0 for m in rec['metrics']),
+                  f'{label}: no R1 step')
+        if name == 'C':
+            val = rec['val_metrics']
+            check('val_ssim_total_mean' in val and all(
+                math.isfinite(v) or one_image_fid(val, k)
+                for k, v in val.items()),
+                f'{label}: online validation {val}')
+            check(rec['val_forwards'] > 0 and all(
+                rec['val_counts'][k] == per * rec['val_forwards']
+                for k, per in PER_FORWARD.items()),
+                f'{label}: validation launches {rec["val_counts"]}')
+        log(f'{label}: fake-fakes draws {rec["use_ff"]}, launches per step '
+            f'{rec["counts"]}')
+        st = trainer.state
+        rec['profile'] = device_profile(
+            lambda: trainer.step_fn(st, image, mask),
+            f'phase 15 {label} b{TRAIN_BATCH} step', top=12)
+        if name == 'B' and precision == 'fp32':
+            rec['d_gradient'] = d_step_gradient_vs_plain(trainer)
+        out[name, precision] = rec
+        del trainer, st
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log(f'phase 15: {seconds:.1f} s; ' + '; '.join(
+        f'run {n} {p} {r["ms_per_step"]:.1f} ms/step, peak {r["peak_gib"]:.2f}'
+        f' GiB, idle {r["profile"]["idle"]}' for (n, p), r in out.items()))
+    out['seconds'] = seconds
     return out
 
 
@@ -2274,6 +2547,16 @@ def main():
         if REGULAR_PER_FORWARD[name] and not PER_FORWARD[name]:
             # kernel 6: its path is big-lama-regular's
             row['launches'] = row['regular_launches']
+    del gens
+    torch.cuda.empty_cache()
+
+    # phase 15: the rest of training
+    with tempfile.TemporaryDirectory() as work:
+        rest = rest_of_training(work)
+    for row in rows:
+        run_b = rest['B', row['dtype']]
+        row['rest_train_launches'] = run_b['launches'][row['name']]
+        row['rest_train_per_step'] = [c[row['name']] for c in run_b['counts']]
     log(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,20 +1,28 @@
 """Datasets and loaders: copies of lama_tpu/data/datasets.py, so the port
 imports nothing of lama_tpu. Evaluation (the predict CLI, the evaluator and
 the trainer's validation): InpaintingDataset and OurInpaintingDataset
-(:232-297), their precomputed-results variants (:300-343), and
-make_default_val_dataset (:603-623, kinds `default` and `our_eval`;
-`online` raises). Training:
-InpaintingTrainDataset (:28), collate and BatchLoader (:394-511) and
-make_default_train_dataloader (:563, kind `default`; the web-shard and
-segmentation kinds raise). The train dataset decodes with cv2, where the
-JAX package prefers its native libjpeg decoder when built (native/); the
-two give the same pixels for baseline JPEGs (tests/test_torch_host.py)."""
+(:232-297), their precomputed-results variants (:300-343),
+InpaintingEvalOnlineDataset (:346-376, masks generated on load),
+ConcatDataset (:378-392, val over a list of directories) and
+make_default_val_dataset (:603-623, kinds `default`, `our_eval` and
+`online`). Training: InpaintingTrainDataset (:28), expand_shards and
+InpaintingTrainWebDataset (:78-190, stdlib tar shards with a shuffle
+buffer), ImgSegmentationDataset (:191-230, one-hot ADE20k segmentation),
+collate, BatchLoader and IterableBatchLoader (:394-560),
+make_default_train_dataloader (:563, kinds `default`, `default_web` and
+`img_with_segm`) and make_constant_area_crop_params (:633-648). The train
+datasets decode with cv2, where the JAX package prefers its native libjpeg
+decoder when built (native/); the two give the same pixels for baseline
+JPEGs (tests/test_torch_host.py)."""
 import glob
+import itertools
 import logging
 import os
 import queue
+import re
+import tarfile
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import cv2
 import numpy as np
@@ -145,6 +153,55 @@ class OurPrecomputedInpaintingResultsDataset(OurInpaintingDataset):
         return result
 
 
+class InpaintingEvalOnlineDataset:
+    """Images + masks generated on load (reference evaluation/data.py:145-168)."""
+
+    def __init__(self, indir, mask_generator, img_suffix='.jpg',
+                 pad_out_to_modulo=None, scale_factor=None,
+                 rng: Optional[np.random.RandomState] = None, **kwargs):
+        self.indir = indir
+        self.mask_generator = mask_generator
+        self.img_filenames = sorted(glob.glob(
+            os.path.join(indir, '**', f'*{img_suffix}'), recursive=True))
+        self.pad_out_to_modulo = pad_out_to_modulo
+        self.scale_factor = scale_factor
+        self.rng = rng or np.random.RandomState()
+
+    def __len__(self):
+        return len(self.img_filenames)
+
+    def __getitem__(self, i):
+        img, raw_image = load_image(self.img_filenames[i], mode='RGB',
+                                    return_orig=True)
+        mask = self.mask_generator((img.shape[0], img.shape[1]),
+                                   raw_image=raw_image, rng=self.rng)
+        result = dict(image=img, mask=mask.astype(np.float32))
+        if self.scale_factor is not None:
+            result['image'] = scale_image(result['image'], self.scale_factor)
+            result['mask'] = scale_image(result['mask'], self.scale_factor,
+                                         interpolation=cv2.INTER_NEAREST)
+        if self.pad_out_to_modulo is not None and self.pad_out_to_modulo > 1:
+            result['image'] = pad_img_to_modulo(result['image'],
+                                                self.pad_out_to_modulo)
+            result['mask'] = pad_img_to_modulo(result['mask'],
+                                               self.pad_out_to_modulo)
+        return result
+
+
+class ConcatDataset:
+    def __init__(self, datasets: Sequence):
+        self.datasets = list(datasets)
+        self.offsets = np.cumsum([len(d) for d in self.datasets])
+
+    def __len__(self):
+        return int(self.offsets[-1]) if len(self.datasets) else 0
+
+    def __getitem__(self, i):
+        ds_idx = int(np.searchsorted(self.offsets, i, side='right'))
+        prev = 0 if ds_idx == 0 else int(self.offsets[ds_idx - 1])
+        return self.datasets[ds_idx][i - prev]
+
+
 # ------------------------------------------------------------------ training
 
 class InpaintingTrainDataset:
@@ -187,6 +244,155 @@ class InpaintingTrainDataset:
         rng = np.random.RandomState(
             (self.seed + 0x9E3779B9 * (seq + 1) + 7919 * stream_salt) % (2 ** 32))
         return self._load(self.in_files[item], seq, rng)
+
+
+def expand_shards(pattern: str) -> List[str]:
+    """A webdataset shard pattern as a sorted file list: `{00000..00039}`
+    brace ranges (the syntax the reference's `webdataset.Dataset(indir)`
+    takes, reference datasets.py:50) and glob wildcards; a literal path
+    passes through."""
+    def _expand_braces(p: str) -> List[str]:
+        m = re.search(r'\{(\d+)\.\.(\d+)\}', p)
+        if m is None:
+            return [p]
+        lo, hi = m.group(1), m.group(2)
+        out = []
+        for i in range(int(lo), int(hi) + 1):
+            out.extend(_expand_braces(p[:m.start()] + str(i).zfill(len(lo))
+                                      + p[m.end():]))
+        return out
+
+    files: List[str] = []
+    for candidate in _expand_braces(pattern):
+        if any(c in candidate for c in '*?['):
+            files.extend(glob.glob(candidate))
+        else:
+            files.append(candidate)
+    return sorted(files)
+
+
+class InpaintingTrainWebDataset:
+    """Iterable training dataset over webdataset-style tar shards
+    (reference datasets.py:48-61, kind='default_web') on the stdlib's
+    tarfile with a shuffle buffer. The shard list is split round-robin
+    across hosts (`shard_id::num_shards`). Epochs are deterministic given
+    (seed, epoch, cycle): `set_epoch` reshuffles the shard order and
+    reseeds the sample stream; `set_cycle` numbers the repeat passes of
+    one epoch (IterableBatchLoader)."""
+
+    def __init__(self, indir, mask_generator, transform, shuffle_buffer=200,
+                 shard_id=0, num_shards=1, seed: Optional[int] = None,
+                 rng: Optional[np.random.RandomState] = None):
+        all_shards = expand_shards(indir)
+        self.shards = all_shards[shard_id::num_shards]
+        if not self.shards:
+            raise ValueError(
+                f'Web dataset {indir!r}: {len(all_shards)} shard(s) cannot '
+                f'feed host {shard_id} of {num_shards}: need at least one '
+                'shard per host')
+        self.mask_generator = mask_generator
+        self.transform = transform
+        self.shuffle_buffer = shuffle_buffer
+        self.shard_id = int(shard_id)
+        self.seed = seed
+        self.epoch = 0
+        self.cycle = 0
+        self._rng = rng   # an explicit rng overrides the (seed, epoch) one
+
+    def set_epoch(self, epoch: int):
+        self.epoch = int(epoch)
+
+    def set_cycle(self, cycle: int):
+        self.cycle = int(cycle)
+
+    def _epoch_rng(self) -> np.random.RandomState:
+        if self._rng is not None:
+            return self._rng
+        base = 0 if self.seed is None else int(self.seed)
+        return np.random.RandomState(
+            (base + 0x9E3779B9 * (self.epoch + 1) + 7919 * self.shard_id
+             + 0x85EBCA6B * self.cycle) % (2 ** 32))
+
+    def _iter_images(self, shards):
+        for shard in shards:
+            with tarfile.open(shard) as tf:
+                for member in tf:
+                    if not member.isfile() or not member.name.lower().endswith(
+                            ('.jpg', '.jpeg', '.png')):
+                        continue
+                    data = np.frombuffer(tf.extractfile(member).read(), np.uint8)
+                    img = cv2.imdecode(data, cv2.IMREAD_COLOR)
+                    if img is not None:
+                        yield cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+    def __iter__(self):
+        rng = self._epoch_rng()
+        shards = list(self.shards)
+        rng.shuffle(shards)
+        buffer = []
+        iter_i = 0
+
+        def emit(img):
+            nonlocal iter_i
+            img = self.transform(image=img, rng=rng)['image']
+            mask = self.mask_generator((img.shape[0], img.shape[1]),
+                                       iter_i=iter_i, raw_image=img, rng=rng)
+            iter_i += 1
+            return dict(image=img.astype(np.float32),
+                        mask=mask.astype(np.float32))
+
+        for img in self._iter_images(shards):
+            buffer.append(img)
+            if len(buffer) >= self.shuffle_buffer:
+                yield emit(buffer.pop(rng.randint(len(buffer))))
+        rng.shuffle(buffer)
+        for img in buffer:
+            yield emit(img)
+
+
+class ImgSegmentationDataset:
+    """Image + its precomputed semantic segmentation, one-hot over
+    `semantic_seg_n_classes` (150: ADE20k), for the segmentation-aware
+    ablations (reference datasets.py:64-98), HWC. The segmentation of
+    <indir>/x.jpg is <segm_indir>/x.png, label 0 (unlabelled) and 1 both
+    class 0."""
+
+    def __init__(self, indir, mask_generator, transform, out_size, segm_indir,
+                 semantic_seg_n_classes=150,
+                 rng: Optional[np.random.RandomState] = None):
+        self.indir = indir
+        self.segm_indir = segm_indir
+        self.mask_generator = mask_generator
+        self.transform = transform
+        self.out_size = out_size
+        self.semantic_seg_n_classes = semantic_seg_n_classes
+        self.in_files = sorted(glob.glob(os.path.join(indir, '**', '*.jpg'),
+                                         recursive=True))
+        self.rng = rng or np.random.RandomState()
+
+    def __len__(self):
+        return len(self.in_files)
+
+    def __getitem__(self, item):
+        path = self.in_files[item]
+        img = cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
+        img = cv2.resize(img, (self.out_size, self.out_size))
+        img = self.transform(image=img, rng=self.rng)['image']
+        mask = self.mask_generator((img.shape[0], img.shape[1]),
+                                   raw_image=img, rng=self.rng)
+        segm, segm_classes = self._load_semantic_segm(path)
+        return dict(image=img.astype(np.float32), mask=mask.astype(np.float32),
+                    segm=segm, segm_classes=segm_classes)
+
+    def _load_semantic_segm(self, img_path):
+        segm_path = img_path.replace(self.indir, self.segm_indir).replace(
+            '.jpg', '.png')
+        mask = cv2.imread(segm_path, cv2.IMREAD_GRAYSCALE)
+        mask = cv2.resize(mask, (self.out_size, self.out_size),
+                          interpolation=cv2.INTER_NEAREST)
+        classes = np.clip(mask.astype(np.int64) - 1, 0, None)
+        one_hot = np.eye(self.semantic_seg_n_classes, dtype=np.float32)[classes]
+        return one_hot, classes[..., None]
 
 
 def collate(items: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
@@ -309,23 +515,77 @@ class BatchLoader:
             stop.set()
 
 
+class IterableBatchLoader:
+    """Batches of an iterable dataset (web shards); epochs re-iterate and
+    a trailing partial batch is dropped. With `epoch_batches` the stream
+    is cycled (webdataset's .repeat()) so that every epoch yields exactly
+    that many batches; the partial batch carries across cycles, so a
+    dataset smaller than a batch still fills batches."""
+
+    def __init__(self, dataset, batch_size=1, epoch_batches=None):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.epoch_batches = epoch_batches
+
+    def set_epoch(self, epoch):
+        set_epoch = getattr(self.dataset, 'set_epoch', None)
+        if set_epoch is not None:
+            set_epoch(epoch)
+
+    def __iter__(self):
+        produced = 0
+        set_cycle = getattr(self.dataset, 'set_cycle', None)
+        batch = []
+        for cycle in itertools.count():
+            if set_cycle is not None:
+                set_cycle(cycle)
+            empty = True
+            for item in self.dataset:
+                empty = False
+                batch.append(item)
+                if len(batch) == self.batch_size:
+                    yield collate(batch)
+                    batch = []
+                    produced += 1
+                    if (self.epoch_batches is not None
+                            and produced >= int(self.epoch_batches)):
+                        return
+            if self.epoch_batches is None or empty:
+                return
+
+
 def make_default_train_dataloader(indir, kind='default', out_size=512,
                                   mask_gen_kwargs=None, transform_variant='default',
                                   mask_generator_kind='mixed', seed=None,
                                   dataloader_kwargs=None, ddp_kwargs=None, **kwargs):
-    """reference datasets.py:206-246, kind `default`."""
-    if kind != 'default':
-        raise NotImplementedError(f'train dataset kind {kind!r} is not ported '
-                                  'yet (ROADMAP queue 1 item 10)')
+    """reference datasets.py:206-246."""
     LOGGER.info(f'Make train dataloader {kind} from {indir} '
                 f'(mask generator={mask_generator_kind})')
     mask_generator = get_mask_generator(kind=mask_generator_kind,
                                         kwargs=dict(mask_gen_kwargs or {}))
-    if seed is not None:
+    if seed is not None and kind in ('default', 'default_web'):
         kwargs.setdefault('seed', int(seed))  # per-item fetch RNG base
     transform = get_transforms(transform_variant, out_size)
-    dataset = InpaintingTrainDataset(indir=indir, mask_generator=mask_generator,
-                                     transform=transform, **kwargs)
+    if kind == 'default':
+        dataset = InpaintingTrainDataset(indir=indir, mask_generator=mask_generator,
+                                         transform=transform, **kwargs)
+    elif kind == 'default_web':
+        if ddp_kwargs is not None:  # disjoint shards per host
+            kwargs.setdefault('shard_id', ddp_kwargs.get('rank', 0))
+            kwargs.setdefault('num_shards', ddp_kwargs.get('num_replicas', 1))
+        dataset = InpaintingTrainWebDataset(indir=indir,
+                                            mask_generator=mask_generator,
+                                            transform=transform, **kwargs)
+        dl_kwargs = dict(dataloader_kwargs or {})
+        return IterableBatchLoader(dataset,
+                                   batch_size=dl_kwargs.get('batch_size', 1),
+                                   epoch_batches=dl_kwargs.get('epoch_batches'))
+    elif kind == 'img_with_segm':
+        dataset = ImgSegmentationDataset(indir=indir, mask_generator=mask_generator,
+                                         transform=transform, out_size=out_size,
+                                         **kwargs)
+    else:
+        raise ValueError(f'Unknown train dataset kind {kind}')
     dl_kwargs = dict(dataloader_kwargs or {})
     if ddp_kwargs is not None:
         dl_kwargs['shard_id'] = ddp_kwargs.get('rank', 0)
@@ -336,7 +596,13 @@ def make_default_train_dataloader(indir, kind='default', out_size=512,
 
 def make_default_val_dataset(indir, kind='default', out_size=512,
                              transform_variant=None, **kwargs):
-    """reference datasets.py:249-289, for one input directory."""
+    """reference datasets.py:249-289; a list of directories is the
+    ConcatDataset of theirs."""
+    if isinstance(indir, (tuple, list)):
+        return ConcatDataset([
+            make_default_val_dataset(idir, kind=kind, out_size=out_size,
+                                     transform_variant=transform_variant, **kwargs)
+            for idir in indir])
     LOGGER.info(f'Make val dataset {kind} from {indir}')
     if kind == 'default':
         kwargs.pop('mask_generator_kind', None)
@@ -345,6 +611,30 @@ def make_default_val_dataset(indir, kind='default', out_size=512,
     if kind == 'our_eval':
         return OurInpaintingDataset(indir, **kwargs)
     if kind == 'online':
-        raise NotImplementedError('dataset kind online (generated masks) is '
-                                  'not ported yet (ROADMAP queue 1 item 10)')
+        mask_generator = get_mask_generator(
+            kind=kwargs.pop('mask_generator_kind', None),
+            kwargs=kwargs.pop('mask_gen_kwargs', None))
+        return InpaintingEvalOnlineDataset(indir=indir,
+                                           mask_generator=mask_generator, **kwargs)
     raise ValueError(f'Unknown val dataset kind {kind}')
+
+
+def make_constant_area_crop_params(img_height, img_width, min_size=128,
+                                   max_size=512, area=256 * 256, round_to_mod=16,
+                                   rng=None):
+    """A random crop of about constant pixel area (reference
+    datasets.py:292-304): (start_y, start_x, height, width)."""
+    r = rng or np.random
+    min_size = min(img_height, img_width, min_size)
+    max_size = min(img_height, img_width, max_size)
+    if r.random() < 0.5:
+        out_height = min(max_size, ceil_modulo(r.randint(min_size, max_size),
+                                               round_to_mod))
+        out_width = min(max_size, ceil_modulo(area // out_height, round_to_mod))
+    else:
+        out_width = min(max_size, ceil_modulo(r.randint(min_size, max_size),
+                                              round_to_mod))
+        out_height = min(max_size, ceil_modulo(area // out_width, round_to_mod))
+    start_y = r.randint(0, img_height - out_height + 1)
+    start_x = r.randint(0, img_width - out_width + 1)
+    return (start_y, start_x, out_height, out_width)

@@ -14,7 +14,6 @@ path exists; otherwise it takes seeded random weights
 (models/aux/random_init.py) and logs a warning: no backbone weights are in
 this repository.
 """
-import logging
 import os
 from typing import Optional
 
@@ -22,12 +21,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..models.aux.random_init import seeded_random_init_
 from ..models.aux.small_nets import (ALEXNET_TAP_CHANNELS, AlexNetFeatures,
                                      SQUEEZE_TAP_CHANNELS, SqueezeNetFeatures)
-from ..models.aux.vgg import VGGFeatures
-
-LOGGER = logging.getLogger(__name__)
+from ..models.aux.vgg import (VGGFeatures, load_backbone_state,
+                              load_trunk_weights)
 
 # richzhang ScalingLayer constants (lpips.py PNetLin)
 _SHIFT = (-0.030, -0.088, -0.188)
@@ -47,16 +44,6 @@ def normalize_tensor(x, eps=1e-10):
     return x / (norm + eps)
 
 
-def load_backbone_state(path: str):
-    """A torchvision-format state_dict from a .pth/.pt file (its `state_dict`
-    entry if it has one); the file is unpickled in full: load only trusted
-    files."""
-    state = torch.load(path, map_location='cpu', weights_only=False)
-    if isinstance(state, dict) and 'state_dict' in state:
-        state = state['state_dict']
-    return state
-
-
 class LPIPS(nn.Module):
     def __init__(self, net: str = 'vgg', backbone_weights_path: Optional[str] = None,
                  lin_weights_path: Optional[str] = None, seed: int = 0):
@@ -73,17 +60,8 @@ class LPIPS(nn.Module):
             tap_channels = SQUEEZE_TAP_CHANNELS
         else:
             raise ValueError(f'Unknown LPIPS net {net}')
-        if backbone_weights_path and os.path.exists(backbone_weights_path):
-            state = load_backbone_state(backbone_weights_path)
-            self.model.load_state_dict(
-                {k: v for k, v in state.items() if k.startswith('features.')})
-            LOGGER.info(f'LPIPS {net} backbone loaded from {backbone_weights_path}')
-        else:
-            seeded_random_init_(self.model, seed)
-            LOGGER.warning(f'LPIPS {net} backbone weights unavailable '
-                           f'({backbone_weights_path}); using RANDOM weights '
-                           f'(seed {seed}): LPIPS values will not be '
-                           'comparable to published numbers.')
+        load_trunk_weights(self.model, backbone_weights_path,
+                           f'LPIPS {net} backbone', seed)
         path = lin_weights_path or default_lin_weights_path(net)
         if path.endswith('.npz'):
             state = {k: torch.from_numpy(v) for k, v in np.load(path).items()}

@@ -1,5 +1,6 @@
 """The non-saturating adversarial loss with the R1 penalty (counterpart of
-lama_tpu/losses/adversarial.py:26-95; reference losses/adversarial.py:81-143).
+lama_tpu/losses/adversarial.py:26-95; reference losses/adversarial.py:81-143)
+and the mask-target BCE loss (adversarial.py:98-125; reference :145-169).
 
 The JAX package takes R1 with `jax.vjp` over a discriminator closure; here it
 is `torch.autograd.grad(..., create_graph=True)` of the real score's sum
@@ -18,6 +19,8 @@ from ..ops.resize import interpolate
 
 
 class NonSaturatingWithR1:
+    has_r1 = True
+
     def __init__(self, gp_coef=5, weight=1, mask_as_fake_target=False,
                  allow_scale_mask=False, mask_scale_mode='nearest',
                  extra_mask_weight_for_gen=0, use_unmasked_for_gen=True,
@@ -83,10 +86,53 @@ class NonSaturatingWithR1:
         return loss, metrics
 
 
+def _bce_with_logits(pred, target):
+    """Mean binary cross-entropy of logits, in lama_tpu's stable form."""
+    return (pred.clamp(min=0) - pred * target
+            + torch.log1p(torch.exp(-pred.abs()))).mean()
+
+
+class BCEAdversarialLoss(NonSaturatingWithR1):
+    """kind bce: the discriminator learns the mask (0 on real pixels, the
+    mask on the fakes' score map), the generator drives the fakes' scores
+    to 0; no gradient penalty (`has_r1` False: the step takes no R1 pass).
+    As lama_tpu's, its keyword arguments are `weight` only, plus the mask
+    scaling of the r1 loss (`allow_scale_mask`, `mask_scale_mode`): the
+    reference's and lama_tpu's BCE use the mask at the image's size, which
+    a PatchGAN's smaller score map cannot take (lama_tpu's raises there);
+    here the mask is resized to the score map as the r1 loss resizes it."""
+    has_r1 = False
+
+    def __init__(self, weight=1, allow_scale_mask=False,
+                 mask_scale_mode='nearest'):
+        self.weight = weight
+        self.allow_scale_mask = allow_scale_mask
+        self.mask_scale_mode = mask_scale_mode
+
+    def generator_loss(self, discr_fake_pred, mask=None):
+        fake = widen(discr_fake_pred)
+        return _bce_with_logits(fake, torch.zeros_like(fake)) * self.weight, {}
+
+    @staticmethod
+    def r1_penalty(discr_real_pred, real_batch):
+        return torch.zeros((), dtype=torch.float32,
+                           device=discr_real_pred.device)
+
+    def discriminator_loss(self, discr_real_pred, discr_fake_pred,
+                           grad_penalty, mask=None):
+        mask = self.interpolate_mask(mask, discr_fake_pred.shape[2:])
+        loss = (_bce_with_logits(discr_real_pred,
+                                 torch.zeros_like(discr_real_pred))
+                + _bce_with_logits(discr_fake_pred, mask)) / 2
+        metrics = dict(discr_real_out=discr_real_pred.mean().detach(),
+                       discr_fake_out=discr_fake_pred.mean().detach(),
+                       discr_real_gp=torch.zeros_like(loss).detach())
+        return loss, metrics
+
+
 def make_discrim_loss(kind, **kwargs):
     if kind == 'r1':
         return NonSaturatingWithR1(**kwargs)
     if kind == 'bce':
-        raise NotImplementedError('adversarial loss kind bce is not ported '
-                                  'yet (ROADMAP queue 1 item 10)')
+        return BCEAdversarialLoss(**kwargs)
     raise ValueError(f'Unknown adversarial loss kind {kind}')

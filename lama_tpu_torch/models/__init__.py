@@ -1,7 +1,7 @@
 """Model factories (counterpart of lama_tpu/models/__init__.py:14-42); the
-port has the FFC generator, the pix2pixHD GlobalGenerator and the pix2pixHD
-N-layer discriminator."""
-from .ffc import FFCResNetGenerator
+port has the FFC generator, the pix2pixHD GlobalGenerator, the pix2pixHD
+N-layer discriminator and the FFC N-layer discriminator."""
+from .ffc import FFCNLayerDiscriminator, FFCResNetGenerator
 from .pix2pixhd import GlobalGenerator, NLayerDiscriminator
 
 
@@ -18,8 +18,10 @@ def make_generator(kind, **kwargs):
 
 def make_discriminator(kind, **kwargs):
     """`kind` from a config's `discriminator:` section; the rest are the
-    discriminator's keyword arguments (plus `dtype`)."""
+    discriminator's keyword arguments (plus `dtype` and `kernels`)."""
     if kind == 'pix2pixhd_nlayer':
         return NLayerDiscriminator(**kwargs)
+    if kind == 'ffc_nlayer':
+        return FFCNLayerDiscriminator(**kwargs)
     raise NotImplementedError(f'discriminator kind {kind!r} is not ported '
-                              'yet (ROADMAP queue 1 items 10 and 12)')
+                              'yet (ROADMAP queue 1 item 12)')

@@ -1,8 +1,10 @@
-"""The FFC generator big-lama uses, as PyTorch modules over NCHW tensors.
+"""The FFC generator big-lama uses and the FFC PatchGAN discriminator, as
+PyTorch modules over NCHW tensors.
 
 Counterpart of lama_tpu/models/ffc.py (FourierUnit :136, SpectralTransform
 :333, FFC :377, FFC_BN_ACT :480, FFCResnetBlock :557, concat_tuple :606,
-FFCResNetGenerator :618), stages 'full', 'front' and 'rear', in eval mode
+FFCResNetGenerator :618, FFCNLayerDiscriminator :764); the generator's
+stages 'full', 'front' and 'rear', in eval mode
 and in train mode (batch-statistics BN; the FourierUnit takes its plain
 path there, as the JAX package runs its fused kernel only outside
 training, ffc.py:196). The
@@ -365,3 +367,52 @@ class FFCResNetGenerator(nn.Module):
         if stage != 'full':
             raise ValueError(f'stage={stage!r}: expected full, front or rear')
         return self.model(self._cast(x))
+
+
+class FFCNLayerDiscriminator(nn.Module):
+    """The FFC PatchGAN discriminator (reference ffc.py:370-433; lama_tpu
+    models/ffc.py:764-817): `model0` an FFC_BN_ACT 3x3 stride 1, `model1
+    .. model{n-1}` 3x3 stride 2, `model{n}` 3x3 stride 1 and the
+    ConcatTupleLayer, each with leaky ReLU 0.2 and reflect padding (so
+    their convs go through the kernel dispatch of ops/conv.py), then
+    `model{n+1}` the zero-padded 3x3 score conv with a bias. Keys as the
+    reference's: `model0.0.ffc.convl2l.weight`, `model1.0.bn_l.running_mean`,
+    `model5.0.bias`. `forward(x) -> (score (B, 1, h, w), [the output of
+    each FFC layer, streams concatenated])`. Runs channels-last in `dtype`.
+    """
+
+    def __init__(self, input_nc=3, ndf=64, n_layers=3, max_features=512,
+                 init_conv_kwargs=None, conv_kwargs=None, dtype=torch.float32,
+                 kernels='cuda'):
+        super().__init__()
+        self.dtype = check_dtype(dtype)
+        self.n_layers = n_layers
+        init_kw = dict(init_conv_kwargs or {})
+        conv_kw = dict(conv_kwargs or {})
+
+        def layer(cin, cout, stride, kw):
+            return FFC_BN_ACT(cin, cout, kernel_size=3, stride=stride,
+                              padding=1, ratio_gin=kw.get('ratio_gin', 0),
+                              ratio_gout=kw.get('ratio_gout', 0),
+                              enable_lfu=kw.get('enable_lfu', True),
+                              activation='leaky_relu', kernels=kernels)
+
+        self.model0 = nn.Sequential(layer(input_nc, ndf, 1, init_kw))
+        nf = ndf
+        for n in range(1, n_layers):
+            nf_prev, nf = nf, min(nf * 2, max_features)
+            setattr(self, f'model{n}', nn.Sequential(
+                layer(nf_prev, nf, 2, conv_kw)))
+        nf_prev, nf = nf, min(nf * 2, 512)
+        setattr(self, f'model{n_layers}', nn.Sequential(
+            layer(nf_prev, nf, 1, conv_kw), ConcatTupleLayer()))
+        setattr(self, f'model{n_layers + 1}', nn.Sequential(
+            Conv2d(nf, 1, kernel_size=3, padding=1, kernels=kernels)))
+
+    def forward(self, x):
+        h = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
+        feats = []
+        for n in range(self.n_layers + 1):
+            h = getattr(self, f'model{n}')(h)
+            feats.append(ConcatTupleLayer()(h))
+        return getattr(self, f'model{self.n_layers + 1}')(feats[-1]), feats

@@ -45,11 +45,12 @@ class NLayerDiscriminator(nn.Module):
     0..n_layers]), the features feature matching compares
     (trainers/default.py:128)."""
 
-    def __init__(self, input_nc=3, ndf=64, n_layers=3, dtype=torch.float32):
+    def __init__(self, input_nc=3, ndf=64, n_layers=3, dtype=torch.float32,
+                 kernels='cuda'):
         super().__init__()
         self.dtype = check_dtype(dtype)
         self.n_layers = n_layers
-        kw = dict(kernel_size=4, padding=2)
+        kw = dict(kernel_size=4, padding=2, kernels=kernels)
         self.model0 = nn.Sequential(Conv2d(input_nc, ndf, stride=2, **kw),
                                     _LeakyReLU())
         nf = ndf

@@ -5,15 +5,21 @@ their plain versions (lama_tpu/ops/pallas/reflect_conv.py:59-87,
 `_diff_wrap`), and none of them has a backward kernel. The port does the
 same: `differentiable` runs the kernel forward and, when autograd needs a
 gradient, the VJP of the plain version recomputed on the saved inputs.
+
+The JAX bwd is traced XLA code, so a kernel there differentiates twice (the
+R1 penalty of a discriminator whose convs are kernels does). Here too:
+when autograd records the backward (`create_graph=True`), the plain VJP is
+built from the saved inputs themselves, so its own VJP is the plain
+version's second derivative. A first-order backward builds it on detached
+copies and keeps nothing beyond the gradients.
 """
 import torch
-from torch.autograd.function import once_differentiable
 
 
 class _PlainVJP(torch.autograd.Function):
     """Forward: `kernel_fn(*inputs)`. Backward: the VJP of
-    `plain_fn(*inputs)`, recomputed on the saved inputs. Once
-    differentiable: a second-order gradient raises."""
+    `plain_fn(*inputs)`, recomputed on the saved inputs; differentiable
+    again when the backward runs with create_graph=True."""
 
     @staticmethod
     def forward(ctx, kernel_fn, plain_fn, *inputs):
@@ -22,15 +28,20 @@ class _PlainVJP(torch.autograd.Function):
         return kernel_fn(*inputs)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, grad):
         need = ctx.needs_input_grad[2:]
-        with torch.enable_grad():
+        # create_graph=True: the VJP on the inputs' own graph, so autograd
+        # can take its derivative in turn; else on detached copies
+        create_graph = torch.is_grad_enabled()
+        leaves = list(ctx.saved_tensors)
+        if not create_graph:
             leaves = [None if t is None else t.detach().requires_grad_(n)
-                      for t, n in zip(ctx.saved_tensors, need)]
+                      for t, n in zip(leaves, need)]
+        with torch.enable_grad():
             out = ctx.plain_fn(*leaves)
             grads = iter(torch.autograd.grad(
-                out, [t for t, n in zip(leaves, need) if n], grad))
+                out, [t for t, n in zip(leaves, need) if n], grad,
+                create_graph=create_graph))
         return (None, None) + tuple(next(grads) if n else None for n in need)
 
 

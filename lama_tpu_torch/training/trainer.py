@@ -14,9 +14,21 @@ device), logged as `<prefix>_<metric>_<bin>_<stat>` (val, test,
 extra_val_<title>); then `training/checkpoint.py::CheckpointManager`
 writes `<run_dir>/models/epoch<N>.ckpt`, keeps the `save_top_k` best by
 `trainer.checkpoint_kwargs.monitor` (val_ssim_fid100_f1_total_mean) and
-rewrites `last.ckpt`, from which `fit(resume_from)` continues. More than one
-device, steps_per_dispatch > 1, the uint8 input wire, the web-shard and
-online datasets and the rescale/crop curricula raise NotImplementedError.
+rewrites `last.ckpt`, from which `fit(resume_from)` continues.
+
+The options of lama_tpu's trainer (trainer.py:73-181, :254-284): the VGG19
+perceptual loss (weights from $LAMA_VGG19_WEIGHTS, else seeded random
+ones), the distance-weighted masks, fake fakes, multiscale input noise,
+lazy R1 (`losses.adversarial.r1_every`); on the host, the rescale ramp and
+the constant-area crop (`training_model.rescale_scheduler_kwargs`,
+`const_area_crop_kwargs`; sizes from a shared stream, positions from a
+per-host one, seeded as lama_tpu seeds them), the uint8 input wire
+(quantised on the host, /255 on the device) and `steps_per_dispatch` K:
+K batches stacked on the host and moved to the device in one copy, then K
+steps, each as a single step would run it (lama_tpu's refusals kept: no
+curricula, limit_train_batches a multiple of K). The web-shard train data
+cycles its shards to `limit_train_batches` batches an epoch. More than one
+device raises NotImplementedError (ROADMAP queue 1 item 11).
 """
 import json
 import logging
@@ -29,13 +41,18 @@ import numpy as np
 import torch
 
 from ..config.node import ConfigNode
-from ..data.datasets import (BatchLoader, make_default_train_dataloader,
+from ..data.datasets import (BatchLoader, IterableBatchLoader,
+                             make_constant_area_crop_params,
+                             make_default_train_dataloader,
                              make_default_val_dataset)
 from ..evaluation import make_evaluator
 from ..evaluation.utils import results_to_tsv
 from ..losses.adversarial import make_discrim_loss
+from ..losses.distance_weighting import make_mask_distance_weighter
 from ..models import make_discriminator, make_generator
+from ..models.fake_fakes import FakeFakesGenerator
 from ..ops.resize import interpolate
+from ..utils.ramps import get_ramp
 from . import checkpoint
 from .state import TrainState, make_optimizer
 from .step import EMAConfig, InpaintingTrainStep, LossConfig
@@ -62,15 +79,7 @@ class InpaintingTrainer:
                            ('trainer.kwargs.gpus', 11)):
             if int(config.select(path, 1) or 1) > 1:
                 raise _refuse(f'{path} > 1 (more than one device)', item)
-        if int(config.select('trainer.kwargs.steps_per_dispatch', 1) or 1) > 1:
-            raise _refuse('trainer.kwargs.steps_per_dispatch > 1', 10)
-        if str(config.select('trainer.kwargs.input_transfer_dtype',
-                             'fp32')) != 'fp32':
-            raise _refuse('trainer.kwargs.input_transfer_dtype=uint8', 10)
         tm = config.get('training_model', ConfigNode())
-        for key in ('rescale_scheduler_kwargs', 'const_area_crop_kwargs'):
-            if tm.get(key):
-                raise _refuse(f'training_model.{key} (curriculum)', 10)
 
         precision = str(config.select('trainer.kwargs.precision', 'bf16'))
         if precision not in _DTYPES:
@@ -89,7 +98,8 @@ class InpaintingTrainer:
                                         kernels=kernels, **gen_kwargs)
         disc_kwargs = dict(config.discriminator)
         self.discriminator = make_discriminator(disc_kwargs.pop('kind'),
-                                                dtype=self.dtype, **disc_kwargs)
+                                                dtype=self.dtype,
+                                                kernels=kernels, **disc_kwargs)
 
         # ---- losses
         adv_kwargs = dict(config.losses.adversarial)
@@ -116,6 +126,12 @@ class InpaintingTrainer:
                 weights_path=wp, arch_encoder=arch, dtype=self.dtype,
                 allow_random_weights=bool(config.select(
                     'losses.resnet_pl.allow_random_weights', False)))
+        vgg_perceptual_fn = None
+        if float(config.select('losses.perceptual.weight', 0) or 0) > 0:
+            from ..losses.perceptual import VGG19PerceptualLoss
+            vgg_perceptual_fn = VGG19PerceptualLoss(
+                weights_path=os.environ.get('LAMA_VGG19_WEIGHTS'),
+                dtype=self.dtype)
         loss_config = LossConfig(
             l1_weight_known=float(config.select('losses.l1.weight_known', 10)),
             l1_weight_missing=float(config.select('losses.l1.weight_missing', 0)),
@@ -133,25 +149,45 @@ class InpaintingTrainer:
         self.visualize_each_iters = int(tm.get('visualize_each_iters', 1000))
         self.store_discr_outputs_for_vis = bool(
             tm.get('store_discr_outputs_for_vis', False))
+        dw_kwargs = tm.get('distance_weighter_kwargs', None)
+        distance_weighter = (make_mask_distance_weighter(**dict(dw_kwargs))
+                             if dw_kwargs else None)
+        fake_fakes_proba = float(tm.get('fake_fakes_proba', 0) or 0)
+        fake_fakes_gen = (FakeFakesGenerator(**dict(
+            tm.get('fake_fakes_generator_kwargs', None) or {}))
+            if fake_fakes_proba > 1e-3 else None)
         clip = config.select('trainer.kwargs.gradient_clip_val', None)
         self.step_fn = InpaintingTrainStep(
             adversarial, loss_config=loss_config, ema=ema,
-            perceptual_fn=perceptual_fn,
+            perceptual_fn=perceptual_fn, vgg_perceptual_fn=vgg_perceptual_fn,
             concat_mask=bool(tm.get('concat_mask', True)),
             image_to_discriminator=str(tm.get('image_to_discriminator',
                                               'predicted_image')),
             clip_grad_norm=float(clip) if clip else None,
-            vgg_perceptual=loss_config.perceptual_weight > 0,
-            distance_weighter=tm.get('distance_weighter_kwargs', None) or None,
-            fake_fakes_proba=float(tm.get('fake_fakes_proba', 0) or 0),
+            distance_weighter=distance_weighter,
+            distance_weighted_mask_for_discr=bool(
+                tm.get('distance_weighted_mask_for_discr', False)),
+            fake_fakes_proba=fake_fakes_proba, fake_fakes_gen=fake_fakes_gen,
             add_noise_kwargs=tm.get('add_noise_kwargs', None),
-            r1_every=r1_every)
+            noise_fill_hole=bool(tm.get('noise_fill_hole', False)),
+            r1_every=r1_every, seed=seed)
+
+        # ---- host curricula (trainer.py:137-154 of the JAX package): the
+        # crop size from a stream shared by every host, its position from
+        # a per-host one (one host here: process index 0)
+        rs_kwargs = tm.get('rescale_scheduler_kwargs', None)
+        self.rescale_size_getter = get_ramp(**dict(rs_kwargs)) if rs_kwargs else None
+        cac = tm.get('const_area_crop_kwargs', None)
+        self.const_area_crop_kwargs = dict(cac) if cac else None
+        self._shared_rng = np.random.RandomState(seed)
+        self._host_rng = np.random.RandomState(seed + 7919 * 0)
 
         # ---- state: modules on the device, optimizers over their parameters
         self.generator.to(self.device)
         self.discriminator.to(self.device)
-        if perceptual_fn is not None:
-            perceptual_fn.to(self.device)
+        for module in (perceptual_fn, vgg_perceptual_fn, distance_weighter):
+            if isinstance(module, torch.nn.Module):
+                module.to(self.device)
 
         def build_opt(params, opt_cfg):
             kw = dict(opt_cfg)
@@ -180,6 +216,31 @@ class InpaintingTrainer:
             config.select('trainer.kwargs.terminate_on_nan', False))
         self.limit_val_batches = config.select('trainer.kwargs.limit_val_batches')
         self.metrics_path = os.path.join(run_dir, 'metrics.jsonl')
+        # K steps per loop over K stacked batches (trainer.py:254-284 of
+        # the JAX package, with its refusals)
+        self.steps_per_dispatch = int(
+            config.select('trainer.kwargs.steps_per_dispatch', 1) or 1)
+        if self.steps_per_dispatch > 1:
+            if (self.rescale_size_getter is not None
+                    or self.const_area_crop_kwargs is not None):
+                raise ValueError(
+                    'steps_per_dispatch > 1 requires static batch shapes: '
+                    'disable training_model.rescale_scheduler_kwargs / '
+                    'const_area_crop_kwargs')
+            if (self.limit_train_batches and int(self.limit_train_batches)
+                    % self.steps_per_dispatch):
+                raise ValueError(
+                    f'trainer.kwargs.limit_train_batches='
+                    f'{self.limit_train_batches} must be a multiple of '
+                    f'steps_per_dispatch={self.steps_per_dispatch}')
+        # the host -> device wire of the train batch: fp32, or uint8 (4x
+        # fewer bytes; exact for 8-bit images and binary masks)
+        self.input_transfer_dtype = str(
+            config.select('trainer.kwargs.input_transfer_dtype', 'fp32'))
+        if self.input_transfer_dtype not in ('fp32', 'uint8'):
+            raise ValueError(
+                f'trainer.kwargs.input_transfer_dtype='
+                f'{self.input_transfer_dtype!r}: expected fp32 or uint8')
 
         # ---- evaluators (val, visual_test, extra_val), built at first use
         self.evaluator_kwargs = dict(config.get('evaluator', {}) or {})
@@ -211,15 +272,59 @@ class InpaintingTrainer:
         seed = int(self.config.get('seed', 0) or 0)
         kwargs['dataloader_kwargs'].setdefault('seed', seed)
         kwargs.setdefault('seed', seed)
-        return make_default_train_dataloader(**kwargs)
+        loader = make_default_train_dataloader(**kwargs)
+        if isinstance(loader, IterableBatchLoader) and self.limit_train_batches:
+            # webdataset's .repeat(): a fixed number of batches an epoch
+            loader.epoch_batches = int(self.limit_train_batches)
+        return loader
 
-    def to_device(self, batch):
-        """NHWC numpy batch -> (image, mask) NCHW float32 on the device
-        (channels-last in memory, as the loader's arrays are)."""
+    def prepare_train_batch(self, batch):
+        """The rescale ramp and the constant-area crop of the batch, on the
+        host, for the step about to run (trainer.py:396-422 of the JAX
+        package): cv2 bilinear (images) and nearest (masks) to the ramp's
+        size, then one crop for the whole batch."""
+        if self.rescale_size_getter is None and self.const_area_crop_kwargs is None:
+            return batch
+        import cv2
+        image, mask = np.asarray(batch['image']), np.asarray(batch['mask'])
+        if self.rescale_size_getter is not None:
+            cur = int(self.rescale_size_getter(self.global_step))
+            image = np.stack([cv2.resize(im, (cur, cur),
+                                         interpolation=cv2.INTER_LINEAR)
+                              for im in image])
+            mask = np.stack([cv2.resize(m[..., 0], (cur, cur),
+                                        interpolation=cv2.INTER_NEAREST)[..., None]
+                             for m in mask])
+        if self.const_area_crop_kwargs is not None:
+            _, _, h, w = make_constant_area_crop_params(
+                img_height=image.shape[1], img_width=image.shape[2],
+                rng=self._shared_rng, **self.const_area_crop_kwargs)
+            y = self._host_rng.randint(0, image.shape[1] - h + 1)
+            x = self._host_rng.randint(0, image.shape[2] - w + 1)
+            image, mask = image[:, y:y + h, x:x + w], mask[:, y:y + h, x:x + w]
+        return dict(batch, image=image, mask=mask)
+
+    def to_wire(self, batch):
+        """The host side of the input wire: (image, mask) NHWC arrays,
+        float32, or uint8 quantised by np.rint(x * 255), which inverts the
+        loader's /255 for 8-bit values (trainer.py:424-433 of the JAX
+        package)."""
+        if self.input_transfer_dtype == 'uint8':
+            return tuple(np.rint(np.asarray(batch[k]) * 255.0).astype(np.uint8)
+                         for k in ('image', 'mask'))
+        return tuple(np.ascontiguousarray(batch[k], np.float32)
+                     for k in ('image', 'mask'))
+
+    def to_device(self, wire):
+        """Wire arrays, (..., H, W, C) -> float32 tensors (..., C, H, W)
+        on the device (channels-last in memory, as the loader's arrays
+        are); a uint8 wire is divided by 255 there."""
         def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
-                self.device, non_blocking=True).permute(0, 3, 1, 2)
-        return put(batch['image']), put(batch['mask'])
+            t = torch.from_numpy(np.ascontiguousarray(a)).to(
+                self.device, non_blocking=True)
+            t = t.float() / 255.0 if t.dtype == torch.uint8 else t
+            return t.movedim(-1, -3)
+        return tuple(put(a) for a in wire)
 
     # ------------------------------------------------------------------- fit
     def fit(self, resume_from: Optional[str] = None):
@@ -228,17 +333,22 @@ class InpaintingTrainer:
             LOGGER.info(f'Resuming from {resume_from}')
             start_epoch = checkpoint.restore(resume_from, self.state) + 1
         loader = self.train_dataloader()
+        k = self.steps_per_dispatch
         for epoch in range(start_epoch, self.max_epochs):
             loader.set_epoch(epoch)
             t_epoch = time.time()
+            chunk = []
             for batch_i, batch in enumerate(loader):
                 if (self.limit_train_batches
                         and batch_i >= int(self.limit_train_batches)):
                     break
-                image, mask = self.to_device(batch)
-                step = self.global_step
-                metrics = self.step_fn(self.state, image, mask)
-                self._bookkeeping(epoch, step, batch_i, batch, metrics)
+                chunk.append((batch_i, self.prepare_train_batch(batch)))
+                if len(chunk) == k:
+                    self._run_steps(epoch, chunk)
+                    chunk = []
+            if chunk:
+                LOGGER.info(f'epoch {epoch}: dropped {len(chunk)} trailing '
+                            f'batch(es) < steps_per_dispatch={k}')
             LOGGER.info(f'epoch {epoch} train done in '
                         f'{time.time() - t_epoch:.1f}s')
             t_val = time.time()
@@ -251,6 +361,21 @@ class InpaintingTrainer:
                                             **val_metrics)) + '\n')
             self.checkpoints.save(self.state, epoch, val_metrics)
         return self.state
+
+    def _run_steps(self, epoch, chunk):
+        """The steps of `chunk` ((batch_i, batch) pairs): their wires
+        stacked on the host and moved in one copy, then one step each."""
+        wires = [self.to_wire(batch) for _, batch in chunk]
+        if len(wires) == 1:
+            images, masks = self.to_device(wires[0])
+            images, masks = images[None], masks[None]
+        else:
+            images, masks = self.to_device(
+                tuple(np.stack(parts) for parts in zip(*wires)))
+        for (batch_i, batch), image, mask in zip(chunk, images, masks):
+            step = self.global_step
+            metrics = self.step_fn(self.state, image, mask)
+            self._bookkeeping(epoch, step, batch_i, batch, metrics)
 
     def _bookkeeping(self, epoch, step, batch_i, batch, metrics):
         """Logging, the NaN screen and sample grids for the step just run
@@ -348,7 +473,8 @@ class InpaintingTrainer:
         try:
             img, msk = (torch.from_numpy(np.ascontiguousarray(a)).to(
                 self.device).permute(0, 3, 1, 2) for a in (image, mask))
-            pred = gen(self.step_fn.generator_input(img, msk)).float()
+            pred = gen(self.step_fn.generator_input(
+                img, msk, self.step_fn.eval_noise(img))).float()
             inpainted = msk * pred + (1 - msk) * img
         finally:
             gen.train()

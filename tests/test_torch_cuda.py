@@ -15,6 +15,7 @@ chip_smoke.py holds the same kernels at the big-lama and big-lama-regular
 shapes.
 """
 import contextlib
+import os
 
 import pytest
 import torch
@@ -782,3 +783,90 @@ def test_segmenter_on_the_card_matches_cpu(device, arch):
     assert clear.mean() >= 0.97
     np.testing.assert_array_equal(labels[clear], cpu_labels[clear])
     assert len(np.unique(cpu_labels)) > 3
+
+
+# ------------------------------------------------ the rest of training
+# The FFC discriminator's reflect convs run kernels 6 (L0, L4) and 4 (L1-L3)
+# and its R1 penalty differentiates them twice (_autograd._PlainVJP): the
+# penalty and the D loss's weight gradient, kernels vs plain, on the same
+# weights and batch. The gradient crosses leaky-ReLU gates after
+# train-mode BN, so it is held by norms: fp32 ||d|| / ||g|| <= 1e-3 and
+# cosine >= 1 - 1e-6; bf16 (bf16 operands on both sides, different
+# accumulation) ||d|| / ||g|| <= 5e-2 and cosine >= 0.998.
+FFC_D_GRAD_TOL = {torch.float32: (1e-3, 1e-6), torch.bfloat16: (5e-2, 2e-3)}
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_ffc_discriminator_r1_gradient_kernels_match_plain(device, dtype):
+    from lama_tpu_torch.losses.adversarial import make_discrim_loss
+    from lama_tpu_torch.models import make_discriminator
+    from lama_tpu_torch.ops.kernels import halo_conv as hc
+    kw = dict(input_nc=3, ndf=64, n_layers=4, dtype=dtype)
+    plain = make_discriminator('ffc_nlayer', kernels='plain', **kw)
+    ours = make_discriminator('ffc_nlayer', **kw)
+    ours.load_state_dict(plain.state_dict())
+    plain, ours = plain.to(device).train(), ours.to(device).train()
+    g = torch.Generator().manual_seed(4)
+    img, fake = (torch.rand(2, 3, 64, 64, generator=g).to(device)
+                 for _ in range(2))
+    mask = (torch.rand(2, 1, 64, 64, generator=g) > 0.5).float().to(device)
+    loss_fn = make_discrim_loss('r1', weight=10, gp_coef=0.001,
+                                mask_as_fake_target=True, allow_scale_mask=True)
+
+    def run(model):
+        real = img.clone().requires_grad_(True)
+        score, _ = model(real)
+        gp = loss_fn.r1_penalty(score, real)
+        fake_score, _ = model(fake)
+        loss, _ = loss_fn.discriminator_loss(score.float(), fake_score.float(),
+                                             gp, mask)
+        return gp.detach(), torch.autograd.grad(loss, list(model.parameters()))
+
+    before = (hc.halo_conv3x3_reflect.launches, rc.reflect_down_conv3x3.launches)
+    gp, grads = run(ours)
+    assert (hc.halo_conv3x3_reflect.launches - before[0],
+            rc.reflect_down_conv3x3.launches - before[1]) == (4, 6)
+    ref_gp, ref = run(plain)
+    assert float(ref_gp) > 0
+    rtol = 1e-4 if dtype == torch.float32 else 5e-2
+    assert abs(float(gp) - float(ref_gp)) <= rtol * float(ref_gp)
+    a = torch.cat([t.flatten().double() for t in grads])
+    b = torch.cat([t.flatten().double() for t in ref])
+    rel, cos_tol = FFC_D_GRAD_TOL[dtype]
+    assert float((a - b).norm() / b.norm()) <= rel
+    assert float(torch.nn.functional.cosine_similarity(a, b, 0)) >= 1 - cos_tol
+
+
+def test_ablv2_vgg_train_step_on_the_card(device, tmp_path):
+    """One step of `python -m lama_tpu_torch.train -cn
+    ablv2_work_no_segmpl_vgg` as shipped (the GlobalGenerator of 9 blocks,
+    the VGG19 perceptual loss at 0.03, random weights), b2 128^2, bf16: its
+    losses finite, gen_pl non-zero, kernel 6 36 times, the stem and the
+    head twice."""
+    import json
+
+    import cv2
+    import numpy as np
+
+    from lama_tpu_torch import train as port_train
+    from lama_tpu_torch.ops.kernels import halo_conv as hc
+    os.makedirs(tmp_path / 'data' / 'train')
+    rng = np.random.RandomState(0)
+    for i in range(2):
+        cv2.imwrite(str(tmp_path / 'data' / 'train' / f'{i}.jpg'),
+                    (rng.rand(160, 160, 3) * 255).astype(np.uint8))
+    fns = (hc.halo_conv3x3_reflect, hc.halo_conv_reflect_tiled,
+           rc.reflect_out_conv7x7)
+    before = [fn.launches for fn in fns]
+    port_train.main('ablv2_work_no_segmpl_vgg', [
+        f'location.data_root_dir={tmp_path / "data"}',
+        f'location.out_root_dir={tmp_path}', f'run_dir={tmp_path / "run"}',
+        'data.batch_size=2', 'data.train.out_size=128', 'data.num_workers=1',
+        'trainer.kwargs.max_epochs=1', 'trainer.kwargs.limit_train_batches=1',
+        'trainer.kwargs.log_every_n_steps=1',
+        'training_model.visualize_each_iters=0', 'device=cuda'])
+    counts = [fn.launches - b for fn, b in zip(fns, before)]
+    assert counts == [36, 2, 2]
+    line = json.loads(open(tmp_path / 'run' / 'metrics.jsonl').readline())
+    assert all(np.isfinite(v) for v in line.values())
+    assert line['gen_pl'] != 0

@@ -99,8 +99,12 @@ def test_datasets_match_jax(tmp_path, kind):
 
 
 def test_dataset_kind_online_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match='online'):
-        tdatasets.make_default_val_dataset(str(tmp_path), kind='online')
+    """The `online` kind (ROADMAP queue 1 item 10) builds, as lama_tpu's
+    (its items: tests/test_torch_host_train.py); an unknown kind raises."""
+    ours = tdatasets.make_default_val_dataset(str(tmp_path), kind='online')
+    theirs = jdatasets.make_default_val_dataset(str(tmp_path), kind='online')
+    assert type(ours).__name__ == type(theirs).__name__
+    assert len(ours) == len(theirs) == 0
     with pytest.raises(ValueError):
         tdatasets.make_default_val_dataset(str(tmp_path), kind='nope')
 
@@ -196,8 +200,11 @@ def test_train_loader_batches_match_jax(tmp_path, num_workers):
             for k in a:
                 assert a[k].shape == b[k].shape and a[k].dtype == b[k].dtype
                 np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    with pytest.raises(NotImplementedError, match='default_web'):
-        tdatasets.make_default_train_dataloader(kind='default_web', **kw)
+    # the web-shard kind (ROADMAP queue 1 item 10) takes tar shards (its
+    # batches: tests/test_torch_host_train.py)
+    with pytest.raises(ValueError, match='shard'):
+        tdatasets.make_default_train_dataloader(
+            **dict(kw, kind='default_web', indir=str(tmp_path / 'none*.tar')))
 
 
 def test_save_config_matches_jax(tmp_path):

@@ -778,15 +778,23 @@ def test_cuda_sources_and_build_flags():
 
 def test_kernels_refuse_to_drop_gradients():
     """The kernels' autograd wrapper gives first-order gradients (the plain
-    version's VJP) and refuses a second order rather than dropping it."""
+    version's VJP) and, under create_graph, the second order too (the R1
+    penalty of a discriminator whose convs are kernels), equal to plain
+    autograd's, rather than dropping it (tests/test_torch_autograd.py
+    holds it by gradgradcheck)."""
     g = torch.Generator().manual_seed(0)
     x = torch.rand(1, 4, 8, 8, generator=g, requires_grad=True)
     w = torch.rand(4, 4, 3, 3, generator=g, requires_grad=True)
-    out = _autograd.differentiable(trc.reflect_conv_plain,
-                                   trc.reflect_conv_plain, x, w, None)
-    gx, = torch.autograd.grad(out.square().sum(), x, create_graph=True)
-    with pytest.raises(RuntimeError, match='differentiate twice'):
-        gx.sum().backward()
+
+    def second_order(conv):
+        out = conv(trc.reflect_conv_plain, trc.reflect_conv_plain, x, w, None)
+        gx, = torch.autograd.grad(out.square().sum(), x, create_graph=True)
+        return torch.autograd.grad(gx.square().sum(), w)[0]
+
+    ours = second_order(_autograd.differentiable)
+    ref = second_order(lambda kernel, plain, *args: plain(*args))
+    assert bool(ours.abs().max() > 0)
+    torch.testing.assert_close(ours, ref, rtol=1e-5, atol=1e-6)
     with torch.no_grad():   # no gradient needed: the kernel's output as is
         assert not _autograd.differentiable(trc.reflect_conv_plain,
                                             trc.reflect_conv_plain,

@@ -200,7 +200,16 @@ def test_port_and_chip_smoke_import_nothing_of_lama_tpu():
             'lama_tpu_torch.evaluation.vis, '
             'lama_tpu_torch.losses.segmentation, '
             'lama_tpu_torch.gen_mask_dataset, '
+            'lama_tpu_torch.losses.style, '
+            'lama_tpu_torch.losses.distance_weighting, '
+            'lama_tpu_torch.models.fake_fakes, lama_tpu_torch.ops.geometry, '
+            'lama_tpu_torch.models.ffc, lama_tpu_torch.data.datasets, '
             'chip_smoke; chip_smoke.big_lama_kwargs(); '
+            'lama_tpu_torch.losses.distance_weighting.'
+            'make_mask_distance_weighter("pps"); '
+            'lama_tpu_torch.losses.perceptual.VGG19PerceptualLoss(); '
+            'lama_tpu_torch.losses.style.StylePerceptualLoss(); '
+            'lama_tpu_torch.models.make_discriminator("ffc_nlayer"); '
             'lama_tpu_torch.evaluation.make_evaluator(device="cpu"); '
             'lama_tpu_torch.models.aux.segmentation.SegmentationModule('
             'arch_encoder="mobilenetv2dilated", device="cpu"); '
@@ -210,6 +219,61 @@ def test_port_and_chip_smoke_import_nothing_of_lama_tpu():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
     assert res.stdout.strip() == '[]'
+
+
+def test_train_cli_options_import_nothing_of_lama_tpu(tmp_path):
+    """`python -m lama_tpu_torch.train` (run as -m runs it, tiny, on the
+    CPU) with the options of lama_tpu's trainer that ROADMAP queue 1 item
+    10 ported (the FFC discriminator, bce, the VGG19 loss, pps, fake
+    fakes, input noise, the curricula, the uint8 wire, web shards, online
+    validation) loads no module of lama_tpu, jax or flax."""
+    import tarfile
+    from PIL import Image
+    (tmp_path / 'img').mkdir()
+    rng = np.random.RandomState(0)
+    for i in range(2):
+        Image.fromarray((rng.rand(72, 80, 3) * 255).astype(np.uint8)).save(
+            tmp_path / 'img' / f'{i}.jpg')
+    with tarfile.open(str(tmp_path / 'shard.tar'), 'w') as tf:
+        tf.add(str(tmp_path / 'img'), arcname='img')
+    argv = ['-cn', 'big-lama', f'run_dir={tmp_path / "run"}',
+            f'location.out_root_dir={tmp_path}', 'generator.ngf=8',
+            'generator.n_downsampling=2', 'generator.n_blocks=1',
+            'generator.input_nc=7', 'discriminator.kind=ffc_nlayer',
+            'discriminator.ndf=8', 'discriminator.n_layers=2',
+            'data.batch_size=2', 'data.num_workers=1',
+            'data.train.out_size=64', 'data.train.kind=default_web',
+            f'data.train.indir={tmp_path / "shard.tar"}',
+            f'data.val.indir={tmp_path / "img"}', 'data.val.kind=online',
+            '+data.val.mask_gen_kwargs.segm_proba=0',
+            'data.val.img_suffix=.jpg', 'evaluator.lpips=false',
+            'evaluator.fid=false', 'evaluator.integral_kind=null',
+            'trainer.kwargs.precision=32', 'trainer.kwargs.max_epochs=1',
+            'trainer.kwargs.limit_train_batches=1',
+            'trainer.kwargs.input_transfer_dtype=uint8',
+            'losses.resnet_pl.weight=0', 'losses.perceptual.weight=0.03',
+            'losses.adversarial.kind=bce', '~losses.adversarial.gp_coef',
+            '~losses.adversarial.mask_as_fake_target',
+            '+training_model.fake_fakes_proba=1.0',
+            '+training_model.distance_weighter_kwargs.kind=pps',
+            '+training_model.add_noise_kwargs.scales=3',
+            '+training_model.rescale_scheduler_kwargs.kind=ladder',
+            '+training_model.rescale_scheduler_kwargs.start_iters=[5]',
+            '+training_model.rescale_scheduler_kwargs.values=[64,64]',
+            '+training_model.const_area_crop_kwargs.min_size=48',
+            '+training_model.const_area_crop_kwargs.max_size=64',
+            '+training_model.const_area_crop_kwargs.area=3072',
+            'device=cpu']
+    code = ('import runpy, sys; sys.argv = ["train"] + ' + repr(argv) + '; '
+            'runpy.run_module("lama_tpu_torch.train", run_name="__main__"); '
+            'print(sorted(m for m in sys.modules if m.split(".")[0] in '
+            '("lama_tpu", "jax", "flax", "jaxlib")))')
+    res = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, OMP_NUM_THREADS='1'))
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.strip().splitlines()[-1] == '[]'
+    assert (tmp_path / 'run' / 'models' / 'last.ckpt').exists()
 
 
 def test_gen_mask_dataset_cli_imports_nothing_of_lama_tpu(tmp_path):

@@ -9,14 +9,16 @@ ResNetPL with random weights, one batch per epoch, on synthetic JPEGs:
 - resumed from that checkpoint for a third epoch, the run ends where an
   unbroken 3-epoch run ends: weights, BN statistics, optimizer states and
   the step counter equal;
-- the options that belong to later items raise, among them validation
-  data of the `online` kind (generated masks, ROADMAP queue 1 item 10);
+- the options that belong to later items raise; those of ROADMAP queue 1
+  item 10 (steps_per_dispatch, the uint8 wire, the rescale ramp, fake
+  fakes, web shards, `online` validation data) train one epoch;
   validation itself is held by tests/test_torch_train_val.py.
 """
 import json
 import os
 import subprocess
 import sys
+import tarfile
 
 import numpy as np
 import pytest
@@ -124,6 +126,20 @@ def test_resume_matches_an_unbroken_run(runs):
                                            atol=0)
 
 
+# the options of lama_tpu's trainer: those ROADMAP queue 1 item 10 ported
+# train (with the keys each needs beside the one named); the others raise
+PORTED = {
+    'trainer.kwargs.steps_per_dispatch=2': [
+        'trainer.kwargs.limit_train_batches=2'],
+    'trainer.kwargs.input_transfer_dtype=uint8': [],
+    '+training_model.rescale_scheduler_kwargs.kind=ladder': [
+        '+training_model.rescale_scheduler_kwargs.start_iters=[1]',
+        '+training_model.rescale_scheduler_kwargs.values=[64,80]'],
+    '+training_model.fake_fakes_proba=0.5': [],
+    'data.train.kind=default_web': ['data.train.indir={root}/shard.tar'],
+}
+
+
 @pytest.mark.parametrize('override', [
     'trainer.kwargs.steps_per_dispatch=2',
     'trainer.kwargs.input_transfer_dtype=uint8',
@@ -135,20 +151,41 @@ def test_resume_matches_an_unbroken_run(runs):
     'discriminator.kind=pix2pixhd_nlayer_multidilated',
 ])
 def test_options_of_later_items_raise(tmp_path, override):
+    """More than one device (item 11), LFU (item 4) and the multidilated
+    discriminator (item 12) raise; the options item 10 ported train one
+    epoch (one step; two for steps_per_dispatch) with finite losses."""
     _write_jpegs(str(tmp_path / 'data' / 'train'))
-    with pytest.raises(NotImplementedError):
-        _train(tmp_path, 'never', 1, override)
+    if override not in PORTED:
+        with pytest.raises(NotImplementedError):
+            _train(tmp_path, 'never', 1, override)
+        return
+    with tarfile.open(str(tmp_path / 'data' / 'shard.tar'), 'w') as tf:
+        tf.add(str(tmp_path / 'data' / 'train'), arcname='train')
+    extra = [e.format(root=tmp_path / 'data') for e in PORTED[override]]
+    trainer = _train(tmp_path, 'run', 1, override, *extra)
+    steps = 2 if 'steps_per_dispatch' in override else 1
+    assert trainer.global_step == steps
+    lines = [json.loads(ln) for ln in open(tmp_path / 'run' / 'metrics.jsonl')]
+    assert [ln['step'] for ln in lines] == list(range(steps))
+    assert all(np.isfinite(v) for ln in lines for v in ln.values())
 
 
 def test_validation_data_raises(tmp_path):
-    """Validation data of the `online` kind, which no slice has ported yet,
-    raises; the other kinds validate (tests/test_torch_train_val.py)."""
+    """Validation data of the `online` kind (masks generated on load, ported
+    by ROADMAP queue 1 item 10) validates after the epoch, as the other
+    kinds do (tests/test_torch_train_val.py)."""
     _write_jpegs(str(tmp_path / 'data' / 'train'))
-    save_image(str(tmp_path / 'data' / 'val' / 'v.png'), np.ones((8, 8, 3)))
-    save_image(str(tmp_path / 'data' / 'val' / 'v_mask.png'), np.ones((8, 8, 1)))
-    with pytest.raises(NotImplementedError, match='item 10'):
-        _train(tmp_path, 'never', 1, 'data.val.img_suffix=.png',
-               'data.val.kind=online')
+    save_image(str(tmp_path / 'data' / 'val' / 'v.png'),
+               np.random.RandomState(0).rand(64, 64, 3))
+    trainer = _train(tmp_path, 'run', 1, 'data.val.img_suffix=.png',
+                     'data.val.kind=online',
+                     '+data.val.mask_gen_kwargs.segm_proba=0',
+                     'evaluator.lpips=false',
+                     'evaluator.fid=false', 'evaluator.integral_kind=null')
+    lines = [json.loads(ln) for ln in open(tmp_path / 'run' / 'metrics.jsonl')]
+    val = [ln for ln in lines if 'val_ssim_total_mean' in ln]
+    assert trainer.global_step == 1 and len(val) == 1
+    assert np.isfinite(val[0]['val_ssim_total_mean'])
 
 
 def test_cuda_without_a_card_raises(tmp_path):

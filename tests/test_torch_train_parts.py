@@ -8,7 +8,7 @@ with R1 (and its gradient through the discriminator), feature matching and
 masked L1, the ResNet50-dilated encoder and ResNetPL, and the optimizers
 (Adam, AdamW and SGD, with the global-norm clip) against optax on identical
 gradients. Also: the FourierUnit's folded weights follow an optimizer step
-and train mode, and the options of later items raise.
+and train mode, and the step options of ROADMAP queue 1 item 10 train.
 """
 import jax
 import jax.numpy as jnp
@@ -189,8 +189,10 @@ def test_adversarial_losses_and_r1_match_jax(discriminators):
     g_loss, _ = jloss.generator_loss(fake_pred, jnp.asarray(mask))
     _close(tloss.generator_loss(fake_score.detach(), _nchw(mask))[0].item(),
            g_loss)
-    with pytest.raises(NotImplementedError, match='item 10'):
-        tadv.make_discrim_loss('bce', weight=1)
+    # bce (ROADMAP queue 1 item 10) builds, without R1 (its values:
+    # tests/test_torch_train_modules.py)
+    bce = tadv.make_discrim_loss('bce', weight=1)
+    assert not bce.has_r1 and float(bce.r1_penalty(fake_score, None)) == 0
 
 
 def test_feature_matching_and_l1_match_jax():
@@ -308,15 +310,52 @@ def test_fourier_unit_folded_weights_follow_training():
 
 
 @pytest.mark.parametrize('kwargs', [dict(vgg_perceptual=True),
-                                    dict(distance_weighter=object()),
-                                    dict(fake_fakes_proba=0.5),
+                                    dict(distance_weighter='blur'),
+                                    dict(fake_fakes_proba=1.0),
                                     dict(add_noise_kwargs=dict(scales=2)),
                                     dict(r1_every=4)])
 def test_step_options_of_later_items_raise(kwargs):
+    """The step options ROADMAP queue 1 item 10 ported (the VGG19
+    perceptual loss, a distance weighter, fake fakes, input noise, lazy R1)
+    train a tiny GlobalGenerator and discriminator one step with finite
+    losses and the option's own mark (their values against lama_tpu's:
+    tests/test_torch_train_opts_*.py)."""
+    from lama_tpu_torch.losses.distance_weighting import \
+        make_mask_distance_weighter
+    from lama_tpu_torch.losses.perceptual import VGG19PerceptualLoss
+    from lama_tpu_torch.models import make_generator
+    from lama_tpu_torch.models.fake_fakes import FakeFakesGenerator
+    from lama_tpu_torch.training.state import TrainState
     from lama_tpu_torch.training.step import LossConfig
-    lc = LossConfig(perceptual_weight=1.0) if 'vgg_perceptual' in kwargs else LossConfig()
-    with pytest.raises(NotImplementedError, match='item 10'):
-        InpaintingTrainStep(tadv.make_discrim_loss('r1'), loss_config=lc, **kwargs)
+    kw, lc = dict(kwargs), LossConfig(resnet_pl_weight=0)
+    if kw.pop('vgg_perceptual', False):
+        kw['vgg_perceptual_fn'] = VGG19PerceptualLoss()
+        lc = LossConfig(resnet_pl_weight=0, perceptual_weight=1.0)
+    if 'distance_weighter' in kw:
+        kw['distance_weighter'] = make_mask_distance_weighter(
+            kw['distance_weighter'])
+    if 'fake_fakes_proba' in kw:
+        kw['fake_fakes_gen'] = FakeFakesGenerator()
+    scales = kw.get('add_noise_kwargs', {}).get('scales', 0)
+    torch.manual_seed(0)
+    gen = make_generator('pix2pixhd_global', input_nc=4 + scales, ngf=8,
+                         n_downsampling=1, n_blocks=1, add_out_act='sigmoid')
+    disc = make_discriminator('ffc_nlayer', input_nc=3, ndf=8, n_layers=2)
+    state = TrainState(gen, disc, make_optimizer(gen.parameters(), 'adam'),
+                       make_optimizer(disc.parameters(), 'adam'))
+    step = InpaintingTrainStep(tadv.make_discrim_loss('r1', **ADV_KW),
+                               loss_config=lc, **kw)
+    img = torch.rand(2, 3, 32, 32)
+    mask = (torch.rand(2, 1, 32, 32) > 0.7).float()
+    metrics = {k: float(v) for k, v in step(state, img, mask).items()}
+    assert state.step == 1
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    if 'vgg_perceptual_fn' in kw:
+        assert metrics['gen_pl'] > 0
+    if 'fake_fakes_gen' in kw:   # the draw is 1 at probability 1
+        assert metrics['discr_adv_fake_fakes'] > 0
+    if 'r1_every' in kw:         # step 0: the penalty, times 4
+        assert metrics['discr_real_gp'] > 0
 
 
 def test_clip_grad_norm_leaves_small_gradients():
