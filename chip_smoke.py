@@ -96,8 +96,9 @@ version):
      non-empty bin and lpips_fid100_f1, all finite and in range; its
      seconds and the host's share (sqrtm, PNG reads); each score's
      images/s at batch 8; per-image SSIM and LPIPS and the Inception
-     activations on the card against the port's own CPU run on the same
-     files; the identity control (ground truth as the prediction: SSIM 1
+     activations on the card against the port's own CPU run on the first
+     batch of the same files (EVAL_CPU_BATCHES); the identity control
+     (ground truth as the prediction: SSIM 1
      and LPIPS 0 within 1e-6 per image, FID within 1e-5 of the
      activations' total variance); `python -m lama_tpu_torch.fid_score`
      between the ground truth and the predictions against the table's FID;
@@ -120,7 +121,7 @@ version):
      and per bin; segm_fid on 4 of the pairs without groups (N + 1 host
      sqrtm) equal to `python -m lama_tpu_torch.fid_score` on the same pairs
      within 1e-4 relative; object-shaped masks (SegmentationMask with the
-     ADE20k panoptic predictor on the card, seeded rng) on 8 images, each
+     ADE20k panoptic predictor on the card, seeded rng) on 4 images, each
      binary, image-sized and above min_mask_area; the card's and the CPU's
      maps differ only at the CPU's near-ties (top-2 margin within
      SEG_ATOL), and the masks equal those the same host code makes from
@@ -147,6 +148,28 @@ version):
      control rejected each time. Kernel rows at the FFC D's shapes (kernel
      6 at L0 (10,3,256^2)->64 and L4 (10,512,32^2)->512, kernel 4 at L1-L3)
      join phase 3's, with run B's launches per step.
+ 16. int8 serving (last): the int8 conv (csrc/conv_int8.cu) at big-lama's
+     and big-lama-regular's int8 shapes at batch 16 (the four downsamples,
+     l2l, l2g and g2l at 64^2, the SpectralTransform's 1x1 384 -> 192 and
+     192 -> 384, the three ConvTranspose layers; the 512 -> 512 block conv
+     and the three zero-padded downsamples), bf16 in: its int32 sums
+     bit-equal to the plain version's (float64 on the codes), its outputs
+     within INT8_OUT_RTOL; the wrapper's ms with the amax and quantize
+     passes, with a calibrated scale, and the GEMM alone, the device ms,
+     the plain ms, torch._int_mm on the im2col GEMM's shape and the bf16
+     cuDNN conv as yardsticks, the bound (int8 at 1,979 TOP/s or bytes at
+     3.35 TB/s); kernel 1 with store_bf16 against its plain version
+     (FU_STORE_RTOL, and a mean |d| under FU_STORE_MEAN_SHARE of the
+     unstored unit's) with its stages' device ms at b16; big-lama and
+     big-lama-regular served by the predict CLI at batch 16 with the
+     headline flags of bench.py:7-9 (quant_calibration=2, quant_zero_pad,
+     spectral_bf16_store, s2d_out_head) and with dynamic scales: sizes,
+     known pixels, launches per forward (INT8_PER_FORWARD,
+     INT8_REGULAR_PER_FORWARD: kernels 2, 3, 4 and 6 never), the hole's
+     difference from the bf16 serve; the int8 generator kernels vs plain at
+     512^2 b2 (fp32 compute within GEN_INT8_ATOL, bf16 logged); img/s at
+     512^2 b16, int8 (headline, calibrated) vs bf16 in turns, one profiled
+     forward of each.
 Prints the `kernels` JSON line, then, as its last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device, and
 when run outside a checkout of the repository.
@@ -170,7 +193,7 @@ BATCH = 4
 PER_FORWARD = {'reflect_conv3x3_cols': 36, 'reflect_conv3x3_taps': 72,
                'fused_fourier_unit': 36, 'reflect_out_conv7x7': 1,
                'reflect_down_conv3x3': 4, 'halo_conv_reflect_tiled': 1,
-               'halo_conv3x3_reflect': 0}
+               'halo_conv3x3_reflect': 0, 'quantized_conv2d': 0}
 # the rest run in the rear stage
 FRONT_KERNELS = ('reflect_down_conv3x3', 'halo_conv_reflect_tiled')
 # per train step: two generator forwards in train mode (the G step and the
@@ -288,22 +311,27 @@ def median_ms(fn, iters=10, warmup=3):
 OWN_KERNEL_NS = '(anonymous namespace)::'   # csrc/*.cu's kernels live there
 
 
-def own_device_ms(fn, calls=5):
+def own_device_ms(fn, calls=5, tries=3):
     """Device ms per call of fn spent in the port's own kernels (csrc/*.cu,
     whose kernels live in anonymous namespaces; PyTorch's are under at::),
     under torch.profiler: the kernel alone, without a wrapper's layout
-    copies, weight relayout or host time. None, with the kernel names
-    logged, when the profiler shows none of them."""
+    copies, weight relayout or host time. A trace with no device event at
+    all (late in a run, most of phase 16's first traces were) is taken
+    again, up to `tries` times. None, with the kernel names logged, when
+    the profiler shows none of the port's kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(tries):
+        fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
     own = [e.self_device_time_total for e in events
            if OWN_KERNEL_NS in e.key and 'at::' not in e.key]
     if not own:
@@ -673,11 +701,12 @@ def kernel_gradients(gen, rows):
                 row['grad_max_rel_err'] = worst
 
 
-def fourier_unit_stages(gen, rows, b=16, iters=10):
+def fourier_unit_stages(gen, rows, b=16, iters=10, store_bf16=False):
     """Device ms of each of the five GEMM stages of one FourierUnit at the
-    served batch (b, 192, 64, 64), fp32 and bf16 input: CUDA events around
-    each launch (fourier_unit._gemm), the median over `iters` units after
-    one warm-up; kept on the fu_b16 rows as `stage_ms`."""
+    served batch (b, 192, 64, 64), fp32 and bf16 input (store_bf16: bf16
+    input with its stages stored in bf16): CUDA events around each launch
+    (fourier_unit._gemm), the median over `iters` units after one warm-up;
+    kept on the fu_b16 rows (fu_b16_store_bf16) as `stage_ms`."""
     import torch
     from lama_tpu_torch.ops.kernels import fourier_unit as fu
     x = torch.rand(b, 192, 64, 64, generator=gen).cuda()
@@ -698,15 +727,18 @@ def fourier_unit_stages(gen, rows, b=16, iters=10):
         events.append((stage, a, e))
 
     fu._gemm = timed
+    role = 'fu_b16_store_bf16' if store_bf16 else 'fu_b16'
+    dtypes = ((('bf16', torch.bfloat16),) if store_bf16 else
+              (('fp32', torch.float32), ('bf16', torch.bfloat16)))
     try:
-        for dtype, tdt in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
+        for dtype, tdt in dtypes:
             xt = x.to(tdt)
             with torch.no_grad():
-                fu.fused_fourier_unit(xt, *params)
+                fu.fused_fourier_unit(xt, *params, store_bf16=store_bf16)
                 torch.cuda.synchronize()
                 events.clear()
                 for _ in range(iters):
-                    fu.fused_fourier_unit(xt, *params)
+                    fu.fused_fourier_unit(xt, *params, store_bf16=store_bf16)
                 torch.cuda.synchronize()
             per = {}
             for stage, a, e in events:
@@ -714,11 +746,12 @@ def fourier_unit_stages(gen, rows, b=16, iters=10):
             ms = {k: float(np.median(v)) for k, v in per.items()}
             check(list(ms) == list(fu.STAGE_NAMES),
                   f'fourier_unit stages {list(ms)}')
-            log(f'fourier unit stages b{b} {dtype} (device ms, CUDA events): '
-                + ', '.join(f'{k} {v:.4f}' for k, v in ms.items())
+            log(f'fourier unit stages b{b} {dtype}'
+                f'{" store_bf16" if store_bf16 else ""} (device ms, CUDA '
+                'events): ' + ', '.join(f'{k} {v:.4f}' for k, v in ms.items())
                 + f'; sum {sum(ms.values()):.4f}')
             for row in rows:
-                if row['role'] == 'fu_b16' and row['dtype'] == dtype:
+                if row['role'] == role and row['dtype'] == dtype:
                     row['stage_ms'] = ms
     finally:
         fu._gemm = launch
@@ -809,10 +842,12 @@ def reset_counts():
 
 def kernel_wrappers():
     """The wrapper of each kernel, by name; its `launches` counts it."""
+    from lama_tpu_torch.ops.kernels import conv_int8 as ci
     from lama_tpu_torch.ops.kernels import fourier_unit as fu
     from lama_tpu_torch.ops.kernels import halo_conv as hc
     from lama_tpu_torch.ops.kernels import reflect_conv as rc
-    return dict(reflect_conv3x3_cols=rc.reflect_conv3x3_cols,
+    return dict(quantized_conv2d=ci.quantized_conv2d,
+                reflect_conv3x3_cols=rc.reflect_conv3x3_cols,
                 reflect_conv3x3_taps=rc.reflect_conv3x3_taps,
                 reflect_out_conv7x7=rc.reflect_out_conv7x7,
                 fused_fourier_unit=fu.fused_fourier_unit,
@@ -2003,6 +2038,7 @@ def rest_of_training(work):
 
 # ---------------------------------------------------------------- evaluate
 EVAL_N, EVAL_SIZE, EVAL_BATCH = 32, 512, 8   # configs/eval2.yaml: batch 8
+EVAL_CPU_BATCHES = 1   # the card-vs-CPU scores: the first batch of pairs
 EVAL2 = os.path.join(REPO, 'configs', 'eval2.yaml')
 
 
@@ -2032,10 +2068,10 @@ def write_eval_images(root, rng, n=EVAL_N, size=EVAL_SIZE):
     return data, gt, bins
 
 
-def per_image_scores(data, pred, device):
+def per_image_scores(data, pred, device, batches=None):
     """Per-image SSIM and LPIPS and the Inception activations of every
     (prediction, image) pair, in the evaluator's order and batches, on
-    `device`."""
+    `device`; the first `batches` batches only, when given."""
     from lama_tpu_torch.data.datasets import (BatchLoader,
                                               PrecomputedInpaintingResultsDataset)
     from lama_tpu_torch.evaluation.fid import InceptionActivations
@@ -2045,7 +2081,10 @@ def per_image_scores(data, pred, device):
     ssim, lpips = SSIMScore(device=device), LPIPSScore(device=device)
     inception = InceptionActivations.get(device=device)
     out = dict(ssim=[], lpips=[], act_pred=[], act_target=[])
-    for batch in BatchLoader(ds, batch_size=EVAL_BATCH, drop_last=False):
+    for i, batch in enumerate(BatchLoader(ds, batch_size=EVAL_BATCH,
+                                          drop_last=False)):
+        if batches is not None and i == batches:
+            break
         out['ssim'].append(ssim(batch['inpainted'], batch['image']))
         out['lpips'].append(lpips(batch['inpainted'], batch['image']))
         out['act_pred'].append(inception(batch['inpainted']))
@@ -2176,24 +2215,28 @@ def evaluate(work, model_dir, card_line):
         'work, CUDA events): ' + ', '.join(f'{k} {v:.1f}' for k, v in rates.items())
         + f' ({card_line})')
 
-    # the card against the port's own CPU run on the same files
+    # the card against the port's own CPU run on the same files: the first
+    # EVAL_CPU_BATCHES batches (the CPU's LPIPS and InceptionV3 over all
+    # 32 pairs took about a minute of a slow host's time)
     card = per_image_scores(data, pred, 'cuda')
-    cpu = per_image_scores(data, pred, 'cpu')
-    d_ssim = float(np.abs(card['ssim'] - cpu['ssim']).max())
+    cpu = per_image_scores(data, pred, 'cpu', EVAL_CPU_BATCHES)
+    n_cpu = len(cpu['ssim'])
+    d_ssim = float(np.abs(card['ssim'][:n_cpu] - cpu['ssim']).max())
     check(d_ssim <= 1e-6, f'evaluate: SSIM card vs CPU {d_ssim}')
     for key in ('lpips', 'act_pred', 'act_target'):
-        a, b = card[key], cpu[key]
+        a, b = card[key][:n_cpu], cpu[key]
         bad = np.abs(a - b) > 2e-4 + 1e-3 * np.abs(b)
         check(not bad.any(), f'evaluate: {key} card vs CPU: {int(bad.sum())} '
               f'beyond rtol 1e-3 / atol 2e-4, max |d| {np.abs(a - b).max()}')
     check(abs(card['ssim'].mean() - table['ssim', 'mean']['total']) <= 1e-4
           and abs(card['lpips'].mean() - table['lpips', 'mean']['total'])
           <= 1e-4, 'evaluate: per-image means differ from the table')
-    log('evaluate: card vs CPU on the same files: max |d| ssim '
-        f'{d_ssim:.2e}, lpips {np.abs(card["lpips"] - cpu["lpips"]).max():.2e}, '
+    log(f'evaluate: card vs CPU on the first {n_cpu} files: max |d| ssim '
+        f'{d_ssim:.2e}, lpips '
+        f'{np.abs(card["lpips"][:n_cpu] - cpu["lpips"]).max():.2e}, '
         'activations '
-        f'{np.abs(card["act_pred"] - cpu["act_pred"]).max():.2e} (largest '
-        f'{np.abs(cpu["act_pred"]).max():.3f})')
+        f'{np.abs(card["act_pred"][:n_cpu] - cpu["act_pred"]).max():.2e} '
+        f'(largest {np.abs(cpu["act_pred"]).max():.3f})')
 
     # the identity control: the ground truth as the prediction
     ident = per_image_scores(data, gt, 'cuda')
@@ -2234,7 +2277,9 @@ EVAL2_SEGM = os.path.join(REPO, 'configs', 'eval2_segm.yaml')
 # logits reach ~1e3 and one class covers most of every image. Calibrated,
 # the resnet50dilated read 1.0e-4 on an H100 at 512^2 (PERF.md §6)
 SEG_ATOL = 5e-4
-SEG_CPU_N, SEG_FID_N, SEG_MASK_N = 2, 4, 8
+# SEG_MASK_N: the object-mask search is host time (~10 s an image on a
+# slow host); image 0 gives the compared masks
+SEG_CPU_N, SEG_FID_N, SEG_MASK_N = 2, 4, 4
 SEG_DEVICE = 'cuda'   # main() stops without a card
 
 
@@ -2479,6 +2524,444 @@ def segmentation(work, ev, card_line):
     return segs
 
 
+# ------------------------------------------------------------ int8 serving
+# phase 16: big-lama and big-lama-regular in precision=int8 (queue 1 items 7
+# and 3). Per int8 forward: the int8 conv (csrc/conv_int8.cu) on every
+# eligible conv (big-lama: the 4 downsamples, 108 3x3 FFC convs, 72
+# SpectralTransform 1x1 convs, 3 ConvTranspose; big-lama-regular: 3
+# downsamples, 36 block convs, 3 ConvTranspose), the FourierUnit, the stem
+# and the head; kernels 2, 3, 4 and 6 not at all
+INT8_PER_FORWARD = dict({k: 0 for k in PER_FORWARD}, quantized_conv2d=187,
+                        fused_fourier_unit=36, reflect_out_conv7x7=1,
+                        halo_conv_reflect_tiled=1)
+INT8_REGULAR_PER_FORWARD = dict({k: 0 for k in PER_FORWARD},
+                                quantized_conv2d=42, reflect_out_conv7x7=1,
+                                halo_conv_reflect_tiled=1)
+# bench.py:7-9's headline flags (its quant_calibration=K: the first 2 images)
+INT8_HEADLINE = ['precision=int8', 'quant_calibration=2',
+                 'quant_zero_pad=true', 'spectral_bf16_store=true',
+                 's2d_out_head=true']
+INT8_SOURCE = 'lama_tpu_torch/csrc/conv_int8.cu'
+# lama_tpu's quantized convs are XLA convs, no TPU kernel: the XLA call
+INT8_REPLACES = 'lama_tpu/ops/quant.py:108'
+# an int8 row's outputs vs the plain version's, relative to the largest
+# |output| (the fp32 epilogue rounds once an operation in both); its int32
+# sums must be bit-equal
+INT8_OUT_RTOL = 1e-6
+# kernel 1 with store_bf16 vs its plain version (the same four roundings,
+# summed in other orders): max |d| within this share of the largest output
+FU_STORE_RTOL = 1e-2
+# and its mean |d| below this share of the unit without store_bf16 (its
+# output rounded to bf16) against the same plain version: both max |d| are
+# one bf16 step of the output, so the max alone would pass a kernel that
+# ignored store_bf16
+FU_STORE_MEAN_SHARE = 0.5
+# whole int8 generator, kernels vs kernels='plain', fp32 compute, 512^2 b2,
+# sigmoid output: a code may round the other way where a non-int8 kernel's
+# fp32 sum differs from the plain one in the last bit
+GEN_INT8_ATOL = 1e-2
+INT8_OPS = 1979e12   # H100 SXM dense int8 tensor-core OP/s
+
+
+def int8_cases(gen):
+    """(role, conv kind, x (bf16, channels-last, on the card), weight,
+    stride, padding mode) at the served batch 16: big-lama's and
+    big-lama-regular's int8 convs."""
+    import torch
+
+    def case(role, c, co, h, k=3, stride=1, mode='reflect', kind='conv',
+             w=None):
+        x = (torch.rand(16, c, h, w or h, generator=gen) * 2 - 1)
+        shape = (c, co, k, k) if kind == 'transposed' else (co, c, k, k)
+        wt = (torch.rand(*shape, generator=gen) * 2 - 1) * (c * k * k) ** -0.5
+        return (role, kind, x.cuda().bfloat16().contiguous(
+            memory_format=torch.channels_last), wt.cuda(), stride, mode)
+
+    return [case('down1', 64, 128, 512, stride=2),
+            case('down2', 128, 256, 256, stride=2),
+            case('down3_l2l', 256, 128, 128, stride=2),
+            case('down3_l2g', 256, 384, 128, stride=2),
+            case('l2l', 128, 128, 64), case('l2g', 128, 384, 64),
+            case('g2l', 384, 128, 64),
+            case('st_1x1_in', 384, 192, 64, k=1, mode='zeros'),
+            case('st_1x1_out', 192, 384, 64, k=1, mode='zeros'),
+            case('convt1', 512, 256, 64, kind='transposed'),
+            case('convt2', 256, 128, 128, kind='transposed'),
+            case('convt3', 128, 64, 256, kind='transposed'),
+            # big-lama-regular: its block conv and zero-padded downsamples
+            case('regular_block', 512, 512, 64),
+            case('regular_down1', 64, 128, 512, stride=2, mode='zeros'),
+            case('regular_down2', 128, 256, 256, stride=2, mode='zeros'),
+            case('regular_down3', 256, 512, 128, stride=2, mode='zeros')]
+
+
+def int8_plan(kind, x, wt, stride, mode):
+    from lama_tpu_torch.ops.kernels import conv_int8 as ci
+    if kind == 'transposed':
+        return ci.conv_transpose_plan(x.shape, wt.shape)
+    return ci.conv_plan(x.shape, wt.shape, stride, wt.shape[-1] // 2, 1, 1,
+                        mode)
+
+
+def int8_bound(x, wt, plan, co):
+    """(least ms, 'bytes' or 'operations') of an int8 conv: the int8
+    products of its taps (a ConvTranspose phase's own taps, no inserted
+    zeros) at the int8 tensor-core peak, or bf16 x in, its int8 packed
+    weight and scales in, bf16 out, at the HBM rate."""
+    b, c = x.shape[:2]
+    macs = sum(b * ph.hg * ph.wg * len(ph.taps) for ph in plan.phases) * c * co
+    nbytes = (x.numel() * 2 + wt.numel() + co * 4
+              + b * co * plan.ho * plan.wo * 2)
+    t_ops, t_bytes = 2 * macs / INT8_OPS * 1e3, nbytes / HBM_BPS * 1e3
+    return max(t_ops, t_bytes), ('bytes' if t_bytes >= t_ops else
+                                 'operations')
+
+
+def int8_rows(gen, card_line):
+    """Each int8 conv case on the card: its int32 sums bit-equal to the
+    plain version's (float64 on the codes), its bf16 outputs within
+    INT8_OUT_RTOL; the wrapper's median ms with the amax and quantize
+    passes (dynamic), with the quantize pass only (a calibrated scale) and
+    the GEMM launch alone; the port's own device ms of the whole wrapper
+    and of the GEMM alone; the plain version's ms; as yardsticks, timed
+    only, torch._int_mm on random int8 matrices of the im2col GEMM's
+    shape (M x 9C x C_out; a ConvTranspose over its zero-dilated input) and
+    the bf16 cuDNN conv of the same shape; the bound."""
+    import torch
+    import torch.nn.functional as F
+    from lama_tpu_torch.ops import quant
+    from lama_tpu_torch.ops.kernels import conv_int8 as ci
+    rows = []
+    for role, kind, x, wt, stride, mode in int8_cases(gen):
+        tr = kind == 'transposed'
+        co = wt.shape[1] if tr else wt.shape[0]
+        plan = int8_plan(kind, x, wt, stride, mode)
+        packed, s_w = ci.pack_weight(wt, tr)
+        amax = x.float().abs().amax()
+        with torch.no_grad():
+            xq, amax_t = ci.quantize_activation(x)
+            acc = ci.conv_codes(xq, amax_t, packed, s_w, None, plan, co,
+                                'acc')
+            wq, _ = quant.quantize_weight(wt, tr)
+            codes = quant.quantize(x, quant.act_scale(x))
+            ref_acc = (quant.conv_transpose2d_acc(codes, wq) if tr else
+                       quant.conv2d_acc(codes, wq, stride, wt.shape[-1] // 2,
+                                        1, 1, mode))
+            torch.cuda.synchronize()
+            check(torch.equal(acc, ref_acc),
+                  f'int8 {role}: int32 sums differ from the plain version')
+            del ref_acc, codes
+
+            if tr:
+                def full(a=None):
+                    return ci.quantized_conv_transpose2d(
+                        x, wt, None, act_amax=a, packed=(packed, s_w))
+
+                def plain():
+                    return quant.quantized_conv_transpose2d(x, wt)
+            else:
+                def full(a=None):
+                    return ci.quantized_conv2d(
+                        x, wt, None, stride, wt.shape[-1] // 2, 1, 1, mode,
+                        act_amax=a, packed=(packed, s_w))
+
+                def plain():
+                    return quant.quantized_conv2d(
+                        x, wt, None, stride, wt.shape[-1] // 2, 1, 1, mode)
+            out, ref = full(), plain()
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            equal = bool(torch.equal(out, ref))
+            check(out.shape == ref.shape and err <= INT8_OUT_RTOL * scale,
+                  f'int8 {role}: outputs differ by {err:.3e}')
+            del out, ref
+            ms = median_ms(full)
+            static_ms = median_ms(lambda: full(amax))
+            conv_ms = median_ms(lambda: ci.conv_codes(
+                xq, amax_t, packed, s_w, None, plan, co, torch.bfloat16))
+            dev_ms = own_device_ms(full)
+            dev_conv_ms = own_device_ms(lambda: ci.conv_codes(
+                xq, amax_t, packed, s_w, None, plan, co, torch.bfloat16))
+            plain_ms = median_ms(plain, iters=3, warmup=1)
+            # yardsticks, timed only
+            k = wt.shape[-1]
+            m = x.shape[0] * plan.ho * plan.wo
+            a = torch.randint(-127, 128, (m, k * k * x.shape[1]),
+                              dtype=torch.int8, device='cuda')
+            bmat = torch.randint(-127, 128, (k * k * x.shape[1], co),
+                                 dtype=torch.int8, device='cuda')
+            int_mm_ms = median_ms(lambda: torch._int_mm(a, bmat))
+            del a, bmat
+            wb = wt.bfloat16()
+            if tr:
+                cudnn_ms = median_ms(lambda: F.conv_transpose2d(
+                    x, wb, None, 2, 1, 1))
+            else:
+                xpad = (F.pad(x, (k // 2,) * 4, mode=mode) if mode != 'zeros'
+                        else x)
+                cudnn_ms = median_ms(lambda: F.conv2d(
+                    xpad, wb, None, stride, 0 if mode != 'zeros' else k // 2))
+        del xq
+        b_ms, b_by = int8_bound(x, wt, plan, co)
+        row = dict(name='quantized_conv2d', role=role, route='cuda',
+                   source=INT8_SOURCE, replaces=INT8_REPLACES,
+                   tpu_kernel=None, shape=list(x.shape), dtype='int8',
+                   c_out=co, kind=kind, max_abs_err=err, acc_bit_equal=True,
+                   out_bit_equal=equal, tol=dict(rtol=INT8_OUT_RTOL),
+                   within_tol=True, ms=ms, kernel_ms=ms, static_ms=static_ms,
+                   conv_ms=conv_ms, kernel_device_ms=dev_ms,
+                   conv_device_ms=dev_conv_ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=int_mm_ms,
+                   int_mm_ms=int_mm_ms, cudnn_bf16_ms=cudnn_ms,
+                   phases=len(plan.phases))
+        log(f'kernel int8/{role} {list(x.shape)} -> {co}'
+            f'{" (transposed)" if tr else ""}: int32 sums bit-equal, '
+            f'outputs max|d| {err:.3e} (bit-equal {equal}); ms {ms:.3f} '
+            f'(calibrated {static_ms:.3f}, GEMM alone {conv_ms:.3f}), device '
+            f'{"not measured" if dev_ms is None else f"{dev_ms:.4f}"} (GEMM '
+            f'{"not measured" if dev_conv_ms is None else f"{dev_conv_ms:.4f}"}'
+            f'), plain {plain_ms:.3f}; _int_mm {int_mm_ms:.3f}, cuDNN bf16 '
+            f'{cudnn_ms:.3f}; bound {b_ms:.4f} ms ({b_by}) ({card_line})')
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def fu_store_rows(gen, card_line):
+    """Kernel 1 with store_bf16 at the served (16, 192, 64, 64) and one
+    refine shape: the kernel's bf16 output against the plain unit with the
+    same four roundings (FU_STORE_RTOL, and its mean |d| under
+    FU_STORE_MEAN_SHARE of the unstored unit's), its times, and the device
+    ms of each of its five launches at b16."""
+    import torch
+    from lama_tpu_torch.ops.kernels import fourier_unit as fu
+    rows = []
+    for role, b, h, w in (('fu_b16_store_bf16', 16, 64, 64),
+                          ('refine_fu_store_bf16', 1, 125, 95)):
+        x = torch.rand(b, 192, h, w, generator=gen).cuda().bfloat16()
+        params = [(torch.rand(384, 384, 1, 1, generator=gen) * 2 - 1) * 0.05,
+                  1 + 0.2 * torch.rand(384, generator=gen),
+                  0.1 * torch.rand(384, generator=gen),
+                  0.1 * torch.rand(384, generator=gen),
+                  1 + 0.3 * torch.rand(384, generator=gen)]
+        params = [p.cuda() for p in params]
+        with torch.no_grad():
+            ref = fu.fourier_unit_plain(x, *params, store_bf16=True).float()
+            out = fu.fused_fourier_unit(x, *params, store_bf16=True)
+            off = fu.fused_fourier_unit(x, *params).bfloat16()
+            torch.cuda.synchronize()
+            err = float((out.float() - ref).abs().max())
+            mean_err = float((out.float() - ref).abs().mean())
+            off_mean_err = float((off.float() - ref).abs().mean())
+            scale = float(ref.abs().max())
+            log(f'fu store_bf16 {role}: vs its plain version max|d| '
+                f'{err:.3e} of {scale:.3e}, mean|d| {mean_err:.3e}; the '
+                f'unstored unit mean|d| {off_mean_err:.3e}')
+            check(out.dtype == torch.bfloat16 and err <= FU_STORE_RTOL * scale,
+                  f'fu store_bf16 {role}: max|d| {err:.3e} of {scale:.3e}')
+            check(not torch.equal(out, off)
+                  and mean_err < FU_STORE_MEAN_SHARE * off_mean_err,
+                  f'fu store_bf16 {role}: mean|d| {mean_err:.3e} not under '
+                  f'{FU_STORE_MEAN_SHARE} of the unstored unit\'s '
+                  f'{off_mean_err:.3e}')
+            del off
+            ms = median_ms(lambda: fu.fused_fourier_unit(
+                x, *params, store_bf16=True))
+            off_ms = median_ms(lambda: fu.fused_fourier_unit(x, *params))
+            dev = own_device_ms(lambda: fu.fused_fourier_unit(
+                x, *params, store_bf16=True))
+            plain_ms = median_ms(lambda: fu.fourier_unit_plain(
+                x, *params, store_bf16=True))
+        nbytes = x.numel() * 2 * 2 + sum(p.numel() * 4 for p in params)
+        t_bytes = nbytes / HBM_BPS * 1e3
+        t_ops = fu_flop(b, 192, h, w, 192) / FP32_FLOPS * 1e3
+        row = dict(name='fused_fourier_unit', role=role, route='cuda',
+                   source=SOURCES['fused_fourier_unit'],
+                   replaces='lama_tpu/ops/pallas/fourier_unit.py:130',
+                   tpu_kernel='lama_tpu/ops/pallas/fourier_unit.py:130',
+                   shape=list(x.shape), dtype='bf16', store_bf16=True,
+                   max_abs_err=err, mean_abs_err=mean_err,
+                   unstored_mean_abs_err=off_mean_err,
+                   tol=dict(rel_max=FU_STORE_RTOL,
+                            mean_share=FU_STORE_MEAN_SHARE),
+                   within_tol=True, ms=ms, kernel_ms=ms, unstored_ms=off_ms,
+                   kernel_device_ms=dev, plain_ms=plain_ms,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by='bytes' if t_bytes >= t_ops else 'operations',
+                   library_ms=None)
+        log(f'kernel fused_fourier_unit/{role} bf16 store_bf16 '
+            f'{list(x.shape)}: max|d| {err:.3e} of {scale:.3e}; kernel '
+            f'{ms:.3f} ms (without store_bf16 {off_ms:.3f}), device '
+            f'{"not measured" if dev is None else f"{dev:.4f}"}, plain '
+            f'{plain_ms:.3f}; bound {row["bound_ms"]:.3f} ms '
+            f'({row["bound_by"]}) ({card_line})')
+        rows.append(row)
+    fourier_unit_stages(gen, rows, store_bf16=True)
+    return rows
+
+
+def serve_int8(work, model_dir, per_forward, label):
+    """The predict CLI in int8 on phase 4's synthetic PNGs, batch 16: the
+    headline flags (calibrated on the first 2 images) and dynamic scales;
+    sizes, known pixels bit-equal, the holes changed, and per_forward
+    launches a generator forward (the calibration forwards included). The
+    bf16 serve of the same files, uncounted, for the int8-vs-bf16 hole
+    difference. Returns the headline run's launch counts."""
+    indir = os.path.join(work, 'in')
+    sizes = write_images(indir, np.random.RandomState(0))
+    common = [f'model.path={model_dir}', f'indir={indir}', 'device=cuda',
+              'batch_size=16']
+    run_predict(common + [f'outdir={work}/out_bf16', 'precision=bf16'])
+    launches = None
+    with counting_forwards() as forwards:
+        for name, flags in (('headline', INT8_HEADLINE),
+                            ('dynamic', ['precision=int8'])):
+            outdir = os.path.join(work, f'out_{name}')
+            fns = reset_counts()
+            forwards[0] = 0
+            t0 = time.perf_counter()
+            run_predict(common + flags + [f'outdir={outdir}'])
+            secs = time.perf_counter() - t0
+            counts = {k: fn.launches for k, fn in fns.items()}
+            n = forwards[0]
+            log(f'serve int8 {label} {name} ({" ".join(flags)}): '
+                f'{len(sizes)} images in {secs:.1f} s, {n} forwards, '
+                f'launches {counts}')
+            check(n > 0, 'no generator forward ran')
+            for k, per in per_forward.items():
+                check(counts[k] == per * n,
+                      f'int8 {name} {k}: {counts[k]} launches in {n} '
+                      f'forwards, expected {per} per forward')
+            launches = launches or counts
+            diffs = []
+            for i, (h, w) in enumerate(sizes):
+                out = read_png(os.path.join(outdir, f'img{i}_mask.png'))
+                img = read_png(os.path.join(indir, f'img{i}.png'))
+                mask = read_png(os.path.join(indir, f'img{i}_mask.png'), 'L')
+                bf = read_png(os.path.join(work, 'out_bf16',
+                                           f'img{i}_mask.png'))
+                check(out.shape == (h, w, 3), f'img{i}: shape {out.shape}')
+                check(np.array_equal(out[mask == 0], img[mask == 0]),
+                      f'int8 img{i}: known pixels changed')
+                check((out[mask > 0] != img[mask > 0]).any(),
+                      f'int8 img{i}: hole left as input')
+                diffs.append(np.abs(out.astype(int) - bf.astype(int))[
+                    mask > 0])
+            d = np.concatenate(diffs)
+            log(f'serve int8 {label} {name}: hole vs the bf16 serve, mean '
+                f'{d.mean():.3f} levels, max {d.max()}')
+    return launches
+
+
+def int8_generators(kind, gen_kwargs, sd, dtype, headline=False):
+    """(kernels, plain) int8 generators on the card in `dtype` compute;
+    headline: zero_pad, spectral_bf16_store and s2d_out_head on too."""
+    from lama_tpu_torch.models import make_generator
+    from lama_tpu_torch.ops.serving_mode import ServingMode
+    mode = ServingMode(int8=True, zero_pad=headline,
+                       spectral_bf16_store=headline,
+                       s2d='out_head' if headline else 'off')
+    out = []
+    for kernels in ('cuda', 'plain'):
+        g = make_generator(kind, serving_mode=mode, dtype=dtype,
+                           kernels=kernels, **gen_kwargs)
+        g.load_state_dict(sd, strict=True)
+        out.append(g.cuda().eval().requires_grad_(False))
+    return out
+
+
+def int8_generator_vs_plain(kind, gen_kwargs, sd, label):
+    """The int8 generator, kernels vs kernels='plain', at 512^2 batch 2:
+    fp32 compute within GEN_INT8_ATOL; bf16 compute logged."""
+    import torch
+    x = random_batch(2, 512, 1)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        ours, plain = int8_generators(kind, gen_kwargs, sd, dtype)
+        with torch.inference_mode():
+            out, ref = ours(x), plain(x)
+        check(out.shape == (2, 3, 512, 512) and bool(
+            torch.isfinite(out).all()), f'int8 generator {label}: output')
+        res[dtype] = float((out.float() - ref.float()).abs().max())
+        del ours, plain
+    log(f'int8 generator {label} 512^2 b2, kernels vs plain: fp32 compute '
+        f'max|d| {res[torch.float32]:.3e} (atol {GEN_INT8_ATOL}), bf16 '
+        f'compute max|d| {res[torch.bfloat16]:.3e}')
+    check(res[torch.float32] <= GEN_INT8_ATOL,
+          f'int8 generator {label}: kernels vs plain outside tolerance')
+    return res
+
+
+def int8_throughput(kind, gen_kwargs, sd, card_line, label, iters=3):
+    """img/s at 512^2 b16: bf16 and int8 (the headline mode, static scales
+    calibrated on the batch) in turns bf16, int8, int8, bf16; one profiled
+    forward of each."""
+    import torch
+    from lama_tpu_torch.models import make_generator
+    from lama_tpu_torch.serving import calibrate_int8
+    x = random_batch(16, 512, 2)
+    bf16 = make_generator(kind, dtype=torch.bfloat16, **gen_kwargs)
+    bf16.load_state_dict(sd, strict=True)
+    bf16 = bf16.cuda().eval().requires_grad_(False)
+    int8, _ = int8_generators(kind, gen_kwargs, sd, torch.bfloat16, True)
+    # the batch's masked image and mask, as the serving forward takes them
+    calibrate_int8(int8, [(x[:, :3].permute(0, 2, 3, 1),
+                           x[:, 3:].permute(0, 2, 3, 1))])
+    gens = dict(bf16=bf16, int8=int8)
+    times = {'bf16': [], 'int8': []}
+    with torch.inference_mode():
+        for name in ('bf16', 'int8', 'int8', 'bf16'):
+            g = gens[name]
+            g(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                g(x)
+            torch.cuda.synchronize()
+            times[name].append(16 * iters / (time.perf_counter() - t0))
+        res = {k: float(np.mean(v)) for k, v in times.items()}
+        log(f'throughput {label} 512^2 b16: int8 (headline, calibrated) '
+            f'{res["int8"]:.2f} img/s, bf16 {res["bf16"]:.2f} img/s, runs '
+            f'{times} ({card_line})')
+        for name, g in gens.items():
+            res[name + '_profile'] = device_profile(
+                lambda: g(x), f'{label} 512^2 b16 {name} (int8 phase)')
+    return res
+
+
+def int8_serving(work, gen_kwargs, sd, reg_kind, reg_kwargs, reg_sd,
+                 card_line):
+    """Phase 16; returns its kernel rows, launches filled in."""
+    import torch
+    gen = torch.Generator().manual_seed(16)
+    t0 = time.perf_counter()
+    rows = int8_rows(gen, card_line) + fu_store_rows(gen, card_line)
+    secs = dict(kernels=time.perf_counter() - t0)
+    model_dir = os.path.join(work, 'model_int8')
+    write_model_dir(model_dir, dict(kind='ffc_resnet', **gen_kwargs), sd)
+    launches = serve_int8(os.path.join(work, 'big'), model_dir,
+                          INT8_PER_FORWARD, 'big-lama')
+    reg_dir = os.path.join(work, 'model_int8_regular')
+    write_model_dir(reg_dir, dict(kind=reg_kind, **reg_kwargs), reg_sd)
+    reg_launches = serve_int8(os.path.join(work, 'regular'), reg_dir,
+                              INT8_REGULAR_PER_FORWARD, 'big-lama-regular')
+    secs['serve'] = time.perf_counter() - t0 - secs['kernels']
+    int8_generator_vs_plain('ffc_resnet', gen_kwargs, sd, 'big-lama')
+    int8_generator_vs_plain(reg_kind, reg_kwargs, reg_sd, 'big-lama-regular')
+    torch.cuda.empty_cache()
+    int8_throughput('ffc_resnet', gen_kwargs, sd, card_line, 'big-lama')
+    int8_throughput(reg_kind, reg_kwargs, reg_sd, card_line,
+                    'big-lama-regular')
+    torch.cuda.empty_cache()
+    for row in rows:
+        row['launches'] = launches[row['name']]
+        row['regular_launches'] = reg_launches[row['name']]
+    log(f'phase 16: {time.perf_counter() - t0:.1f} s (' + ', '.join(
+        f'{k} {v:.1f}' for k, v in secs.items()) + ')')
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2557,6 +3040,12 @@ def main():
         run_b = rest['B', row['dtype']]
         row['rest_train_launches'] = run_b['launches'][row['name']]
         row['rest_train_per_step'] = [c[row['name']] for c in run_b['counts']]
+    torch.cuda.empty_cache()
+
+    # phase 16: int8 serving
+    with tempfile.TemporaryDirectory() as work:
+        rows += int8_serving(work, gen_kwargs, sd, reg_kind, reg_kwargs,
+                             reg_sd, card_line)
     log(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -12,7 +12,10 @@ conv kernels HWIO -> OIHW,
 the generator's ConvTranspose kernels HWIO -> IOHW, and a zero
 `num_batches_tracked` beside every BatchNorm, as
 bin/export_torch_checkpoint.py writes them.
-`load_checkpoint` reads a reference-format `.ckpt`.
+`load_checkpoint` reads a reference-format `.ckpt`. `act_amax_from_flax`
+and `set_act_amax` carry an int8 calibration (lama_tpu's 'quant_stats'
+collection, serving.py::calibrate_int8) onto the port's non-persistent
+`act_amax` buffers, beside the weights.
 """
 import re
 from typing import Any, Dict, Iterable, Sequence, Set, Tuple
@@ -33,7 +36,8 @@ def flax_path_to_torch_key(path: Sequence[str], leaf: str,
         m = re.match(r'^(.*?)_(\d+)$', p) if indexed else None
         parts.append(f'{m.group(1)}.{m.group(2)}' if m else p)
     leaf_map = {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias',
-                'mean': 'running_mean', 'var': 'running_var', 'angle': 'angle'}
+                'mean': 'running_mean', 'var': 'running_var', 'angle': 'angle',
+                'act_amax': 'act_amax'}
     return '.'.join(parts + [leaf_map[leaf]])
 
 
@@ -110,6 +114,26 @@ def state_dict_from_flax(variables: Dict, n_downsampling: int = 0,
         out[key[:-len('running_mean')] + 'num_batches_tracked'] = \
             torch.zeros((), dtype=torch.long)
     return out
+
+
+def act_amax_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """lama_tpu's 'quant_stats' collection ({..., 'act_amax'} leaves, one
+    per calibrated conv) -> {'<module path>.act_amax': float32 0-dim
+    tensor}, by the module paths of `flax_path_to_torch_key`."""
+    return {flax_path_to_torch_key(path[:-1], path[-1]): torch.tensor(
+        float(np.asarray(val)), dtype=torch.float32)
+        for path, val in _flatten(dict(variables.get('quant_stats', {})))}
+
+
+def set_act_amax(model: torch.nn.Module, stats: Dict[str, torch.Tensor]):
+    """Put `act_amax_from_flax`'s values into the model's int8 convs, on
+    the model's device; a key that names no quantized conv raises."""
+    device = next(model.parameters()).device
+    for key, val in stats.items():
+        module = model.get_submodule(key[:-len('.act_amax')])
+        if not getattr(module, 'quantized', False):
+            raise KeyError(f'{key}: not an int8 conv of this model')
+        module.act_amax = val.to(device)
 
 
 def load_checkpoint(path: str, prefix: str = 'generator.'

@@ -35,7 +35,12 @@
 //
 // Arithmetic: full fp32 FMA (no TF32, no bf16 operand rounding); bf16 input
 // is widened as it is read from shared memory; the output is fp32, as the
-// TPU kernel's is. Bound: at (16, 192, 64, 64) the five stages are 19.93
+// TPU kernel's is.
+// store_bf16 (lama_tpu's spectral_bf16_store, lama_tpu/ops/spectral.py:
+// 67-96): the four DFT stages round their fp32 sums to bf16 and store them
+// so, which halves the bytes between those launches; the conv stage then
+// reads a bf16 A (the spectrum) and writes fp32, and the unit's output is
+// bf16. The sums stay fp32. Bound: at (16, 192, 64, 64) the five stages are 19.93
 // GFLOP (the Pallas cost estimate): 0.297 ms at 67 TFLOP/s, above the bytes'
 // 0.13 ms. So the FMA units bound it, and the design is conv3x3_simt.cu's:
 //   * Register tile. 256 threads, each 8 rows (g, g + RG, .., g + 7 RG of
@@ -113,13 +118,14 @@ struct GemmView {          // read operand: A[m][k] (row m, column k) or B[k][n]
   SplitIdx row, col;
 };
 
-struct GemmOut {           // fp32 result, optional bias over n and ReLU
-  float* p;
-  int vec;                 // 16-byte stores along n
+struct GemmOut {           // result, optional bias over n and ReLU
+  void* p;
+  int vec;                 // 4-element vector stores along n
   SplitIdx row, col;
   const float* bias;
   int relu;
   int zero_rows;           // rows M .. M + zero_rows - 1 stored as zeros
+  int bf16;                // element type: 0 = float32, 1 = bfloat16
 };
 
 namespace {
@@ -134,6 +140,7 @@ constexpr int NO_SPLIT = 1 << 30;
 constexpr int MAX_DEVICES = 64;        // SM counts cached by the launcher
 constexpr int MAX_SPLITS = 4;          // K splits of a stage (see the header)
 constexpr int REDUCE_THREADS = 256;    // split_reduce_kernel's block
+constexpr int A_BF16_BM = 128;         // the one tile height of a bf16 A
 
 // `rows` rows, `units` 16-byte units apart, fall on distinct 16-byte bank
 // groups (8 per 128-byte bank row)
@@ -144,8 +151,9 @@ constexpr bool distinct_bank_groups(int units, int rows) {
   return true;
 }
 
-// the block tile of one instance: BM rows, B elements of type TB
-template <int BM, typename TB> struct Tile {
+// the block tile of one instance: BM rows, A elements of type TA, B
+// elements of type TB
+template <int BM, typename TA, typename TB> struct Tile {
   static constexpr int RG = BM / 8;               // row groups
   static constexpr int CG = THREADS / RG;         // column groups
   static constexpr int BN = 8 * CG;
@@ -153,11 +161,15 @@ template <int BM, typename TB> struct Tile {
   static constexpr int WC = 32 / WR;              // column groups of a warp
   static constexpr int ELEM = int(sizeof(TB));
   static constexpr int PITCH = BK + A_PAD;
+  static constexpr int A_ELEM = int(sizeof(TA));
+  // an A row: PITCH floats, or whole 16-byte runs of bf16 (BK + 2 A_PAD)
+  static constexpr int A_PITCH = A_ELEM == 4 ? PITCH : BK + 2 * A_PAD;
+  static constexpr int A_EV = 16 / A_ELEM;        // A elements a 16-byte copy
   static constexpr int EV = 16 / ELEM;            // B elements a 16-byte copy
-  static constexpr int A_BYTES = BM * PITCH * 4;
+  static constexpr int A_BYTES = BM * A_PITCH * A_ELEM;
   static constexpr int STAGE_BYTES = A_BYTES + BK * BN * ELEM;
   static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;
-  static constexpr int A_VECS = BM * BK / 4;      // 16-byte copies of A a stage
+  static constexpr int A_VECS = BM * BK / A_EV;   // 16-byte copies of A a stage
   static constexpr int A_PER_THREAD = (A_VECS + THREADS - 1) / THREADS;
   static constexpr int B_ROW_VECS = BN / EV;      // 16-byte copies a B row
   static constexpr int B_ROWS_PER_PASS = THREADS / B_ROW_VECS;
@@ -171,8 +183,13 @@ template <int BM, typename TB> struct Tile {
   static_assert(THREADS % B_ROW_VECS == 0 && BK % B_ROWS_PER_PASS == 0,
                 "B copies: a thread's column run fixed for a tile");
   static_assert(A_PAD % 4 == 0 && A_BYTES % 16 == 0, "16-byte aligned stages");
+  static_assert(A_PITCH * A_ELEM % 16 == 0 && THREADS % (BK / A_EV) == 0,
+                "A rows of whole 16-byte runs");
   static_assert(SMEM_BYTES <= SMEM_LIMIT, "shared memory of one block");
   static_assert(distinct_bank_groups(PITCH / 4, WR), "bank conflict");
+  // a bf16 A row is 3 16-byte units: a warp's rows on distinct bank groups
+  static_assert(A_ELEM == 4 || distinct_bank_groups(A_PITCH * A_ELEM / 16, WR),
+                "bank conflict");
 };
 
 __device__ __forceinline__ long long split(const SplitIdx& s, int i) {
@@ -215,11 +232,11 @@ struct Frag {
   float4 a[8], b0[4], b1[4];
 };
 
-template <typename T, typename TB>
-__device__ __forceinline__ void load_frag(Frag& f, const float* as, const TB* bs) {
+template <typename T, typename TA, typename TB>
+__device__ __forceinline__ void load_frag(Frag& f, const TA* as, const TB* bs) {
 #pragma unroll
   for (int j = 0; j < 8; ++j)
-    f.a[j] = *reinterpret_cast<const float4*>(as + j * T::RG * T::PITCH);
+    f.a[j] = ld4(as + j * T::RG * T::A_PITCH);
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     f.b0[q] = ld4(bs + q * T::BN);
@@ -243,20 +260,93 @@ __device__ __forceinline__ void fma_frag(float (&acc)[8][8], const Frag& f) {
   }
 }
 
-// 4 outputs of row offset `ro` at columns n .. n + 3 (those below N);
-// `co` = split(C.col, n), computed once per tile
+// the bits of f rounded to bf16 (nearest even)
+__device__ __forceinline__ uint32_t bf16_bits(float f) {
+  const bf16 b = __float2bfloat16(f);
+  return *reinterpret_cast<const unsigned short*>(&b);
+}
+
+// 4 outputs of row offset `ro` at columns n .. n + 3 (those below N), as
+// fp32 or rounded to bf16 (OUT_BF16); `co` = split(C.col, n), computed once
+// per tile
+template <bool OUT_BF16>
 __device__ __forceinline__ void store4(const GemmOut& C, long long ro,
                                        long long co, int n, int N,
                                        const float (&v)[4]) {
   if (n >= N) return;
+  if constexpr (OUT_BF16) {
+    unsigned short* p = static_cast<unsigned short*>(C.p);
+    if (C.vec && n + 4 <= N) {
+      uint2 u;
+      u.x = bf16_bits(v[0]) | bf16_bits(v[1]) << 16;
+      u.y = bf16_bits(v[2]) | bf16_bits(v[3]) << 16;
+      *reinterpret_cast<uint2*>(p + ro + co) = u;
+      return;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (n + e < N) p[ro + split(C.col, n + e)] = (unsigned short)bf16_bits(v[e]);
+    return;
+  }
+  float* p = static_cast<float*>(C.p);
   if (C.vec && n + 4 <= N) {
-    *reinterpret_cast<float4*>(C.p + ro + co) =
+    *reinterpret_cast<float4*>(p + ro + co) =
         make_float4(v[0], v[1], v[2], v[3]);
     return;
   }
 #pragma unroll
   for (int e = 0; e < 4; ++e)
-    if (n + e < N) C.p[ro + split(C.col, n + e)] = v[e];
+    if (n + e < N) p[ro + split(C.col, n + e)] = v[e];
+}
+
+// the tile's epilogue (+ bias, ReLU, the store as fp32 or bf16) and the
+// clear of its sums. The kernel picks the store type once a tile, outside
+// these loops: a test of C.bf16 at each store slowed the fp32 stages by 3%
+// (tools/fourier_unit_time), and a template parameter on the kernel
+// doubled its instances and its build time.
+template <typename T, bool OUT_BF16>
+__device__ __forceinline__ void store_tile(const GemmOut& C, float (&acc)[8][8],
+                                           int M, int N, int m0, int n0,
+                                           int tg, int tn) {
+  constexpr int BN = T::BN;
+  // the tile's sums: + bias, ReLU, store, and clear
+  long long co[2];
+  float bv[8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = n0 + h * (BN / 2) + tn * 4;
+    co[h] = n < N ? split(C.col, n) : 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      bv[4 * h + e] = (C.bias && n + e < N) ? C.bias[n + e] : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int m = m0 + tg + j * T::RG;
+    if (m < M) {
+      const long long ro = split(C.row, m);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          v[e] = acc[j][4 * h + e] + bv[4 * h + e];
+          if (C.relu) v[e] = fmaxf(v[e], 0.f);
+        }
+        store4<OUT_BF16>(C, ro, co[h], n0 + h * (BN / 2) + tn * 4, N, v);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[j][e] = 0.f;
+  }
+  // the rows known to be zero, written by the first row of tiles
+  if (m0 == 0 && tg < C.zero_rows) {
+    const long long ro = split(C.row, M + tg);
+    const float z[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      store4<OUT_BF16>(C, ro, co[h], n0 + h * (BN / 2) + tn * 4, N, z);
+  }
 }
 
 // out[m][n] = epilogue(sum_k A[m][k] B[k][n]) over BM x BN tiles, each
@@ -267,11 +357,11 @@ __device__ __forceinline__ void store4(const GemmOut& C, long long ro,
 // stored. SPLIT (splits > 1): a unit stores its partial sums, without the
 // epilogue, to ws (splits, M, N rounded up to 4), and split_reduce_kernel
 // finishes the stage; the unsplit instance has one unit a tile.
-template <int BM, typename TB, bool SPLIT>
+template <int BM, typename TA, typename TB, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 1)
 fu_gemm_kernel(int M, int N, int K, int splits_arg, GemmView A, GemmView B,
                GemmOut C, float* __restrict__ ws) {
-  using T = Tile<BM, TB>;
+  using T = Tile<BM, TA, TB>;
   constexpr int BN = T::BN;
   extern __shared__ __align__(16) unsigned char smem[];
   const uint32_t smem_base = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -282,7 +372,7 @@ fu_gemm_kernel(int M, int N, int K, int splits_arg, GemmView A, GemmView B,
   const int units = tiles_m * tiles_n * splits;
   const int my_units = (units - int(blockIdx.x) + int(gridDim.x) - 1)
                        / int(gridDim.x);
-  const float* pa = static_cast<const float*>(A.p);
+  const TA* pa = static_cast<const TA*>(A.p);
   const TB* pb = static_cast<const TB*>(B.p);
 
   // the block's j-th unit: its tile origin, run of stages [c0, c1) and
@@ -303,9 +393,9 @@ fu_gemm_kernel(int M, int N, int K, int splits_arg, GemmView A, GemmView B,
 
   // the load stream's position (unit lj, stage lc of its run up to lc1)
   // and that unit's addresses: A copy q of this thread is row (tid + q
-  // THREADS) / (BK / 4), k run akv; B copies are column run bcv, rows bkr +
-  // q B_ROWS_PER_PASS
-  const int akv = tid % (BK / 4);
+  // THREADS) / (BK / A_EV), k run akv; B copies are column run bcv, rows
+  // bkr + q B_ROWS_PER_PASS
+  const int akv = tid % (BK / T::A_EV);
   const int bcv = tid % T::B_ROW_VECS, bkr = tid / T::B_ROW_VECS;
   int lj = 0, lc = 0, lc1 = 0, bn = 0;
   long long a_row[T::A_PER_THREAD], b_col = -1;
@@ -314,7 +404,7 @@ fu_gemm_kernel(int M, int N, int K, int splits_arg, GemmView A, GemmView B,
     unit_of(j, m0, n0, lc, lc1, sp);
 #pragma unroll
     for (int q = 0; q < T::A_PER_THREAD; ++q) {
-      const int v = tid + q * THREADS, m = m0 + v / (BK / 4);
+      const int v = tid + q * THREADS, m = m0 + v / (BK / T::A_EV);
       a_row[q] = (v < T::A_VECS && m < M) ? split(A.row, m) : -1;
     }
     bn = n0 + bcv * T::EV;
@@ -326,17 +416,25 @@ fu_gemm_kernel(int M, int N, int K, int splits_arg, GemmView A, GemmView B,
   auto load_next = [&](int stage) {
     const uint32_t sa = smem_base + stage * T::STAGE_BYTES;
     const uint32_t sb = sa + T::A_BYTES;
-    const int k0 = lc * BK, ka = k0 + akv * 4;
+    const int k0 = lc * BK, ka = k0 + akv * T::A_EV;
     const long long a_col = A.vec && ka < K ? split(A.col, ka) : 0;
 #pragma unroll
     for (int q = 0; q < T::A_PER_THREAD; ++q) {
       const int v = tid + q * THREADS;
       if (v >= T::A_VECS) break;
-      const uint32_t dst = sa + ((v / (BK / 4)) * T::PITCH + akv * 4) * 4;
+      const uint32_t dst = sa + ((v / (BK / T::A_EV)) * T::A_PITCH
+                                 + akv * T::A_EV) * T::A_ELEM;
       if (A.vec) {
         const bool ok = a_row[q] >= 0 && ka < K;
         cp_async16(dst, ok ? pa + a_row[q] + a_col : pa,
-                   ok ? 4 * min(4, K - ka) : 0);
+                   ok ? T::A_ELEM * min(T::A_EV, K - ka) : 0);
+      } else if constexpr (T::A_ELEM == 2) {
+        // bf16 off the 16-byte rule: element loads
+        TA* d = reinterpret_cast<TA*>(smem + (dst - smem_base));
+#pragma unroll
+        for (int e = 0; e < T::A_EV; ++e)
+          d[e] = (a_row[q] >= 0 && ka + e < K) ? pa[a_row[q] + split(A.col, ka + e)]
+                                               : __float2bfloat16(0.f);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -404,7 +502,7 @@ fu_gemm_kernel(int M, int N, int K, int splits_arg, GemmView A, GemmView B,
       if (lj < my_units) load_next((i + STAGES - 1) % STAGES);
       cp_async_commit();
       const unsigned char* stage = smem + (i % STAGES) * T::STAGE_BYTES;
-      const float* as = reinterpret_cast<const float*>(stage) + tg * T::PITCH;
+      const TA* as = reinterpret_cast<const TA*>(stage) + tg * T::A_PITCH;
       const TB* bs = reinterpret_cast<const TB*>(stage + T::A_BYTES) + tn * 4;
       // step s + 1's operands load while step s's FFMAs run
       Frag f[2];
@@ -437,50 +535,15 @@ fu_gemm_kernel(int M, int N, int K, int splits_arg, GemmView A, GemmView B,
       continue;
     }
 
-    // the tile's sums: + bias, ReLU, store, and clear
-    long long co[2];
-    float bv[8];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = n0 + h * (BN / 2) + tn * 4;
-      co[h] = n < N ? split(C.col, n) : 0;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        bv[4 * h + e] = (C.bias && n + e < N) ? C.bias[n + e] : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int m = m0 + tg + j * T::RG;
-      if (m < M) {
-        const long long ro = split(C.row, m);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float v[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            v[e] = acc[j][4 * h + e] + bv[4 * h + e];
-            if (C.relu) v[e] = fmaxf(v[e], 0.f);
-          }
-          store4(C, ro, co[h], n0 + h * (BN / 2) + tn * 4, N, v);
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[j][e] = 0.f;
-    }
-    // the rows known to be zero, written by the first row of tiles
-    if (m0 == 0 && tg < C.zero_rows) {
-      const long long ro = split(C.row, M + tg);
-      const float z[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        store4(C, ro, co[h], n0 + h * (BN / 2) + tn * 4, N, z);
-    }
+    if (C.bf16) store_tile<T, true>(C, acc, M, N, m0, n0, tg, tn);
+    else store_tile<T, false>(C, acc, M, N, m0, n0, tg, tn);
   }
 }
 
 // A split stage's outputs: out[m][n] = epilogue(ws[0][m][n] + ws[1][m][n] +
 // .. + ws[splits - 1][m][n]), summed in that order (the same bits on every
 // run), then the zero rows. One thread per 4 columns of a row.
+template <bool OUT_BF16>
 __global__ void __launch_bounds__(REDUCE_THREADS)
 split_reduce_kernel(int M, int N, int splits, const float* __restrict__ ws,
                     GemmOut C) {
@@ -503,7 +566,7 @@ split_reduce_kernel(int M, int N, int splits, const float* __restrict__ ws,
       if (C.relu) v[e] = fmaxf(v[e], 0.f);
     }
   }
-  store4(C, split(C.row, m), split(C.col, n), n, N, v);
+  store4<OUT_BF16>(C, split(C.row, m), split(C.col, n), n, N, v);
 }
 
 // SMs of the current device (one block a SM: the grid of a persistent
@@ -523,41 +586,57 @@ int sm_count() {
   return cached[dev];
 }
 
-template <int BM, typename TB, bool SPLIT>
+template <int BM, typename TA, typename TB, bool SPLIT>
 int launch(int M, int N, int K, int splits, const GemmView& A,
            const GemmView& B, const GemmOut& C, float* ws,
            cudaStream_t stream) {
-  using T = Tile<BM, TB>;
+  using T = Tile<BM, TA, TB>;
   const long long units = (long long)((M + BM - 1) / BM)
                           * ((N + T::BN - 1) / T::BN) * splits;
   const int sms = sm_count();
   if (units * ((K + BK - 1) / BK) > 0x7fffffffLL || sms < 1)
     return int(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      fu_gemm_kernel<BM, TB, SPLIT>,
+      fu_gemm_kernel<BM, TA, TB, SPLIT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
   if (err != cudaSuccess) return int(err);
   const unsigned grid = unsigned(units < sms ? units : sms);
-  fu_gemm_kernel<BM, TB, SPLIT><<<grid, THREADS, T::SMEM_BYTES, stream>>>(
+  fu_gemm_kernel<BM, TA, TB, SPLIT><<<grid, THREADS, T::SMEM_BYTES, stream>>>(
       M, N, K, splits, A, B, C, ws);
   err = cudaGetLastError();
   if (err != cudaSuccess || !SPLIT) return int(err);
   const long long threads = (long long)(M + C.zero_rows) * ((N + 3) / 4);
-  split_reduce_kernel<<<unsigned((threads + REDUCE_THREADS - 1) / REDUCE_THREADS),
-                        REDUCE_THREADS, 0, stream>>>(M, N, splits, ws, C);
+  const unsigned blocks = unsigned((threads + REDUCE_THREADS - 1) / REDUCE_THREADS);
+  const auto reduce = C.bf16 ? split_reduce_kernel<true> : split_reduce_kernel<false>;
+  reduce<<<blocks, REDUCE_THREADS, 0, stream>>>(M, N, splits, ws, C);
   return int(cudaGetLastError());
+}
+
+// the instances: A and B fp32, or one of them bf16 (x or a stored stage
+// into the B of a DFT stage; the stored spectrum into the conv stage's A,
+// at BM = A_BF16_BM only, which the plan gives that stage: N = 2 C' tiles
+// best at 128 rows for the served widths, and fewer instances build
+// faster); the output fp32, or bf16 where A is fp32 (a stored DFT stage)
+template <int BM, typename TA, typename TB>
+int launch_types(int M, int N, int K, int splits, const GemmView& A,
+                 const GemmView& B, const GemmOut& C, float* ws,
+                 cudaStream_t stream) {
+  if (splits > 1) return launch<BM, TA, TB, true>(M, N, K, splits, A, B, C, ws, stream);
+  return launch<BM, TA, TB, false>(M, N, K, 1, A, B, C, ws, stream);
 }
 
 template <int BM>
 int launch_bm(int M, int N, int K, int splits, const GemmView& A,
               const GemmView& B, const GemmOut& C, float* ws,
               cudaStream_t stream) {
-  if (splits > 1) {
-    if (B.bf16) return launch<BM, bf16, true>(M, N, K, splits, A, B, C, ws, stream);
-    return launch<BM, float, true>(M, N, K, splits, A, B, C, ws, stream);
+  if (A.bf16) {
+    if constexpr (BM == A_BF16_BM)
+      if (!C.bf16)
+        return launch_types<BM, bf16, float>(M, N, K, splits, A, B, C, ws, stream);
+    return int(cudaErrorInvalidValue);
   }
-  if (B.bf16) return launch<BM, bf16, false>(M, N, K, 1, A, B, C, ws, stream);
-  return launch<BM, float, false>(M, N, K, 1, A, B, C, ws, stream);
+  if (B.bf16) return launch_types<BM, float, bf16>(M, N, K, splits, A, B, C, ws, stream);
+  return launch_types<BM, float, float>(M, N, K, splits, A, B, C, ws, stream);
 }
 
 }  // namespace
@@ -566,14 +645,15 @@ int launch_bm(int M, int N, int K, int splits, const GemmView& A,
 // B[k][n]) on BM x (16384 / BM) tiles, bm in {16, 32, 64, 128}, each
 // tile's K in `splits` (1 .. MAX_SPLITS, at most the K / 16 stages) runs
 // summed through ws: splits * M * (N rounded up to 4) fp32, 16-byte
-// aligned (null for splits = 1). A must be float32, B float32 or bfloat16;
-// indices below 2^31; vec operands 16-byte aligned. Returns a cudaError_t
-// value (0 on success); the launches (two where splits > 1) are
-// asynchronous on `stream`.
+// aligned (null for splits = 1). A and B float32, or one of them bfloat16;
+// C float32 or bfloat16 (float32 where A is bfloat16); indices below 2^31;
+// vec operands 16-byte aligned. Returns a cudaError_t value (0 on
+// success); the launches (two where splits > 1) are asynchronous on
+// `stream`.
 extern "C" int lama_fu_gemm(int M, int N, int K, int bm, int splits,
                             const GemmView* A, const GemmView* B,
                             const GemmOut* C, void* ws, void* stream) {
-  if (A->bf16 || M < 1 || N < 1 || K < 1 || C->zero_rows < 0 ||
+  if ((A->bf16 && B->bf16) || M < 1 || N < 1 || K < 1 || C->zero_rows < 0 ||
       C->zero_rows > MAX_ZERO_ROWS || splits < 1 || splits > MAX_SPLITS ||
       splits > (K + BK - 1) / BK ||
       (splits > 1 && (!ws || reinterpret_cast<uintptr_t>(ws) % 16)))

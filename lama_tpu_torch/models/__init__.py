@@ -5,9 +5,14 @@ from .ffc import FFCNLayerDiscriminator, FFCResNetGenerator
 from .pix2pixhd import GlobalGenerator, NLayerDiscriminator
 
 
-def make_generator(kind, **kwargs):
+def make_generator(kind, serving_mode=None, **kwargs):
     """`kind` from a config's `generator:` section; the rest are the
-    generator's keyword arguments (plus `dtype` and `kernels`)."""
+    generator's keyword arguments (plus `dtype` and `kernels`).
+    `serving_mode`: an ops/serving_mode.py ServingMode attached to the
+    module tree (lama_tpu/models/__init__.py:14-20); None is the all-off
+    default of training and the reference numerics."""
+    if serving_mode is not None:
+        kwargs['mode'] = serving_mode
     if kind == 'ffc_resnet':
         return FFCResNetGenerator(**kwargs)
     if kind == 'pix2pixhd_global':

@@ -18,7 +18,13 @@ or bfloat16) and each conv runs in its input's dtype, while BatchNorm and the
 spectral path compute in float32, as in the JAX package. Modules are built
 with `kernels='cuda'` (the hand-written kernels run on CUDA tensors; on CPU
 tensors their plain versions run) or `kernels='plain'` (plain versions
-everywhere). Options of the reference that big-lama does not use raise
+everywhere). The generator's `mode` (ops/serving_mode.py) reaches every
+conv and FourierUnit of the tree: under int8 the eligible convs quantize
+(the l2l, l2g and g2l convs, the SpectralTransform's two 1x1 convs, the
+downsamples and the ConvTranspose layers; lama_tpu/models/ffc.py:349-373),
+the FourierUnit's spectral conv never does (:300-306), and
+spectral_bf16_store reaches the FourierUnit. Options of the reference that
+big-lama does not use raise
 NotImplementedError naming the ROADMAP item that ports them.
 """
 from typing import Optional, Sequence
@@ -28,6 +34,7 @@ import torch.nn as nn
 
 from ..ops.activations import get_activation
 from ..ops.conv import Conv2d, ConvTranspose2d, check_kernels
+from ..ops.serving_mode import DEFAULT as DEFAULT_MODE
 from ..ops.kernels.fourier_unit import (fourier_unit_plain,
                                         fourier_unit_with_norm,
                                         fused_fourier_unit, planar_params)
@@ -46,12 +53,15 @@ class FourierUnit(nn.Module):
     irfft2 (reference ffc.py:49-113). Keys: conv_layer.weight, bn.*. In
     eval mode the kernel path folds BN into the conv once per set of
     weights (`planar_params`) and keeps the result; train mode runs the
-    plain unit with batch-statistics BN."""
+    plain unit with batch-statistics BN. With mode.spectral_bf16_store the
+    eval unit rounds its four DFT stage outputs to bf16 and stores them so
+    (ops/kernels/fourier_unit.py `store_bf16`). Its conv_layer is never
+    quantized (lama_tpu keeps the spectral conv out of int8 serving)."""
 
     def __init__(self, in_channels, out_channels, groups=1,
                  spatial_scale_factor=None, spectral_pos_encoding=False,
                  use_se=False, ffc3d=False, fft_norm='ortho',
-                 kernels='cuda'):
+                 kernels='cuda', mode=DEFAULT_MODE):
         super().__init__()
         for name, value, default in (
                 ('groups', groups, 1),
@@ -62,6 +72,7 @@ class FourierUnit(nn.Module):
             if value != default:
                 raise _unsupported(name, value)
         self.kernels = check_kernels(kernels)
+        self.mode = mode
         self.conv_layer = nn.Conv2d(in_channels * 2, out_channels * 2, 1,
                                     bias=False)
         self.bn = BatchNorm2d(out_channels * 2)
@@ -97,12 +108,15 @@ class FourierUnit(nn.Module):
             # training (models/ffc.py:196): the plain unit, train-mode BN
             return fourier_unit_with_norm(x, self.conv_layer.weight,
                                           self.bn).to(x.dtype)
+        store_bf16 = self.mode.spectral_bf16_store
         if self.kernels == 'plain':
-            out = fourier_unit_plain(x, *self._params(), eps=self.bn.eps)
+            out = fourier_unit_plain(x, *self._params(), eps=self.bn.eps,
+                                     store_bf16=store_bf16)
         else:
             out = fused_fourier_unit(
                 x, *self._params(), eps=self.bn.eps,
-                planar=self.planar() if x.is_cuda else None)
+                planar=self.planar() if x.is_cuda else None,
+                store_bf16=store_bf16)
         return out.to(x.dtype)
 
 
@@ -111,7 +125,8 @@ class SpectralTransform(nn.Module):
     1x1 conv. Keys: conv1.0, conv1.1, fu, conv2."""
 
     def __init__(self, in_channels, out_channels, stride=1, groups=1,
-                 enable_lfu=True, kernels='cuda', **fu_kwargs):
+                 enable_lfu=True, kernels='cuda', mode=DEFAULT_MODE,
+                 **fu_kwargs):
         super().__init__()
         if enable_lfu:
             raise _unsupported('enable_lfu', enable_lfu)
@@ -121,12 +136,12 @@ class SpectralTransform(nn.Module):
                            if stride == 2 else nn.Identity())
         self.conv1 = nn.Sequential(
             Conv2d(in_channels, out_channels // 2, 1, bias=False,
-                   kernels=kernels),
+                   kernels=kernels, mode=mode),
             BatchNorm2d(out_channels // 2), nn.ReLU())
         self.fu = FourierUnit(out_channels // 2, out_channels // 2,
-                              kernels=kernels, **fu_kwargs)
+                              kernels=kernels, mode=mode, **fu_kwargs)
         self.conv2 = Conv2d(out_channels // 2, out_channels, 1, bias=False,
-                            kernels=kernels)
+                            kernels=kernels, mode=mode)
 
     def forward(self, x):
         x = self.conv1(self.downsample(x))
@@ -140,7 +155,8 @@ class FFC(nn.Module):
     def __init__(self, in_channels, out_channels, kernel_size, ratio_gin,
                  ratio_gout, stride=1, padding=0, dilation=1, groups=1,
                  bias=False, enable_lfu=True, padding_type='reflect',
-                 gated=False, kernels='cuda', **spectral_kwargs):
+                 gated=False, kernels='cuda', mode=DEFAULT_MODE,
+                 **spectral_kwargs):
         super().__init__()
         if gated:
             raise _unsupported('gated', gated)
@@ -150,7 +166,7 @@ class FFC(nn.Module):
         out_cl = out_channels - out_cg
         kw = dict(kernel_size=kernel_size, stride=stride, padding=padding,
                   dilation=dilation, groups=groups, bias=bias,
-                  padding_mode=padding_type, kernels=kernels)
+                  padding_mode=padding_type, kernels=kernels, mode=mode)
 
         def conv(cin, cout):
             return (Conv2d(cin, cout, **kw) if cin > 0 and cout > 0
@@ -161,7 +177,7 @@ class FFC(nn.Module):
         self.convg2l = conv(in_cg, out_cl)
         self.convg2g = (SpectralTransform(
             in_cg, out_cg, stride, 1 if groups == 1 else groups // 2,
-            enable_lfu, kernels=kernels, **spectral_kwargs)
+            enable_lfu, kernels=kernels, mode=mode, **spectral_kwargs)
             if in_cg > 0 and out_cg > 0 else nn.Identity())
         self.has = dict(l2l=in_cl > 0 and out_cl > 0,
                         l2g=in_cl > 0 and out_cg > 0,
@@ -281,6 +297,9 @@ class FFCResNetGenerator(nn.Module):
     JAX package, the two ReflectionPad2d(3) entries are folded into the 7x7
     convs that follow them (padding=3, reflect); their indices hold a
     parameterless Identity. The output activation, if any, runs in float32.
+    `mode` (ops/serving_mode.py) is the serving configuration every conv
+    and FourierUnit of the tree takes (int8, zero_pad, spectral_bf16_store;
+    s2d and xfold_stem are carried and change nothing here).
     """
 
     def __init__(self, input_nc=4, output_nc=3, ngf=64, n_downsampling=3,
@@ -290,7 +309,8 @@ class FFCResNetGenerator(nn.Module):
                  spatial_transform_layers: Optional[Sequence[int]] = None,
                  spatial_transform_kwargs=None, add_out_act=True,
                  max_features=1024, out_ffc=False, out_ffc_kwargs=None,
-                 spectral_kwargs=None, dtype=torch.float32, kernels='cuda'):
+                 spectral_kwargs=None, dtype=torch.float32, kernels='cuda',
+                 mode=DEFAULT_MODE):
         super().__init__()
         if spatial_transform_layers:
             raise NotImplementedError(
@@ -303,7 +323,8 @@ class FFCResNetGenerator(nn.Module):
         init_kw = dict(init_conv_kwargs or {})
         down_kw = dict(downsample_conv_kwargs or {})
         res_kw = dict(resnet_conv_kwargs or {})
-        common = dict(kernels=kernels, **(spectral_kwargs or {}))
+        self.mode = mode
+        common = dict(kernels=kernels, mode=mode, **(spectral_kwargs or {}))
 
         layers = [nn.Identity(),   # 0: ReflectionPad2d(3), folded into 1
                   FFC_BN_ACT(input_nc, ngf, kernel_size=7, padding=3,
@@ -337,12 +358,13 @@ class FFCResNetGenerator(nn.Module):
                 ConvTranspose2d(min(max_features, ngf * mult),
                                 min(max_features, int(ngf * mult / 2)),
                                 kernel_size=3, stride=2, padding=1,
-                                output_padding=1),
+                                output_padding=1, kernels=kernels, mode=mode),
                 BatchNorm2d(min(max_features, int(ngf * mult / 2))),
                 _Activation(up_activation)]
         layers += [nn.Identity(),  # ReflectionPad2d(3), folded into the head
                    Conv2d(ngf, output_nc, kernel_size=7, padding=3,
-                          padding_mode='reflect', kernels=kernels)]
+                          padding_mode='reflect', kernels=kernels,
+                          mode=mode)]
         if add_out_act:
             layers.append(_Activation(
                 'tanh' if add_out_act is True else add_out_act, float32=True))

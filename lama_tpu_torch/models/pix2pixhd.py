@@ -20,8 +20,13 @@ state_dict loads with `strict=True`:
 Every parameter stays float32; a model runs in its `dtype` (float32 or
 bfloat16; float64 for reference checks), BatchNorm and the output activation
 compute in float32. `kernels='plain'` sends the kernels' shapes to their
-plain versions. Options no shipped config uses raise NotImplementedError
-naming the ROADMAP item that ports them.
+plain versions. The GlobalGenerator's `mode` (ops/serving_mode.py) reaches
+its convs: under int8 the eligible ones quantize (the downsamples, the
+ResnetBlock convs and the ConvTranspose layers), with the pads placed as in
+lama_tpu (each ResnetBlock pad folded into its conv, so zero_pad turns it
+to zeros; the downsamples are zero-padded with or without it). Options no
+shipped config uses raise NotImplementedError naming the ROADMAP item that
+ports them.
 """
 import torch
 import torch.nn as nn
@@ -30,6 +35,7 @@ from ..ops.activations import leaky_relu_02
 from ..ops.conv import Conv2d, ConvTranspose2d
 from ..ops.norm import BatchNorm2d
 from ..ops.precision import check_dtype
+from ..ops.serving_mode import DEFAULT as DEFAULT_MODE
 from .ffc import _Activation
 
 _LATER = 'not ported yet (ROADMAP queue 1 item 12)'
@@ -84,7 +90,8 @@ class ResnetBlock(nn.Module):
 
     def __init__(self, dim, padding_type='reflect', activation='relu',
                  conv_kind='default', dilation=1, second_dilation=None,
-                 in_dim=None, groups=1, kernel_size=3, kernels='cuda'):
+                 in_dim=None, groups=1, kernel_size=3, kernels='cuda',
+                 mode=DEFAULT_MODE):
         super().__init__()
         if conv_kind == 'depthwise':
             raise NotImplementedError(f'conv_kind={conv_kind!r} '
@@ -92,13 +99,13 @@ class ResnetBlock(nn.Module):
         if second_dilation is None:
             second_dilation = dilation
         pad_mult = 2 if kernel_size == 5 else 1
-        mode = {'reflect': 'reflect', 'replicate': 'replicate'}.get(
+        pad_mode = {'reflect': 'reflect', 'replicate': 'replicate'}.get(
             padding_type, 'zeros')
 
         def conv(cin, d, g):
             return Conv2d(cin, dim, kernel_size, padding=d * pad_mult,
-                          dilation=d, groups=g, padding_mode=mode,
-                          kernels=kernels)
+                          dilation=d, groups=g, padding_mode=pad_mode,
+                          kernels=kernels, mode=mode)
 
         self.conv_block = nn.Sequential(
             nn.Identity(),   # 0: the first pad, folded into 1
@@ -107,7 +114,8 @@ class ResnetBlock(nn.Module):
             nn.Identity(),   # 4: the second pad, folded into 5
             conv(dim, second_dilation, groups), BatchNorm2d(dim))
         self.input_conv = (None if in_dim is None else
-                           Conv2d(in_dim, dim, 1, kernels=kernels))
+                           Conv2d(in_dim, dim, 1, kernels=kernels,
+                                  mode=mode))
 
     def forward(self, x):
         skip = x if self.input_conv is None else self.input_conv(x)
@@ -136,28 +144,29 @@ class GlobalGenerator(nn.Module):
                  add_out_act=True, max_features=1024,
                  is_resblock_depthwise=False, ffc_positions=None,
                  ffc_kwargs=None, dilation=1, second_dilation=None,
-                 dtype=torch.float32, kernels='cuda'):
+                 dtype=torch.float32, kernels='cuda', mode=DEFAULT_MODE):
         super().__init__()
         for name, value in (('ffc_positions', ffc_positions),
                             ('is_resblock_depthwise', is_resblock_depthwise)):
             if value:
                 raise NotImplementedError(f'{name}={value!r} is {_LATER}')
         self.dtype = check_dtype(dtype)
+        self.mode = mode
 
         layers = [nn.Identity(),   # 0: ReflectionPad2d(3), folded into 1
                   Conv2d(input_nc, ngf, 7, padding=3, padding_mode='reflect',
-                         kernels=kernels),
+                         kernels=kernels, mode=mode),
                   BatchNorm2d(ngf), _Activation(activation)]
         for i in range(n_downsampling):
             mult = 2 ** i
             cin = min(max_features, ngf * mult)
             cout = min(max_features, ngf * mult * 2)
             layers += [Conv2d(cin, cout, 3, stride=2, padding=1,
-                              kernels=kernels),
+                              kernels=kernels, mode=mode),
                        BatchNorm2d(cout), _Activation(activation)]
         feats = min(max_features, ngf * 2 ** n_downsampling)
         block = dict(padding_type=padding_type, activation=activation,
-                     conv_kind=conv_kind, kernels=kernels)
+                     conv_kind=conv_kind, kernels=kernels, mode=mode)
 
         def dilated_blocks(n):
             return [ResnetBlock(feats, dilation=2 ** (j + 1), **block)
@@ -176,11 +185,12 @@ class GlobalGenerator(nn.Module):
             cout = min(max_features, int(ngf * mult / 2))
             layers += [ConvTranspose2d(min(max_features, ngf * mult), cout,
                                        kernel_size=3, stride=2, padding=1,
-                                       output_padding=1),
+                                       output_padding=1, kernels=kernels,
+                                       mode=mode),
                        BatchNorm2d(cout), _Activation(up_activation)]
         layers += [nn.Identity(),  # ReflectionPad2d(3), folded into the head
                    Conv2d(ngf, output_nc, 7, padding=3, padding_mode='reflect',
-                          kernels=kernels)]
+                          kernels=kernels, mode=mode)]
         if add_out_act:
             layers.append(_Activation(
                 'tanh' if add_out_act is True else add_out_act, float32=True))

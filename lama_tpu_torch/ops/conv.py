@@ -25,6 +25,17 @@ stride-1 grid fills less than one wave), ops/kernels/conv3x3_simt.py. The
 7x7 head is reflect_conv.cu's only kernel.
 `kernels='plain'` sends the kernels' shapes to their plain version too; it
 is how the tests and chip_smoke.py compare the two.
+
+int8 serving (counterpart of lama_tpu/ops/conv.py:430-443 and :483-491):
+a Conv2d or ConvTranspose2d built with a `mode` whose int8 is on, and
+eligible by ops/quant.py::conv_eligible, runs the int8 conv
+(ops/kernels/conv_int8.py: the kernel on a CUDA tensor, the plain version
+on a CPU tensor or under kernels='plain'). The FourierUnit's spectral conv
+never quantizes: it is a plain nn.Conv2d, not this module. Its activation scale is dynamic
+unless its non-persistent `act_amax` buffer holds a calibrated max |x|
+(serving.py::calibrate_int8, lama_tpu's 'quant_stats' collection; out of
+the state_dict, so a reference checkpoint still loads strictly). Its
+packed int8 weight is kept per set of weights.
 """
 import functools
 
@@ -32,9 +43,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from . import quant
+from .kernels import conv_int8
 from .kernels import halo_conv as hc
 from .kernels import reflect_conv as rc
 from .pad import pad2d
+from .serving_mode import DEFAULT as DEFAULT_MODE
 
 KERNEL_CHOICES = ('cuda', 'plain')
 
@@ -96,25 +110,86 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
 
 
-class Conv2d(nn.Conv2d):
-    """nn.Conv2d (reference keys and init) whose forward runs `conv2d` in
-    the input's dtype, so the parameters stay float32 under bf16 compute."""
+class _Quantized:
+    """The int8 serving state of a conv module: its mode, whether it
+    quantizes, the calibrated act_amax buffer and the packed weight."""
 
-    def __init__(self, *args, kernels: str = 'cuda', **kwargs):
+    def _init_quant(self, mode, groups):
+        self.mode = mode
+        self.quantized = bool(
+            mode.int8 and quant.conv_eligible(
+                self.in_channels, self.out_channels, groups,
+                *self.kernel_size, mode))
+        self.register_buffer('act_amax', None, persistent=False)
+        self._packed_key = None
+        self._packed = None
+
+    def _act_amax(self, x):
+        """The static amax, or None for a dynamic scale. Calibrating, this
+        call's max |x| joins the buffer's max (lama_tpu's sow with
+        reduce_fn=max, ops/conv.py:367-384) and the call serves with a
+        dynamic scale."""
+        if self.mode.calibrating:
+            amax = x.detach().float().abs().amax()
+            self.act_amax = (amax if self.act_amax is None
+                             else torch.maximum(self.act_amax, amax))
+            return None
+        return self.act_amax
+
+    def _pack(self, x, transposed):
+        """pack_weight's result, recomputed only when the weight changed
+        (its storage or, for a tensor with a version, its version), as
+        FourierUnit.planar keys its cache; None where the plain version
+        runs."""
+        if self.kernels == 'plain' or not x.is_cuda:
+            return None
+        w = self.weight
+        key = (w.data_ptr(), -1 if w.is_inference() else w._version)
+        if key != self._packed_key:
+            self._packed = conv_int8.pack_weight(w, transposed)
+            self._packed_key = key
+        return self._packed
+
+
+class Conv2d(_Quantized, nn.Conv2d):
+    """nn.Conv2d (reference keys and init) whose forward runs `conv2d` in
+    the input's dtype, so the parameters stay float32 under bf16 compute;
+    or the int8 conv, when `mode` serves int8 and the conv is eligible."""
+
+    def __init__(self, *args, kernels: str = 'cuda', mode=DEFAULT_MODE,
+                 **kwargs):
         super().__init__(*args, **kwargs)
         self.kernels = check_kernels(kernels)
+        self._init_quant(mode, self.groups)
 
     def forward(self, x):
+        if self.quantized:
+            return conv_int8.quantized_conv2d(
+                x, self.weight, self.bias, self.stride, self.padding,
+                self.dilation, self.groups, self.padding_mode,
+                act_amax=self._act_amax(x), zero_pad=self.mode.zero_pad,
+                packed=self._pack(x, False), kernels=self.kernels)
         return conv2d(x, self.weight, self.bias, self.stride, self.padding,
                       self.dilation, self.groups, self.padding_mode,
                       self.kernels)
 
 
-class ConvTranspose2d(nn.ConvTranspose2d):
+class ConvTranspose2d(_Quantized, nn.ConvTranspose2d):
     """nn.ConvTranspose2d (weight (I, O, kh, kw), as the reference) run in
-    the input's dtype."""
+    the input's dtype; or the int8 conv, as Conv2d."""
+
+    def __init__(self, *args, kernels: str = 'cuda', mode=DEFAULT_MODE,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.kernels = check_kernels(kernels)
+        self._init_quant(mode, 1)
 
     def forward(self, x):
+        if self.quantized:
+            return conv_int8.quantized_conv_transpose2d(
+                x, self.weight, self.bias, self.stride, self.padding,
+                self.output_padding, act_amax=self._act_amax(x),
+                packed=self._pack(x, True), kernels=self.kernels)
         return F.conv_transpose2d(
             x, self.weight.to(x.dtype),
             None if self.bias is None else self.bias.to(x.dtype),

@@ -23,7 +23,7 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC_DIR = os.path.join(PACKAGE_DIR, 'csrc')
 BUILD_DIR = os.path.join(PACKAGE_DIR, '_build')
 SOURCES = ('reflect_conv', 'fourier_unit', 'halo_conv', 'conv3x3_wgmma',
-           'conv3x3_simt', 'stem_conv')
+           'conv3x3_simt', 'stem_conv', 'conv_int8')
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-shared', '-Xcompiler',
                            '-fPIC', '-Xptxas=-v')

@@ -1,0 +1,319 @@
+"""The int8 conv of int8 serving: CUDA kernel, its plan and its weight
+packing (csrc/conv_int8.cu), with ops/quant.py's plain versions.
+
+No TPU kernel stands behind it: lama_tpu's quantized convs are XLA convs
+with int32 accumulation (lama_tpu/ops/quant.py:108 and :151). A conv on the
+card is three launches, two with a calibrated scale: max |x| over the
+whole tensor (dynamic scale), the quantize pass to int8 NHWC codes with
+the channels padded to a multiple of CHUNK, and one implicit GEMM on
+mma.sync s8 with int32 sums and the dequantize epilogue (see the source's
+header). A conv is a list of phases (`conv_plan`, `conv_transpose_plan`),
+each a stride-s gather with its own taps: a Conv2d is one phase of kh * kw
+taps; a stride-2 ConvTranspose2d is four phases, the output's row and
+column parities, of 1, 2, 2 and 4 taps over the undilated input. The
+weights are quantized per output channel and packed once per set of
+weights (`pack_weight`, cached by ops/conv.py's modules) as (taps, C_out
+padded to COP_ALIGN, C padded to CHUNK) int8.
+
+The wrappers take the plain version (ops/quant.py) for a CPU tensor and
+under kernels='plain'; on a CUDA tensor they launch the kernel or raise.
+They count their launches in `.launches`. int8 is for serving only: the
+rounding has no gradient, and a CUDA call that needs one raises.
+"""
+import ctypes
+import functools
+from collections import namedtuple
+
+import torch
+
+from .. import quant
+from . import _build
+
+# the kernel's constants (csrc/conv_int8.cu; tests/test_torch_int8.py
+# checks that the source agrees)
+THREADS = 256
+BM = 128                  # output pixels a block tile
+TILE_N = (64, 128)        # the instances' output channels a block tile
+CHUNK = 32                # input channels a K chunk
+KCH = 2                   # chunks a pipeline stage
+ROW = 48                  # shared bytes a chunk row
+STAGES = 4
+COP_ALIGN = 128           # the packed weight's C_out padding
+MAX_TAPS = 9
+MAX_PHASES = 4
+BORDERS = {'zeros': 0, 'reflect': 1, 'replicate': 2}
+OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, 'acc': 2}
+LATER = 'ROADMAP queue 1 item 12'
+
+# one phase: output offset (oy0, ox0), grid (hg, wg), taps [(dy, dx, wtap)]
+Phase = namedtuple('Phase', 'oy0 ox0 hg wg taps')
+# a conv's launch plan: its phases, the gather's input stride, the output
+# stride, the border, the output's H and W
+Plan = namedtuple('Plan', 'phases stride ostride border ho wo')
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
+def round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def tile_n(co: int) -> int:
+    """The instance's BN for C_out output channels: the fewest padded
+    columns, ties to the wider tile."""
+    return min(TILE_N, key=lambda bn: (round_up(co, bn), -bn))
+
+
+def _refuse(what, shape):
+    return NotImplementedError(
+        f'int8 conv kernel: {what} at input {tuple(shape)} is not ported yet '
+        f'({LATER}, with the multidilated family)')
+
+
+def conv_plan(x_shape, weight_shape, stride=1, padding=0, dilation=1,
+              groups=1, padding_mode='zeros', zero_pad=False) -> Plan:
+    """The one phase of a Conv2d on an NCHW input of x_shape: tap (ky, kx)
+    reads (ho * s + ky - ph, wo * s + kx - pw) through the border (zeros
+    for a zero-padded conv or under zero_pad), weight slice ky * kw + kx.
+    Raises for what the kernel does not take."""
+    _, c, h, w = x_shape
+    kh, kw = weight_shape[-2:]
+    (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
+    if groups != 1 or _pair(dilation) != (1, 1):
+        raise _refuse(f'groups={groups}, dilation={dilation}', x_shape)
+    if sh != sw or kh * kw > MAX_TAPS:
+        raise _refuse(f'kernel {kh}x{kw}, stride {stride}', x_shape)
+    border = 'zeros' if zero_pad or not (ph or pw) else padding_mode
+    if border not in BORDERS:
+        raise ValueError(f'padding_mode={padding_mode!r}')
+    if border == 'reflect' and (ph >= h or pw >= w):
+        raise ValueError(f'reflect padding {padding} needs H, W > pad: '
+                         f'{tuple(x_shape)}')
+    ho, wo = (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw + 1
+    taps = [(ky - ph, kx - pw, ky * kw + kx) for ky in range(kh)
+            for kx in range(kw)]
+    return Plan([Phase(0, 0, ho, wo, taps)], sh, 1, BORDERS[border], ho, wo)
+
+
+def _transposed_taps(k, s, p, r):
+    """(input offset, tap) of the taps of output residue r: oy = a s + r
+    reads iy = a + (r + p - ky) / s where that is whole."""
+    return [((r + p - ky) // s, ky) for ky in range(k) if (r + p - ky) % s == 0]
+
+
+def conv_transpose_plan(x_shape, weight_shape, stride=2, padding=1,
+                        output_padding=1) -> Plan:
+    """The phases of a ConvTranspose2d (weight (I, O, kh, kw)): one per
+    output residue (py, px) mod the stride, each a stride-1 gather of the
+    undilated input with a zero border; k3 s2 p1 op1 gives four phases of
+    1, 2, 2 and 4 taps."""
+    _, c, h, w = x_shape
+    kh, kw = weight_shape[-2:]
+    (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
+    oph, opw = _pair(output_padding)
+    if sh != sw or sh * sw > MAX_PHASES:
+        raise _refuse(f'transposed stride {stride}', x_shape)
+    ho = (h - 1) * sh - 2 * ph + kh + oph
+    wo = (w - 1) * sw - 2 * pw + kw + opw
+    phases = []
+    for py in range(min(sh, ho)):
+        for px in range(min(sw, wo)):
+            taps = [(dy, dx, ky * kw + kx)
+                    for dy, ky in _transposed_taps(kh, sh, ph, py)
+                    for dx, kx in _transposed_taps(kw, sw, pw, px)]
+            if len(taps) > MAX_TAPS:
+                raise _refuse(f'transposed kernel {kh}x{kw}', x_shape)
+            if taps:
+                phases.append(Phase(py, px, -(-(ho - py) // sh),
+                                    -(-(wo - px) // sw), taps))
+    if len(phases) != min(sh, ho) * min(sw, wo):
+        # an output residue no tap reaches is all bias: not a shipped layer
+        raise _refuse(f'transposed kernel {kh}x{kw} < stride {stride}',
+                      x_shape)
+    return Plan(phases, 1, sh, BORDERS['zeros'], ho, wo)
+
+
+@torch.no_grad()
+def pack_weight(weight, transposed: bool = False):
+    """(packed codes (taps, C_out padded to COP_ALIGN, C padded to CHUNK)
+    int8, scales (C_out,) float32) of a Conv2d weight (O, I, kh, kw) or a
+    ConvTranspose2d weight (I, O, kh, kw); tap ky * kw + kx, zeros in the
+    padding. The codes and scales are ops/quant.py's."""
+    wq, s_w = quant.quantize_weight(weight, transposed)
+    taps = wq.permute(2, 3, 1, 0) if transposed else wq.permute(2, 3, 0, 1)
+    kh, kw, co, c = taps.shape
+    packed = torch.zeros((kh * kw, round_up(co, COP_ALIGN),
+                          round_up(c, CHUNK)), dtype=torch.int8,
+                         device=weight.device)
+    packed[:, :co, :c] = taps.reshape(kh * kw, co, c)
+    return packed, s_w.contiguous()
+
+
+class _Phase(ctypes.Structure):
+    _fields_ = [('oy0', ctypes.c_int), ('ox0', ctypes.c_int),
+                ('hg', ctypes.c_int), ('wg', ctypes.c_int),
+                ('taps', ctypes.c_int), ('dy', ctypes.c_int * MAX_TAPS),
+                ('dx', ctypes.c_int * MAX_TAPS),
+                ('wtap', ctypes.c_int * MAX_TAPS)]
+
+
+class _Args(ctypes.Structure):
+    _fields_ = ([(k, ctypes.c_void_p) for k in
+                 ('x', 'w', 'amax', 's_w', 'bias', 'out')]
+                + [(k, ctypes.c_int) for k in
+                   ('out_kind', 'B', 'H', 'W', 'Cp', 'Ho', 'Wo', 'Co', 'COp',
+                    'stride', 'ostride', 'border', 'n_phases')]
+                + [('phase', _Phase * MAX_PHASES)])
+
+
+@functools.lru_cache(maxsize=1)
+def _lib():
+    lib = _build.load('conv_int8')
+    lib.lama_int8_amax.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_longlong, ctypes.c_void_p,
+                                   ctypes.c_void_p]
+    lib.lama_int8_quantize.argtypes = (
+        [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4
+        + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    lib.lama_int8_conv.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_void_p]
+    for fn in (lib.lama_int8_amax, lib.lama_int8_quantize,
+               lib.lama_int8_conv):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(what, err):
+    if err != 0:
+        raise RuntimeError(f'int8 conv: CUDA launch of {what} failed with '
+                           f'error {err}')
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def quantize_activation(x, act_amax=None):
+    """x (B, C, H, W) bf16 or fp32 on the card -> (codes (B, H, W, Cp) int8,
+    amax (1,) float32 on the card): the amax kernel unless the calibrated
+    `act_amax` is given, then the quantize kernel."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f'int8 conv: input dtype {x.dtype}')
+    b, c, h, w = x.shape
+    bf16 = int(x.dtype == torch.bfloat16)
+    with torch.cuda.device(x.device):
+        if act_amax is None:
+            dense = x if (x.is_contiguous() or x.is_contiguous(
+                memory_format=torch.channels_last)) else x.contiguous()
+            amax = torch.empty(1, dtype=torch.float32, device=x.device)
+            _check('the amax pass', _lib().lama_int8_amax(
+                dense.data_ptr(), bf16, dense.numel(), amax.data_ptr(),
+                _stream(x)))
+        else:
+            amax = act_amax.detach().to(device=x.device,
+                                        dtype=torch.float32).reshape(1)
+        cp = round_up(c, CHUNK)
+        xq = torch.empty((b, h, w, cp), dtype=torch.int8, device=x.device)
+        _check('the quantize pass', _lib().lama_int8_quantize(
+            x.data_ptr(), bf16, b, c, h, w, *x.stride(), cp, amax.data_ptr(),
+            xq.data_ptr(), _stream(x)))
+    return xq, amax
+
+
+def conv_codes(xq, amax, packed, s_w, bias, plan: Plan, co: int,
+               out_dtype=torch.bfloat16):
+    """The GEMM launch on quantize_activation's codes: (B, co, Ho, Wo),
+    channels-last, in out_dtype, or the int32 sums with out_dtype='acc'."""
+    b, h, w, cp = xq.shape
+    if packed.shape[2] != cp or packed.dtype != torch.int8:
+        raise ValueError(f'int8 conv: packed weight {tuple(packed.shape)} for '
+                         f'codes {tuple(xq.shape)}')
+    out = torch.empty((b, co, plan.ho, plan.wo),
+                      dtype=torch.int32 if out_dtype == 'acc' else out_dtype,
+                      device=xq.device, memory_format=torch.channels_last)
+    if bias is not None:
+        bias = bias.detach().float().contiguous()
+    args = conv_args(xq, amax, packed, s_w, bias, plan, out)
+    with torch.cuda.device(xq.device):
+        _check('the conv', _lib().lama_int8_conv(
+            ctypes.addressof(args), tile_n(co), _stream(xq)))
+    return out
+
+
+def conv_args(xq, amax, packed, s_w, bias, plan: Plan, out):
+    """lama_int8_conv's argument structure for these buffers: codes (B, H,
+    W, Cp), amax (1,), the packed weight and its scales, a float32 bias or
+    None, and the channels-last output (B, C_out, Ho, Wo) whose dtype names
+    the epilogue (int32: the raw sums)."""
+    b, h, w, cp = xq.shape
+    kind = OUT_KINDS['acc' if out.dtype == torch.int32 else out.dtype]
+    args = _Args(x=xq.data_ptr(), w=packed.data_ptr(), amax=amax.data_ptr(),
+                 s_w=s_w.data_ptr(),
+                 bias=None if bias is None else bias.data_ptr(),
+                 out=out.data_ptr(), out_kind=kind, B=b, H=h, W=w, Cp=cp,
+                 Ho=plan.ho, Wo=plan.wo, Co=out.shape[1], COp=packed.shape[1],
+                 stride=plan.stride, ostride=plan.ostride, border=plan.border,
+                 n_phases=len(plan.phases))
+    for i, ph in enumerate(plan.phases):
+        slot = args.phase[i]
+        slot.oy0, slot.ox0, slot.hg, slot.wg = ph.oy0, ph.ox0, ph.hg, ph.wg
+        slot.taps = len(ph.taps)
+        for t, (dy, dx, wt) in enumerate(ph.taps):
+            slot.dy[t], slot.dx[t], slot.wtap[t] = dy, dx, wt
+    return args
+
+
+def _on_card(x, kernels, params):
+    """Whether the kernel runs: on a CUDA tensor unless kernels='plain';
+    raises there when a gradient is needed."""
+    if kernels == 'plain' or not x.is_cuda:
+        return False
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, *params)):
+        raise RuntimeError('int8 conv: int8 convs serve only (the rounding '
+                           'has no gradient); run under torch.no_grad or '
+                           'inference_mode')
+    return True
+
+
+def quantized_conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1,
+                     groups=1, padding_mode='zeros', act_amax=None,
+                     zero_pad: bool = False, packed=None, kernels='cuda'):
+    """int8 Conv2d, NCHW input (any memory format), OIHW weight; returns
+    x's dtype (channels-last from the kernel). `packed`: pack_weight's
+    result, when the caller keeps it."""
+    if not _on_card(x, kernels, (weight, bias)):
+        return quant.quantized_conv2d(x, weight, bias, stride, padding,
+                                      dilation, groups, padding_mode,
+                                      act_amax=act_amax, zero_pad=zero_pad)
+    plan = conv_plan(x.shape, weight.shape, stride, padding, dilation,
+                     groups, padding_mode, zero_pad)
+    wp, s_w = packed if packed is not None else pack_weight(weight)
+    xq, amax = quantize_activation(x, act_amax)
+    out = conv_codes(xq, amax, wp, s_w, bias, plan, weight.shape[0], x.dtype)
+    quantized_conv2d.launches += 1
+    return out
+
+
+def quantized_conv_transpose2d(x, weight, bias=None, stride=2, padding=1,
+                               output_padding=1, act_amax=None, packed=None,
+                               kernels='cuda'):
+    """int8 ConvTranspose2d, NCHW input, weight (I, O, kh, kw); returns
+    x's dtype. Counted with quantized_conv2d: one kernel."""
+    if not _on_card(x, kernels, (weight, bias)):
+        return quant.quantized_conv_transpose2d(
+            x, weight, bias, stride, padding, output_padding,
+            act_amax=act_amax)
+    plan = conv_transpose_plan(x.shape, weight.shape, stride, padding,
+                               output_padding)
+    wp, s_w = (packed if packed is not None
+               else pack_weight(weight, transposed=True))
+    xq, amax = quantize_activation(x, act_amax)
+    out = conv_codes(xq, amax, wp, s_w, bias, plan, weight.shape[1], x.dtype)
+    quantized_conv2d.launches += 1
+    return out
+
+
+quantized_conv2d.launches = 0

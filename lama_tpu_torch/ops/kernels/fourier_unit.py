@@ -22,6 +22,15 @@ float32 or bfloat16 (any memory format); output float32, channels-last, as
 the TPU kernel's output is float32; the arithmetic is fp32 for either input
 type.
 
+`store_bf16` (lama_tpu's spectral_bf16_store, lama_tpu/ops/spectral.py:
+67-96): the four DFT stages round their sums to bf16 and store them so
+(the spectra between launches and the output, which is then bf16); the
+conv stage reads the bf16 spectrum and writes fp32; the sums stay fp32. As
+in lama_tpu it acts only where its operands are bf16 (a bf16 input) and
+where its DFT path runs, max(H, W) <= 256 (spectral.py:252-254); elsewhere
+the unit is the one without it. The plain version rounds at the same four
+points.
+
 When a gradient is needed, the kernel runs inside
 `_autograd.differentiable`: its backward is the VJP of
 `fourier_unit_plain` recomputed on the saved inputs, with respect to x and
@@ -44,25 +53,62 @@ from ._autograd import differentiable
 MAX_SIDE = 256   # the TPU kernel's envelope, max(H, W) <= 256
 
 
+def stores_bf16(x, store_bf16: bool) -> bool:
+    """Whether `store_bf16` acts on a unit with input x: a bf16 input with
+    max(H, W) <= MAX_SIDE, lama_tpu's DFT path (spectral.py:93-96,
+    :252-254)."""
+    return (bool(store_bf16) and x.dtype == torch.bfloat16
+            and max(x.shape[-2:]) <= MAX_SIDE)
+
+
 def fourier_unit_plain(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var,
-                       eps: float = 1e-5):
+                       eps: float = 1e-5, store_bf16: bool = False):
     """Plain version, in the reference's form (reference ffc.py:76-113):
     rfft2 (ortho) -> interleave re/im per channel -> 1x1 conv -> eval BN ->
-    ReLU -> irfft2, all in float32. Returns float32 NCHW."""
-    return fourier_unit_with_norm(x, conv_weight, lambda y: F.batch_norm(
-        y, bn_mean.float(), bn_var.float(), bn_weight.float(),
-        bn_bias.float(), False, 0.0, eps))
+    ReLU -> irfft2, all in float32. Returns float32 NCHW; bf16 where
+    `store_bf16` acts (`stores_bf16`), which rounds the outputs of the four
+    DFT stages (W, H, H inverse, W inverse) to bf16."""
+    def norm(y):
+        return F.batch_norm(y, bn_mean.float(), bn_var.float(),
+                            bn_weight.float(), bn_bias.float(), False, 0.0,
+                            eps)
+    if stores_bf16(x, store_bf16):
+        return _unit_bf16_stores(x, conv_weight, norm)
+    return fourier_unit_with_norm(x, conv_weight, norm)
+
+
+def _spectral_conv(re, im, conv_weight, norm):
+    """The 1x1 conv over the re/im channels interleaved per channel, the
+    norm and the ReLU: (b, c, h, wf) re, im -> (b, c', 2, h, wf)."""
+    b, c, h, _ = re.shape
+    y = torch.stack([re, im], dim=2).reshape(b, 2 * c, h, -1)
+    y = torch.relu(norm(F.conv2d(y, conv_weight.to(y.dtype))))
+    return y.reshape(b, -1, 2, h, y.shape[-1])
 
 
 def fourier_unit_with_norm(x, conv_weight, norm):
     """The plain FourierUnit with `norm` (a callable on the float32
     spectrum, e.g. a BatchNorm module in train mode) as its BN."""
-    b, c, h, w = x.shape
-    re, im = spectral.rfft2(x)                                    # (b,c,h,wf)
-    y = torch.stack([re, im], dim=2).reshape(b, 2 * c, h, -1)
-    y = torch.relu(norm(F.conv2d(y, conv_weight.to(y.dtype))))
-    y = y.reshape(b, -1, 2, h, y.shape[-1])
+    h, w = x.shape[-2:]
+    y = _spectral_conv(*spectral.rfft2(x), conv_weight, norm)
     return spectral.irfft2(y[:, :, 0], y[:, :, 1], s=(h, w))
+
+
+def _unit_bf16_stores(x, conv_weight, norm):
+    """The plain unit with each DFT stage's output rounded to bf16, stage by
+    stage as the kernel's launches run: W-DFT, H-DFT, the conv in float32,
+    H-iDFT, W-iDFT. Returns bf16."""
+    def stored(z):
+        return z.real.bfloat16().float(), z.imag.bfloat16().float()
+
+    h, w = x.shape[-2:]
+    re, im = stored(torch.fft.rfft(x.float(), dim=-1, norm='ortho'))
+    re, im = stored(torch.fft.fft(torch.complex(re, im), dim=-2,
+                                  norm='ortho'))
+    y = _spectral_conv(re, im, conv_weight, norm)
+    re, im = stored(torch.fft.ifft(torch.complex(y[:, :, 0], y[:, :, 1]),
+                                   dim=-2, norm='ortho'))
+    return spectral.irfft_w(re, im, w).bfloat16()
 
 
 def planar_perm(c: int, device=None) -> torch.Tensor:
@@ -125,6 +171,7 @@ TILE_ROWS = (128, 64, 32, 16)   # the kernel's instances (BM)
 MAX_SPLITS = 4              # K splits of a stage (split_count)
 SPLIT_SLACK = 0.05          # take the fewest splits within 5% of the best
 SPLIT_GAIN = 0.9            # and split only for 10% less time than unsplit
+A_BF16_BM = 128             # the tile height of a stage with a bf16 A
 STAGE_NAMES = ('W-DFT', 'H-DFT', 'conv', 'H-iDFT', 'W-iDFT')
 
 
@@ -242,7 +289,8 @@ def vec_ok(row, col, n_rows: int, n_cols: int, ev: int) -> bool:
 
 
 def _stage_plan(b: int, h: int, w: int, c: int, co: int,
-                x_bf16: bool = False, pad: bool = True, sms: int = 0):
+                x_bf16: bool = False, pad: bool = True, sms: int = 0,
+                store_bf16: bool = False):
     """The five GEMM launches of one unit, the batch merged into N. Each
     operand is (buffer, row_split, col_split, vec), a split (d, hi, lo)
     mapping index i to (i // d) * hi + (i % d) * lo, and `vec` whether it
@@ -252,7 +300,9 @@ def _stage_plan(b: int, h: int, w: int, c: int, co: int,
     tables at row pitch `pitch` (pad=False: unpadded). `bm` is the stage's
     tile height (`tile_rows`), `splits` its K splits on a card of `sms`
     SMs (`split_count`; 1 for sms = 0); the W-DFT writes its last
-    `zero_rows` spectrum rows as zeros."""
+    `zero_rows` spectrum rows as zeros. Each operand's element type is in
+    `types` ('x' bf16 for a bf16 input; with store_bf16 the W-DFT, H-DFT,
+    H-iDFT and W-iDFT outputs, and their readers, bf16)."""
     wf = w // 2 + 1
 
     def rows(stride):
@@ -288,13 +338,21 @@ def _stage_plan(b: int, h: int, w: int, c: int, co: int,
     ]
     for name, st in zip(STAGE_NAMES, stages):
         m, n, k = st['M'], st['N'], st['K']
-        ev_b = 8 if x_bf16 and st['b'][0] == 'x' else 4
-        bm = tile_rows(m, n)
+        # bf16 operands: x, and with store_bf16 the DFT stages' outputs
+        # (s0 after the W-DFT, s1, the unit's output) and their readers
+        types = dict(a=store_bf16 and name == 'conv',
+                     b=(x_bf16 if name == 'W-DFT' else
+                        store_bf16 and name in ('H-DFT', 'W-iDFT')),
+                     out=store_bf16 and name != 'conv')
+        # the kernel has a bf16 A (the stored spectrum) at one tile height
+        bm = A_BF16_BM if types['a'] else tile_rows(m, n)
         tiles = -(-m // bm) * -(-n // tile_cols(bm))
-        st.update(stage=name, bm=bm,
+        st.update(stage=name, bm=bm, types=types,
                   splits=split_count(tiles, -(-k // BK), sms) if sms else 1,
-                  a=st['a'] + (vec_ok(*st['a'][1:], m, k, 4),),
-                  b=st['b'] + (vec_ok(*st['b'][1:], k, n, ev_b),),
+                  a=st['a'] + (vec_ok(*st['a'][1:], m, k,
+                                      8 if types['a'] else 4),),
+                  b=st['b'] + (vec_ok(*st['b'][1:], k, n,
+                                      8 if types['b'] else 4),),
                   out=st['out'] + (vec_ok(*st['out'][1:], m, n, 4),))
         st.setdefault('bias', False)
         st.setdefault('relu', False)
@@ -315,7 +373,8 @@ class _View(ctypes.Structure):
 class _Out(ctypes.Structure):
     _fields_ = [('p', ctypes.c_void_p), ('vec', ctypes.c_int),
                 ('row', _Split), ('col', _Split), ('bias', ctypes.c_void_p),
-                ('relu', ctypes.c_int), ('zero_rows', ctypes.c_int)]
+                ('relu', ctypes.c_int), ('zero_rows', ctypes.c_int),
+                ('bf16', ctypes.c_int)]
 
 
 # lama_fu_gemm(M, N, K, bm, splits, A*, B*, C*, ws, stream)
@@ -352,7 +411,7 @@ def _gemm(stage: str, *args):
 
 @functools.lru_cache(maxsize=16)
 def _launch_plan(b: int, h: int, w: int, c: int, co: int, x_bf16: bool,
-                 device: torch.device, sms: int):
+                 device: torch.device, sms: int, store_bf16: bool = False):
     """One shape's five launches on a card of `sms` SMs as ctypes
     structures (the per-call buffers' pointers are filled in at each call),
     its twiddle tables and the workspace its split stages need:
@@ -360,7 +419,8 @@ def _launch_plan(b: int, h: int, w: int, c: int, co: int, x_bf16: bool,
     bias)], tables, workspace floats."""
     tabs = _twiddles(h, w, device)
     launches = []
-    plan = _stage_plan(b, h, w, c, co, x_bf16, sms=sms)
+    plan = _stage_plan(b, h, w, c, co, x_bf16, sms=sms,
+                       store_bf16=store_bf16)
     for st in plan:
         structs = []
 
@@ -371,10 +431,10 @@ def _launch_plan(b: int, h: int, w: int, c: int, co: int, x_bf16: bool,
             structs.append((v, name, vec))
             return v
 
-        a = view(st['a'], _View, bf16=0)
-        bv = view(st['b'], _View, bf16=int(x_bf16 and st['b'][0] == 'x'))
+        a = view(st['a'], _View, bf16=int(st['types']['a']))
+        bv = view(st['b'], _View, bf16=int(st['types']['b']))
         out = view(st['out'], _Out, relu=int(st['relu']),
-                   zero_rows=st['zero_rows'])
+                   zero_rows=st['zero_rows'], bf16=int(st['types']['out']))
         launches.append((st['stage'], (st['M'], st['N'], st['K'], st['bm'],
                                        st['splits']),
                          a, bv, out, structs, st['bias']))
@@ -385,24 +445,29 @@ _launch_lock = threading.Lock()   # the cached structures are filled per call
 
 
 def fused_fourier_unit(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var,
-                       eps: float = 1e-5, planar=None):
+                       eps: float = 1e-5, planar=None,
+                       store_bf16: bool = False):
     """Eval-mode FourierUnit (ortho norm). x: (B, C, H, W); conv_weight:
     (2C', 2C, 1, 1) in the reference's interleaved order; BN over 2C'.
     `planar`: the (W, bias) of `planar_params`, when the caller keeps them
     (the forward reads them; a gradient flows through the plain version's
-    parameters). Returns float32 (B, C', H, W)."""
+    parameters). Returns float32 (B, C', H, W); bf16 where `store_bf16`
+    acts (`stores_bf16`)."""
+    store_bf16 = stores_bf16(x, store_bf16)
     if not x.is_cuda:
         return fourier_unit_plain(x, conv_weight, bn_weight, bn_bias, bn_mean,
-                                  bn_var, eps)
+                                  bn_var, eps, store_bf16)
     out = differentiable(
-        functools.partial(_launch, eps=eps, planar=planar),
-        functools.partial(fourier_unit_plain, eps=eps),
+        functools.partial(_launch, eps=eps, planar=planar,
+                          store_bf16=store_bf16),
+        functools.partial(fourier_unit_plain, eps=eps, store_bf16=store_bf16),
         x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var)
     fused_fourier_unit.launches += 1
     return out
 
 
-def _launch(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var, eps, planar):
+def _launch(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var, eps, planar,
+            store_bf16=False):
     b, c, h, w = x.shape
     co = conv_weight.shape[0] // 2
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -420,14 +485,18 @@ def _launch(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var, eps, planar):
         raise ValueError('fused_fourier_unit: planar params do not match x')
     wf = w // 2 + 1
     x = x.contiguous(memory_format=torch.channels_last)
-    s0 = torch.empty(b * h * 2 * wf * max(c, co), dtype=torch.float32,
-                     device=x.device)
-    s1 = torch.empty_like(s0)
-    out = torch.empty((b, co, h, w), dtype=torch.float32, device=x.device,
+    # s0 holds the W-DFT's output and the conv's (fp32); s1 the H-DFT's and
+    # the H-iDFT's, bf16 with store_bf16
+    spectrum = b * h * 2 * wf * max(c, co)
+    s0 = torch.empty(spectrum, dtype=torch.float32, device=x.device)
+    s1 = torch.empty(spectrum, dtype=torch.bfloat16 if store_bf16
+                     else torch.float32, device=x.device)
+    out = torch.empty((b, co, h, w), dtype=torch.bfloat16 if store_bf16
+                      else torch.float32, device=x.device,
                       memory_format=torch.channels_last)
     launches, tabs, ws_floats = _launch_plan(
         b, h, w, c, co, x.dtype == torch.bfloat16, x.device,
-        _sm_count(x.device))
+        _sm_count(x.device), store_bf16)
     ws = (torch.empty(ws_floats, dtype=torch.float32, device=x.device)
           if ws_floats else None)
     ptrs = {k: t.data_ptr() for k, t in tabs.items()}

@@ -24,9 +24,15 @@ def irfft2(re, im, s):
     h, w = s
     z = torch.fft.ifft(torch.complex(widen(re), widen(im)), n=h, dim=-2,
                        norm='ortho')
-    keep = torch.ones(z.shape[-1], dtype=z.real.dtype, device=z.device)
+    return irfft_w(z.real, z.imag, w)
+
+
+def irfft_w(re, im, w):
+    """The inverse real DFT along W (ortho) of (.., W//2+1) re/im, the
+    imaginary parts of the DC and (W even) Nyquist columns dropped."""
+    keep = torch.ones(re.shape[-1], dtype=re.dtype, device=re.device)
     keep[0] = 0.0
     if w % 2 == 0:
         keep[w // 2] = 0.0
-    return torch.fft.irfft(torch.complex(z.real, z.imag * keep), n=w, dim=-1,
+    return torch.fft.irfft(torch.complex(re, im * keep), n=w, dim=-1,
                            norm='ortho')

@@ -3,8 +3,10 @@ counterpart of bin/predict.py.
 
 Usage:
   python -m lama_tpu_torch.predict model.path=<run_dir> indir=<images+masks> \
-      outdir=<out> [device=cuda] [precision=bf16|fp32] [batch_size=N] \
-      [wire=fp32|uint8] [out_key=inpainted|predicted_image] [refine=true]
+      outdir=<out> [device=cuda] [precision=bf16|fp32|int8] [batch_size=N] \
+      [wire=fp32|uint8] [out_key=inpainted|predicted_image] [refine=true] \
+      [quant_calibration=K] [quant_zero_pad=true] [spectral_bf16_store=true] \
+      [s2d_out_head=true] [xfold_stem=true]
 
 It takes the same key=value overrides of configs/prediction/default.yaml.
 <run_dir>/config.yaml names the generator: ffc_resnet (big-lama) or
@@ -18,8 +20,12 @@ refine=true runs the multiscale refiner (evaluation/refinement.py) one image
 at a time with the YAML's `refiner:` options, and writes the refined size,
 which px_budget may have scaled down; it refuses precision=int8, as
 bin/predict.py does, and a generator without front and rear stages (every
-kind but ffc_resnet) before any image is read. spatial_shards,
-quant_calibration and precision=int8 are later ROADMAP items and raise.
+kind but ffc_resnet) before any image is read. precision=int8 serves the
+eligible convs in int8 (serving.load_serving_model); quant_calibration=K
+records their static activation scales on the first K images, padded as
+they are served (bin/predict.py:106-127), and requires int8. The serving
+options are load_serving_model's. spatial_shards is a later ROADMAP item
+and raises.
 """
 import logging
 import os
@@ -33,7 +39,8 @@ from .config import compose
 from .data.datasets import make_default_val_dataset
 from .data.io import save_image
 from .evaluation.refinement import check_refinable, refine_predict
-from .serving import bucket_shape, load_serving_model, make_inpaint_forward
+from .serving import (bucket_shape, calibrate_int8, load_serving_model,
+                      make_inpaint_forward)
 
 LOGGER = logging.getLogger(__name__)
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(
@@ -56,11 +63,10 @@ def resolve_device(name: str) -> torch.device:
 def main(argv):
     logging.basicConfig(level=logging.INFO, force=True)
     cfg = compose(CONFIG_DIR, 'default', argv)
-    for key, later in (('spatial_shards', 'queue 1 item 11'),
-                       ('quant_calibration', 'queue 1 item 7')):
-        if cfg.get(key):
-            raise NotImplementedError(f'{key}={cfg.get(key)} is not ported '
-                                      f'yet (ROADMAP {later})')
+    if cfg.get('spatial_shards'):
+        raise NotImplementedError(f'spatial_shards={cfg.get("spatial_shards")}'
+                                  ' is not ported yet (ROADMAP queue 1 item '
+                                  '11)')
     use_refine = bool(cfg.get('refine', False))
     if use_refine and str(cfg.get('precision', 'bf16')) == 'int8':
         # the refiner differentiates through the rear of the generator;
@@ -85,15 +91,38 @@ def main(argv):
         xfold_stem=bool(cfg.get('xfold_stem', False)))
     if use_refine:
         check_refinable(generator)
-    wire = str(cfg.get('wire', 'fp32'))
-    predict = make_inpaint_forward(generator, wire=wire,
-                                   out_key=str(cfg.get('out_key', 'inpainted')))
 
     out_ext = cfg.get('out_ext', '.png')
     modulo = cfg.dataset.pad_out_to_modulo
     bucket = int(cfg.get('pad_to_bucket', 64))
     indir = cfg.indir if cfg.indir.endswith('/') else cfg.indir + '/'
     dataset = make_default_val_dataset(indir, **dict(cfg.dataset))
+
+    # quant_calibration=K (int8 only): static activation scales from the
+    # first K images, padded as they are served (bin/predict.py:106-127)
+    calib_n = int(cfg.get('quant_calibration', 0) or 0)
+    if calib_n > 0:
+        if str(cfg.get('precision', 'bf16')) != 'int8':
+            raise ValueError('quant_calibration requires precision=int8')
+        pairs = []
+        for i in range(min(calib_n, len(dataset))):
+            item = dataset[i]
+            image, mask = item['image'], item['mask']
+            bh, bw = bucket_shape(image.shape[0], image.shape[1], modulo,
+                                  bucket)
+            pads = ((0, bh - image.shape[0]), (0, bw - image.shape[1]),
+                    (0, 0))
+            image = np.pad(image, pads, mode='symmetric')
+            mask = np.pad(mask, pads, mode='symmetric')
+            pairs.append((image[None].astype(np.float32),
+                          (mask[None] > 0).astype(np.float32)))
+        calibrate_int8(generator, pairs)
+        LOGGER.info(f'int8 static scales calibrated on {len(pairs)} image(s)')
+
+    wire = str(cfg.get('wire', 'fp32'))
+    predict = make_inpaint_forward(generator, wire=wire,
+                                   out_key=str(cfg.get('out_key', 'inpainted')))
+
     batch_size = 1 if use_refine else max(1, int(cfg.get('batch_size', 1)))
     # CUDA runs asynchronously: keep up to depth-1 batches queued so host
     # reads, padding and PNG writes overlap device work (depth 1: in order)

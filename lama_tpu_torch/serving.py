@@ -1,5 +1,5 @@
-"""Serving helpers: model-dir loading and the inpainting forward
-(counterpart of lama_tpu/serving.py)."""
+"""Serving helpers: model-dir loading, int8 calibration and the inpainting
+forward (counterpart of lama_tpu/serving.py)."""
 import os
 from typing import Tuple
 
@@ -9,8 +9,12 @@ from .config import load_yaml, resolve_interpolations, to_dict
 from .convert import load_checkpoint
 from .data.io import ceil_modulo
 from .models import make_generator
+from .ops.serving_mode import ServingMode
 
-_DTYPES = {'fp32': torch.float32, 'bf16': torch.bfloat16}
+# int8 computes in bf16, with the eligible convs in int8 (lama_tpu/
+# serving.py:55-59)
+_DTYPES = {'fp32': torch.float32, 'bf16': torch.bfloat16,
+           'int8': torch.bfloat16}
 
 
 def generator_config(path: str) -> dict:
@@ -31,29 +35,39 @@ def load_serving_model(model_path: str, checkpoint: str = 'best.ckpt',
     """Build the generator from <model_path>/config.yaml, load
     <model_path>/models/<checkpoint> (a reference-format .ckpt/.pth/.pt)
     with strict key matching, and return (generator in eval mode on
-    `device`, generator kwargs). precision: fp32 | bf16. fp32 turns TF32 off
-    for matmuls and cuDNN convs, which PyTorch allows in cuDNN by default.
-    The remaining options of lama_tpu.serving.load_serving_model are later
-    ROADMAP items and raise."""
-    if precision == 'int8' or quant_zero_pad:
-        raise NotImplementedError('int8 serving (precision=int8, '
-                                  'quant_zero_pad) is not ported yet '
-                                  '(ROADMAP queue 1 item 7)')
-    for name, value in (('spectral_bf16_store', spectral_bf16_store),
-                        ('s2d_out_head', s2d_out_head),
-                        ('xfold_stem', xfold_stem)):
-        if value:
-            raise NotImplementedError(f'{name}=true is not ported yet '
-                                      '(ROADMAP queue 1 item 7)')
+    `device`, generator kwargs). precision: fp32 | bf16 | int8. fp32 turns
+    TF32 off for matmuls and cuDNN convs, which PyTorch allows in cuDNN by
+    default. int8 computes in bf16 with the eligible convs in int8
+    (ops/kernels/conv_int8.py), with dynamic activation scales until
+    `calibrate_int8` records static ones. The serving options, as in
+    lama_tpu (serving.py:21-90), become the generator's ServingMode:
+    quant_zero_pad (int8 only): zero borders inside the quantized convs;
+    spectral_bf16_store (bf16 or int8): the FourierUnit's DFT stages
+    stored in bf16; s2d_out_head and xfold_stem: lama_tpu's exact
+    rewrites of the head and the stem, which the port's head and stem
+    kernels already compute on the card, so they change no output."""
     if precision not in _DTYPES:
-        raise ValueError(f'precision={precision!r}: expected fp32 or bf16')
+        raise ValueError(f'precision={precision!r}: expected fp32, bf16 or '
+                         'int8')
+    if quant_zero_pad and precision != 'int8':
+        raise ValueError('quant_zero_pad requires precision=int8 (it only '
+                         'affects the quantized convs)')
+    if spectral_bf16_store and precision == 'fp32':
+        raise ValueError('spectral_bf16_store has no effect under '
+                         'precision=fp32 (the spectral operands are fp32); '
+                         'use bf16 or int8')
+    mode = ServingMode(int8=precision == 'int8', zero_pad=bool(quant_zero_pad),
+                       spectral_bf16_store=bool(spectral_bf16_store),
+                       s2d='out_head' if s2d_out_head else 'off',
+                       xfold_stem=bool(xfold_stem))
     if precision == 'fp32':
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
     gen_kwargs = generator_config(os.path.join(model_path, 'config.yaml'))
     kind = gen_kwargs.pop('kind')
-    generator = make_generator(kind, dtype=_DTYPES[precision], **gen_kwargs)
+    generator = make_generator(kind, serving_mode=mode,
+                               dtype=_DTYPES[precision], **gen_kwargs)
     ckpt = os.path.join(model_path, 'models', str(checkpoint))
     if not ckpt.endswith(('.ckpt', '.pth', '.pt')) or not os.path.isfile(ckpt):
         raise FileNotFoundError(f'{ckpt}: expected a reference-format '
@@ -61,6 +75,46 @@ def load_serving_model(model_path: str, checkpoint: str = 'best.ckpt',
                                 'bin/export_torch_checkpoint.py first)')
     generator.load_state_dict(load_checkpoint(ckpt), strict=True)
     return generator.to(device).eval(), gen_kwargs
+
+
+def calibrate_int8(generator, batches) -> None:
+    """Record each int8 conv's static activation scale (lama_tpu/
+    serving.py:93-155): the serving forward (the masked image and the mask
+    concatenated, the input each conv sees when serving) over `batches`,
+    (image (B, H, W, 3), mask (B, H, W, 1)) float32 pairs, with the mode's
+    calibrating flag on, under torch.inference_mode. Each eligible conv's
+    `act_amax` buffer ends as the max of its input's max |x| over the
+    batches; serving then uses that scale instead of a reduction per call
+    (on the calibration batch, the same outputs). Nothing is returned: the
+    amax stays in the modules. Raises without int8 and without batches."""
+    mode = getattr(generator, 'mode', None)
+    if mode is None or not mode.int8:
+        raise ValueError('calibrate_int8 requires precision=int8 (the '
+                         'generator was not built with '
+                         'ServingMode(int8=True))')
+    batches = list(batches)
+    if not batches:
+        raise ValueError('calibrate_int8: no calibration batches given')
+    device = next(generator.parameters()).device
+    moded = [m for m in generator.modules()
+             if isinstance(getattr(m, 'mode', None), ServingMode)]
+    for m in moded:
+        if getattr(m, 'quantized', False):
+            m.act_amax = None
+    try:
+        for m in moded:
+            m.mode = m.mode.but(calibrating=True)
+        with torch.inference_mode():
+            for image, mask in batches:
+                image = torch.as_tensor(image, dtype=torch.float32,
+                                        device=device)
+                mask = torch.as_tensor(mask, dtype=torch.float32,
+                                       device=device)
+                generator(torch.cat([image * (1 - mask), mask],
+                                    dim=-1).permute(0, 3, 1, 2))
+    finally:
+        for m in moded:
+            m.mode = m.mode.but(calibrating=False)
 
 
 def bucket_shape(h: int, w: int, modulo: int, bucket: int) -> Tuple[int, int]:

@@ -11,8 +11,9 @@ order a, b, .., b, a, each in a fresh process that imports that tree's
 lama_tpu_torch (and so builds that tree's csrc/fourier_unit.cu). In each,
 at the served shapes (batch 4 and batch 16 at 64 x 64, C = C' = 192) and
 the refine shapes (batch 1 at 128 x 128, 125 x 95 and 63 x 48), fp32 and
-bf16 input: the output is held to the plain fp32 unit (fp32 rtol/atol
-1e-4, bf16 2e-2), then the wrapper's median ms per call (CUDA events, 10
+bf16 input (and bf16 with store_bf16, where the tree's unit takes it): the
+output is held to the plain fp32 unit (fp32 rtol/atol 1e-4, bf16 2e-2),
+then the wrapper's median ms per call (CUDA events, 10
 calls after 3 warm-up), the kernel's own device ms per call
 (torch.profiler over 5 calls: the kernels of csrc/, in anonymous
 namespaces) and, where the tree's wrapper launches through `_gemm`, each
@@ -22,6 +23,7 @@ per-shape ratio of their device times. `--shapes` keeps only the named
 shapes (the keys of SHAPES). Needs a CUDA card and nvcc.
 """
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -31,7 +33,7 @@ SHAPES = {'fu': (4, 64, 64), 'fu_b16': (16, 64, 64),
           'refine_fu_1024': (1, 128, 128), 'refine_fu': (1, 125, 95),
           'refine_fu_s1': (1, 63, 48)}
 CHANNELS = 192
-TOL = {'fp32': 1e-4, 'bf16': 2e-2}
+TOL = {'fp32': 1e-4, 'bf16': 2e-2, 'bf16_store': 2e-2}
 
 
 def events_ms(fn, iters=10, warmup=3):
@@ -117,6 +119,8 @@ def _worker(tree, shapes):
             per.setdefault(stage, []).append(a.elapsed_time(b))
         return {k: float(np.median(v)) for k, v in per.items()}
 
+    # a tree whose unit takes store_bf16 also times it on the bf16 input
+    store = 'store_bf16' in inspect.signature(fu.fused_fourier_unit).parameters
     rows = []
     for role in shapes:
         b, h, w = SHAPES[role]
@@ -124,17 +128,21 @@ def _worker(tree, shapes):
                 u(2 * c, scale=0.2, shift=1.0), u(2 * c, scale=0.1),
                 u(2 * c, scale=0.1), u(2 * c, scale=0.3, shift=1.0))
         ref = fu.fourier_unit_plain(*args)
-        for dtype, tdt in (('fp32', torch.float32), ('bf16', torch.bfloat16)):
+        cases = [('fp32', torch.float32, {}), ('bf16', torch.bfloat16, {})]
+        if store:
+            cases.append(('bf16_store', torch.bfloat16,
+                          dict(store_bf16=True)))
+        for dtype, tdt, kw in cases:
             kargs = (args[0].to(tdt),) + args[1:]
             with torch.no_grad():
-                out = fu.fused_fourier_unit(*kargs)
+                out = fu.fused_fourier_unit(*kargs, **kw).float()
                 torch.cuda.synchronize()
                 err = float((out - ref).abs().max())
                 tol = TOL[dtype]
                 ok = bool(torch.all((out - ref).abs() <= tol + tol * ref.abs()))
 
                 def call():
-                    fu.fused_fourier_unit(*kargs)
+                    fu.fused_fourier_unit(*kargs, **kw)
                 rows.append(dict(role=role, shape=[b, c, h, w], dtype=dtype,
                                  max_abs_err=err, within_tol=ok,
                                  ms=events_ms(call), dev_ms=device_ms(call),
@@ -197,12 +205,13 @@ def in_turns(script, trees, worker_args):
 
 def print_ratios(trees, results):
     """With two trees or more: each (role, dtype)'s mean device ms per tree
-    and its ratio to the first tree's; results[(role, dtype)][tree] is the
+    and its ratio to the first tree's that has the row; results[(role, dtype)][tree] is the
     list of that tree's readings."""
     if len(trees) < 2:
         return
-    base = trees[0]
     for (role, dtype), per in results.items():
+        # the first tree that timed this row (an older tree may lack it)
+        base = next(t for t in trees if t in per)
         mean = {t: sum(v) / len(v) for t, v in per.items()}
         print(f'dev {role} {dtype}: ' + ', '.join(
             f'{t} {m:.4f} ms ({mean[base] / m:.2f}x of {base})'

@@ -870,3 +870,177 @@ def test_ablv2_vgg_train_step_on_the_card(device, tmp_path):
     line = json.loads(open(tmp_path / 'run' / 'metrics.jsonl').readline())
     assert all(np.isfinite(v) for v in line.values())
     assert line['gen_pl'] != 0
+
+
+# ---------------------------------------------------------- int8 serving
+# the int8 conv (csrc/conv_int8.cu) against ops/quant.py's plain version on
+# the card: the int32 sums bit-equal (the plain version sums exactly in
+# float64), the outputs within the fp32 epilogue's rounding (rtol 1e-6 of
+# the largest |output|; one rounding an operation in both, so equal in
+# practice); and the FourierUnit's store_bf16 against its plain version
+
+
+def _int8_case(device, b, c, co, h, w, k, dtype, channels_last, transposed,
+               seed=3):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.rand(b, c, h, w, generator=g) * 2 - 1).to(device, dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    shape = (c, co, k, k) if transposed else (co, c, k, k)
+    weight = ((torch.rand(*shape, generator=g) * 2 - 1)
+              * (c * k * k) ** -0.5).to(device)
+    bias = (torch.rand(co, generator=g) * 0.2 - 0.1).to(device)
+    return x, weight, bias
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b,c,co,h,w,k,stride,mode,zero_pad,cl,static', [
+    # big-lama's convs at 16^2: l2l, l2g, g2l, the SpectralTransform's 1x1
+    (2, 128, 128, 16, 16, 3, 1, 'reflect', False, True, False),
+    (2, 128, 384, 16, 16, 3, 1, 'reflect', False, True, True),
+    (2, 384, 128, 16, 16, 3, 1, 'reflect', True, True, False),
+    (2, 384, 192, 16, 16, 1, 1, 'zeros', False, True, False),
+    (2, 192, 384, 16, 16, 1, 1, 'zeros', False, False, True),
+    # the downsamples (reflect; the GlobalGenerator's zero-padded), odd sides
+    (2, 64, 128, 37, 30, 3, 2, 'reflect', False, True, False),
+    (1, 256, 512, 16, 18, 3, 2, 'zeros', False, True, False),
+    # the GlobalGenerator's block conv, channel tails past C and C_out
+    (2, 512, 512, 8, 8, 3, 1, 'reflect', False, True, False),
+    (1, 40, 72, 9, 11, 3, 1, 'reflect', False, False, False),
+])
+def test_int8_conv_kernel(device, dtype, b, c, co, h, w, k, stride, mode,
+                          zero_pad, cl, static):
+    from lama_tpu_torch.ops import quant
+    from lama_tpu_torch.ops.kernels import conv_int8 as ci
+    x, weight, bias = _int8_case(device, b, c, co, h, w, k, dtype, cl, False)
+    amax = x.float().abs().amax() * 0.75 if static else None
+    pad = k // 2
+    plan = ci.conv_plan(x.shape, weight.shape, stride, pad, 1, 1, mode,
+                        zero_pad)
+    packed, s_w = ci.pack_weight(weight)
+    xq, amax_t = ci.quantize_activation(x, amax)
+    acc = ci.conv_codes(xq, amax_t, packed, s_w, None, plan, co, 'acc')
+    s_x = quant.act_scale(x, amax)
+    wq, _ = quant.quantize_weight(weight)
+    ref_acc = quant.conv2d_acc(quant.quantize(x, s_x), wq, stride, pad, 1, 1,
+                               mode, zero_pad)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, ref_acc)
+    before = ci.quantized_conv2d.launches
+    with torch.no_grad():
+        out = ci.quantized_conv2d(x, weight, bias, stride, pad, 1, 1, mode,
+                                  act_amax=amax, zero_pad=zero_pad)
+        ref = quant.quantized_conv2d(x, weight, bias, stride, pad, 1, 1,
+                                     mode, act_amax=amax, zero_pad=zero_pad)
+    torch.cuda.synchronize()
+    assert ci.quantized_conv2d.launches == before + 1
+    assert out.dtype == dtype and out.shape == ref.shape
+    scale = float(ref.float().abs().max())
+    assert float((out.float() - ref.float()).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b,c,co,h,w,stride,padding,output_padding', [
+    (2, 512, 256, 8, 8, 2, 1, 1), (1, 128, 64, 13, 10, 2, 1, 1),
+    (1, 64, 40, 5, 4, 2, 0, 0), (1, 64, 40, 5, 4, 1, 1, 0)])
+def test_int8_conv_transpose_kernel(device, dtype, b, c, co, h, w, stride,
+                                    padding, output_padding):
+    from lama_tpu_torch.ops import quant
+    from lama_tpu_torch.ops.kernels import conv_int8 as ci
+    x, weight, bias = _int8_case(device, b, c, co, h, w, 3, dtype, True, True)
+    plan = ci.conv_transpose_plan(x.shape, weight.shape, stride, padding,
+                                  output_padding)
+    packed, s_w = ci.pack_weight(weight, transposed=True)
+    xq, amax = ci.quantize_activation(x)
+    acc = ci.conv_codes(xq, amax, packed, s_w, None, plan, co, 'acc')
+    wq, _ = quant.quantize_weight(weight, transposed=True)
+    ref_acc = quant.conv_transpose2d_acc(
+        quant.quantize(x, quant.act_scale(x)), wq, stride, padding,
+        output_padding)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, ref_acc)
+    with torch.no_grad():
+        out = ci.quantized_conv_transpose2d(x, weight, bias, stride, padding,
+                                            output_padding)
+        ref = quant.quantized_conv_transpose2d(x, weight, bias, stride,
+                                               padding, output_padding)
+    torch.cuda.synchronize()
+    scale = float(ref.float().abs().max())
+    assert float((out.float() - ref.float()).abs().max()) <= 1e-6 * scale
+
+
+def test_int8_conv_refuses_gradients_and_dilation(device):
+    from lama_tpu_torch.ops.kernels import conv_int8 as ci
+    x, weight, _ = _int8_case(device, 1, 64, 64, 8, 8, 3, torch.float32,
+                              True, False)
+    with pytest.raises(RuntimeError, match='gradient'):
+        ci.quantized_conv2d(x, weight.requires_grad_(), None, 1, 1)
+    with torch.no_grad(), pytest.raises(NotImplementedError, match='item 12'):
+        ci.quantized_conv2d(x, weight, None, 1, 2, dilation=2)
+
+
+@pytest.mark.parametrize('b,c,co,h,w', [(2, 192, 192, 16, 16),
+                                        (16, 192, 192, 64, 64),
+                                        # split stages, odd sides
+                                        (1, 192, 192, 125, 95),
+                                        # C % 8 != 0: the bf16 spectrum's
+                                        # element loads
+                                        (1, 12, 20, 13, 11)])
+def test_fourier_unit_store_bf16_kernel(device, b, c, co, h, w):
+    """store_bf16 on a bf16 input: the kernel's bf16 output against the
+    plain unit rounding at the same four points, within 1e-2 of the
+    largest output (one bf16 rounding of a stage may fall the other way
+    under another summation order); on an fp32 input the flag does
+    nothing: bit-equal to the unit without it."""
+    x, args = _fourier_unit_case(device, b, c, co, h, w)
+    xb = x.bfloat16()
+    ref = fu.fourier_unit_plain(xb, *args, store_bf16=True)
+    out = fu.fused_fourier_unit(xb, *args, store_bf16=True)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 == ref.dtype
+    scale = float(ref.float().abs().max())
+    assert float((out.float() - ref.float()).abs().max()) <= 1e-2 * scale
+    assert not torch.equal(out.float(), fu.fused_fourier_unit(xb, *args))
+    assert torch.equal(fu.fused_fourier_unit(x, *args, store_bf16=True),
+                       fu.fused_fourier_unit(x, *args))
+
+
+@pytest.mark.parametrize('kind', ['ffc_resnet', 'pix2pixhd_global'])
+def test_int8_generator_kernels_match_plain(device, kind):
+    """An int8 generator at the families' widths (ngf 64, 3
+    downsamplings), one block, fp32 compute: every eligible conv on the
+    int8 kernel (FFC: 4 downsamples, 3 x 2 FFC convs, 2 x 2 1x1 convs, 3
+    ConvTranspose = 17; GlobalGenerator: 3 + 2 + 3 = 8), the reflect-conv
+    kernels 2, 3, 4 and 6 idle, against the int8 plain generator within
+    1e-2 (sigmoid output; a code may round the other way where the
+    non-int8 kernels' sums differ from the plain ones in the last bit)."""
+    from lama_tpu_torch.models import make_generator
+    from lama_tpu_torch.ops.kernels import conv_int8 as ci
+    from lama_tpu_torch.ops.kernels import halo_conv as hc
+    from lama_tpu_torch.ops.serving_mode import ServingMode
+    kw = dict(input_nc=4, output_nc=3, ngf=64, n_downsampling=3, n_blocks=1,
+              add_out_act='sigmoid', serving_mode=ServingMode(int8=True))
+    if kind == 'ffc_resnet':
+        kw.update(init_conv_kwargs=dict(ratio_gin=0, ratio_gout=0,
+                                        enable_lfu=False),
+                  downsample_conv_kwargs=dict(ratio_gin=0, ratio_gout=0,
+                                              enable_lfu=False),
+                  resnet_conv_kwargs=dict(ratio_gin=0.75, ratio_gout=0.75,
+                                          enable_lfu=False))
+    plain = make_generator(kind, kernels='plain', **kw).eval()
+    ours = make_generator(kind, **kw).eval()
+    ours.load_state_dict(plain.state_dict())
+    x = torch.rand(2, 4, 128, 128, generator=torch.Generator().manual_seed(2))
+    fns = (ci.quantized_conv2d, rc.reflect_conv3x3_cols,
+           rc.reflect_conv3x3_taps, rc.reflect_down_conv3x3,
+           hc.halo_conv3x3_reflect, fu.fused_fourier_unit,
+           rc.reflect_out_conv7x7, hc.halo_conv_reflect_tiled)
+    before = [fn.launches for fn in fns]
+    with torch.inference_mode():
+        ref = plain.to(device)(x.to(device))
+        out = ours.to(device)(x.to(device))
+    after = [fn.launches for fn in fns]
+    want = ([17, 0, 0, 0, 0, 2, 1, 1] if kind == 'ffc_resnet'
+            else [8, 0, 0, 0, 0, 0, 1, 1])
+    assert [a - b for a, b in zip(after, before)] == want
+    assert float((out - ref).abs().max()) <= 1e-2

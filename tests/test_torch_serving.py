@@ -5,7 +5,8 @@ generator) served by both CLIs on three tiny PNG pairs, one of odd size:
 the written PNGs differ by at most one level, and known pixels are
 bit-equal to the input. Also: refine=true serves like bin/predict.py, the
 port's wires write the same files, out_key=predicted_image works, the port
-imports neither jax nor lama_tpu, and the options of later slices raise.
+imports neither jax nor lama_tpu (its int8 serving modules among them),
+and the options of later slices raise.
 """
 import importlib.util
 import os
@@ -204,6 +205,8 @@ def test_port_and_chip_smoke_import_nothing_of_lama_tpu():
             'lama_tpu_torch.losses.distance_weighting, '
             'lama_tpu_torch.models.fake_fakes, lama_tpu_torch.ops.geometry, '
             'lama_tpu_torch.models.ffc, lama_tpu_torch.data.datasets, '
+            'lama_tpu_torch.ops.quant, lama_tpu_torch.ops.serving_mode, '
+            'lama_tpu_torch.ops.kernels.conv_int8, lama_tpu_torch.convert, '
             'chip_smoke; chip_smoke.big_lama_kwargs(); '
             'lama_tpu_torch.losses.distance_weighting.'
             'make_mask_distance_weighter("pps"); '
@@ -310,9 +313,29 @@ def test_gen_mask_dataset_cli_imports_nothing_of_lama_tpu(tmp_path):
                                       'quant_calibration=4',
                                       'spectral_bf16_store=true'])
 def test_later_options_raise(served, override):
+    """spatial_shards is a later slice's and raises NotImplementedError.
+    The serving options of int8 serving are ported: on this fp32 serve
+    they raise as bin/predict.py does (quant_calibration without int8,
+    spectral_bf16_store with fp32), and precision=int8 serves, known
+    pixels kept."""
     root, common = served
-    with pytest.raises(NotImplementedError):
-        port_predict.main(common + [f'outdir={root / "never"}', override])
+    argv = common + [f'outdir={root / "never"}', override]
+    if override == 'precision=int8':
+        port_predict.main(common[:-1] + [f'outdir={root / "int8"}', override])
+        for i in range(len(SIZES)):
+            img = load_image(str(root / 'in' / f'img{i}.png'),
+                             return_orig=True)[1]
+            mask = load_image(str(root / 'in' / f'img{i}_mask.png'),
+                              mode='L', return_orig=True)[1][..., 0]
+            out = _read(root, 'int8', i)
+            np.testing.assert_array_equal(out[mask == 0], img[mask == 0])
+        return
+    if override == 'spatial_shards=2':
+        with pytest.raises(NotImplementedError):
+            port_predict.main(argv)
+        return
+    with pytest.raises(ValueError, match=override.split('=')[0]):
+        port_predict.main(argv)
 
 
 def test_cuda_device_without_a_card_raises(served):
