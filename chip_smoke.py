@@ -158,9 +158,10 @@ version):
      passes, with a calibrated scale, and the GEMM alone, the device ms,
      the plain ms, torch._int_mm on the im2col GEMM's shape and the bf16
      cuDNN conv as yardsticks, the bound (int8 at 1,979 TOP/s or bytes at
-     3.35 TB/s); kernel 1 with store_bf16 against its plain version
-     (FU_STORE_RTOL, and a mean |d| under FU_STORE_MEAN_SHARE of the
-     unstored unit's) with its stages' device ms at b16; big-lama and
+     3.35 TB/s) of the conv and of the GEMM alone; kernel 1 with
+     store_bf16 against its plain version (FU_STORE_RTOL, and a mean |d|
+     under FU_STORE_MEAN_SHARE of the unstored unit's) with its stages'
+     device ms at b16; big-lama and
      big-lama-regular served by the predict CLI at batch 16 with the
      headline flags of bench.py:7-9 (quant_calibration=2, quant_zero_pad,
      spectral_bf16_store, s2d_out_head) and with dynamic scales: sizes,
@@ -2566,33 +2567,17 @@ INT8_OPS = 1979e12   # H100 SXM dense int8 tensor-core OP/s
 def int8_cases(gen):
     """(role, conv kind, x (bf16, channels-last, on the card), weight,
     stride, padding mode) at the served batch 16: big-lama's and
-    big-lama-regular's int8 convs."""
+    big-lama-regular's int8 convs (tools/conv_int8_time.py's CASES)."""
     import torch
-
-    def case(role, c, co, h, k=3, stride=1, mode='reflect', kind='conv',
-             w=None):
-        x = (torch.rand(16, c, h, w or h, generator=gen) * 2 - 1)
+    from lama_tpu_torch.tools.conv_int8_time import BATCH, CASES
+    out = []
+    for role, c, co, h, k, stride, mode, kind in CASES:
+        x = (torch.rand(BATCH, c, h, h, generator=gen) * 2 - 1)
         shape = (c, co, k, k) if kind == 'transposed' else (co, c, k, k)
         wt = (torch.rand(*shape, generator=gen) * 2 - 1) * (c * k * k) ** -0.5
-        return (role, kind, x.cuda().bfloat16().contiguous(
-            memory_format=torch.channels_last), wt.cuda(), stride, mode)
-
-    return [case('down1', 64, 128, 512, stride=2),
-            case('down2', 128, 256, 256, stride=2),
-            case('down3_l2l', 256, 128, 128, stride=2),
-            case('down3_l2g', 256, 384, 128, stride=2),
-            case('l2l', 128, 128, 64), case('l2g', 128, 384, 64),
-            case('g2l', 384, 128, 64),
-            case('st_1x1_in', 384, 192, 64, k=1, mode='zeros'),
-            case('st_1x1_out', 192, 384, 64, k=1, mode='zeros'),
-            case('convt1', 512, 256, 64, kind='transposed'),
-            case('convt2', 256, 128, 128, kind='transposed'),
-            case('convt3', 128, 64, 256, kind='transposed'),
-            # big-lama-regular: its block conv and zero-padded downsamples
-            case('regular_block', 512, 512, 64),
-            case('regular_down1', 64, 128, 512, stride=2, mode='zeros'),
-            case('regular_down2', 128, 256, 256, stride=2, mode='zeros'),
-            case('regular_down3', 256, 512, 128, stride=2, mode='zeros')]
+        out.append((role, kind, x.cuda().bfloat16().contiguous(
+            memory_format=torch.channels_last), wt.cuda(), stride, mode))
+    return out
 
 
 def int8_plan(kind, x, wt, stride, mode):
@@ -2626,11 +2611,13 @@ def int8_rows(gen, card_line):
     and of the GEMM alone; the plain version's ms; as yardsticks, timed
     only, torch._int_mm on random int8 matrices of the im2col GEMM's
     shape (M x 9C x C_out; a ConvTranspose over its zero-dilated input) and
-    the bf16 cuDNN conv of the same shape; the bound."""
+    the bf16 cuDNN conv of the same shape; the bound of the whole conv
+    and that of the GEMM launch alone (tools/conv_int8_time.py)."""
     import torch
     import torch.nn.functional as F
     from lama_tpu_torch.ops import quant
     from lama_tpu_torch.ops.kernels import conv_int8 as ci
+    from lama_tpu_torch.tools.conv_int8_time import gemm_bound
     rows = []
     for role, kind, x, wt, stride, mode in int8_cases(gen):
         tr = kind == 'transposed'
@@ -2702,6 +2689,7 @@ def int8_rows(gen, card_line):
                         else x)
                 cudnn_ms = median_ms(lambda: F.conv2d(
                     xpad, wb, None, stride, 0 if mode != 'zeros' else k // 2))
+        g_ms, g_by = gemm_bound(xq, packed, plan, x.shape[1], co)
         del xq
         b_ms, b_by = int8_bound(x, wt, plan, co)
         row = dict(name='quantized_conv2d', role=role, route='cuda',
@@ -2712,7 +2700,8 @@ def int8_rows(gen, card_line):
                    within_tol=True, ms=ms, kernel_ms=ms, static_ms=static_ms,
                    conv_ms=conv_ms, kernel_device_ms=dev_ms,
                    conv_device_ms=dev_conv_ms, plain_ms=plain_ms,
-                   bound_ms=b_ms, bound_by=b_by, library_ms=int_mm_ms,
+                   bound_ms=b_ms, bound_by=b_by, gemm_bound_ms=g_ms,
+                   gemm_bound_by=g_by, library_ms=int_mm_ms,
                    int_mm_ms=int_mm_ms, cudnn_bf16_ms=cudnn_ms,
                    phases=len(plan.phases))
         log(f'kernel int8/{role} {list(x.shape)} -> {co}'
@@ -2722,7 +2711,8 @@ def int8_rows(gen, card_line):
             f'{"not measured" if dev_ms is None else f"{dev_ms:.4f}"} (GEMM '
             f'{"not measured" if dev_conv_ms is None else f"{dev_conv_ms:.4f}"}'
             f'), plain {plain_ms:.3f}; _int_mm {int_mm_ms:.3f}, cuDNN bf16 '
-            f'{cudnn_ms:.3f}; bound {b_ms:.4f} ms ({b_by}) ({card_line})')
+            f'{cudnn_ms:.3f}; bound {b_ms:.4f} ms ({b_by}), GEMM alone '
+            f'{g_ms:.4f} ms ({g_by}) ({card_line})')
         rows.append(row)
         torch.cuda.empty_cache()
     return rows

@@ -19,13 +19,16 @@
 //                    zeros to a multiple of 32;
 //   conv_kernel      one implicit GEMM, no im2col: M = output pixels, N =
 //                    output channels, K = taps x 32-channel chunks, on
-//                    mma.sync.m16n8k32 s8 x s8 -> s32, the sums in int32
+//                    wgmma.mma_async m64nNk32 s8 x s8 -> s32 with both
+//                    operands in shared memory, the sums in int32
 //                    registers; epilogue float(acc) * (s_x * s_w[n]) +
 //                    bias[n] in fp32, rounded once per operation as
 //                    lama_tpu's dequantize is, then stored NHWC (the
 //                    channels-last layout the next layer reads) as fp32 or
 //                    bf16, or the raw int32 sums (the card's exactness
-//                    check).
+//                    check). int32 sums do not depend on the order of
+//                    accumulation (|sum| <= 127^2 x 4608 < 2^31), so the
+//                    result is bit-equal to an exact plain version.
 // A conv is a list of "phases", each a stride-s gather: output pixel (b,
 // hg, wg) of phase p lands at (hg * ostride + oy0, wg * ostride + ox0) and
 // reads, for tap t, input pixel (hg * s + dy[t], wg * s + dx[t]) through
@@ -41,20 +44,56 @@
 // (e.g. l2g 128 -> 384 at b16: 58 GOP, 0.029 ms) against 8-25 MB of codes
 // and outputs (0.003-0.008 ms at 3.35 TB/s), so operations bound them;
 // the full-resolution ConvTranspose and downsample layers move more bytes
-// per product. The design is a plain multi-stage mma.sync GEMM, right
-// before fast: 128 x BN tiles (BN 128, or 64 for narrow outputs), 8 warps
-// of 32 x BN/2, a 4-deep cp.async ring of 64-byte K stages (two 32-channel
-// chunks, each one tap), 48-byte shared rows so ldmatrix reads are free
-// of bank conflicts, one block tile per (pixel tile, channel tile) with
-// the channel tiles of one pixel tile adjacent in the grid (they share its
-// codes in L2). int8 wgmma, a persistent grid and folding the quantize
-// pass into the previous layer's epilogue are later work.
-//
-// Measured (chip_smoke.py phase 16, NVIDIA H100 80GB HBM3 at 700 W): the
-// GEMM alone at b16 takes 0.22 ms device for l2g (14% of the int8 peak)
-// and 0.86 ms for the 512 -> 512 block conv (18%), where the bf16 wgmma
-// conv takes 0.10 and 0.45; a calibrated int8 forward of big-lama is 25%
-// slower than its bf16 one (PERF.md).
+// per product. The GEMM's design, Hopper's warpgroup tensor-core path:
+//   * Tiles. A block owns 256 output pixels of one phase (M, flat over
+//     batch and grid) x BN output channels (N: 64, 128 or 192, whichever
+//     pads C_out least; ties to the wider), one block an SM (160, 192 or
+//     224 KB of shared memory). Two consumer warpgroups each own two m64
+//     sub-tiles: 2 x BN / 2 int32 sums a thread (128 registers at BN 128,
+//     192 at BN 192). The channel tiles of one pixel tile are adjacent in
+//     the grid (they share its codes in L2).
+//   * Operands. Each K step is one 32-channel chunk of one tap: an int8
+//     wgmma k32 step spans 32 bytes, as a bf16 k16 step does, so
+//     conv3x3_wgmma.cu's no-swizzle descriptors carry over. Both operands
+//     are K-major (the PTX ISA requires it for 8-bit types): the codes
+//     (B, H, W, Cp) and the packed weight (taps, COp, Cp) already are.
+//   * Staging, no im2col and no TMA (TMA cannot apply a reflect map):
+//     every thread gathers one row of A, its output pixel's 32 bytes of
+//     each chunk of the stage through the border map, with cp.async
+//     16-byte copies (source size 0: the zero border, rows past M, a dead
+//     chunk), and a share of B's rows. The copies land in wgmma's
+//     core-matrix layout: one plane a 16-byte K group, 8 consecutive rows
+//     x 16 B a core matrix, SBO 128 B, LBO one plane (so the descriptor's
+//     start is a chunk's first 16 bytes of K and start + LBO its second).
+//     A pipeline stage is four chunks (128 bytes of K: 48 KB at BN 128) in
+//     a 4-deep ring; stage s + 3 loads while the tensor cores run stage s.
+//     Each stage is handed over by cp.async.wait_group, fence.proxy.async
+//     (the copies are generic-proxy writes that wgmma reads through the
+//     async proxy) and one __syncthreads; then wgmma.fence, eight wgmma a
+//     warpgroup, commit_group, and wait_group 0 before the slot is reused.
+//   * K runs over 128-byte channel groups, then taps, then the group's
+//     chunks, so consecutive stages gather overlapping pixels.
+//   * The epilogue stages the int32 tile in shared memory, works out each
+//     row's output offset once, and stores each pixel's 8-channel runs as
+//     16-byte vectors.
+// What bounds it on the card: the gather. Each staged weight byte feeds
+// 256 pixels, but each code byte feeds only BN columns and is gathered
+// again for every tap: 48 KB of L2 reads a stage at BN 128 for 1024
+// cycles of tensor work, and the gather ran at 2-3 TB/s over all SMs. At
+// l2g (b16, device ms; `python -m lama_tpu_torch.tools.conv_int8_time`
+// on variants of this file): the whole GEMM 0.19 at BN 128, 0.17 with its
+// wgmma left out, 0.12 with its in-loop loads left out; cp.async.ca (L1
+// reuse between taps), a 3-deep ring, 64-byte stages and lane groups of
+// one 128-byte line each measured no faster. The epilogue is not
+// overlapped with any load: at BN 192, l2g's first three stages and
+// barriers alone take 0.040, the epilogue adds 0.034 of the whole 0.148.
+// A staged halo (A reuse across taps, as conv3x3_wgmma.cu does), weight
+// multicast in a cluster and a persistent grid that stores one tile while
+// the next one loads are what would cut it. Measured the same way, NVIDIA
+// H100 80GB HBM3, 700.00 W: l2l 0.065, l2g 0.148, g2l 0.153, the
+// SpectralTransform's 1x1s 0.046 and 0.062 (torch._int_mm on the same
+// GEMMs 0.14 and 0.12), the 512 -> 512 block conv 0.738 (bound 0.156); a
+// big-lama forward's 187 GEMMs 20.7 ms. PERF.md has the rest.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -94,35 +133,41 @@ namespace {
 enum { OUT_FP32 = 0, OUT_BF16 = 1, OUT_ACC = 2 };
 enum { BORDER_ZERO = 0, BORDER_REFLECT = 1, BORDER_REPLICATE = 2 };
 
-constexpr int THREADS = 256;     // 8 warps: 4 along M x 2 along N
-constexpr int BM = 128;          // output pixels a block tile
-constexpr int CHUNK = 32;        // input channels (bytes) a K chunk
-constexpr int KCH = 2;           // chunks a pipeline stage
-constexpr int ROW = 48;          // shared bytes a 32-byte chunk row
+constexpr int THREADS = 256;     // two consumer warpgroups
+constexpr int BM = 256;          // output pixels a block tile: four m64 sub-tiles
+constexpr int CHUNK = 32;        // input channels (bytes) a K chunk: one k32 step
+constexpr int KCH = 4;           // chunks a pipeline stage (128 bytes of K)
 constexpr int STAGES = 4;        // pipeline ring depth
+constexpr int GROUP = 16;        // bytes of K a core-matrix row
 constexpr int COP_ALIGN = 128;   // the packed weight's C_out padding
 constexpr int QTHREADS = 256;    // quantize_kernel / amax_kernel blocks
+constexpr int SMEM_LIMIT = 232448;   // shared memory of one block
 
+// A stage holds, for each of its KCH * 2 K groups, a plane of A (BM rows
+// x 16 B) and a plane of B (BN rows x 16 B): 8 consecutive rows of a plane
+// are one core matrix (SBO 128 B), the next 16 bytes of K the next plane
+// (LBO one plane). Thread t stages row t of A (its pixel's 32 bytes of
+// every chunk) and, for e = t + j THREADS, row e % BN of B in chunk e / BN.
 template <int BN> struct Tile {
-  static constexpr int WN = BN / 2;             // a warp's columns
-  static constexpr int MT = 2;                  // m16 tiles a warp (32 rows)
-  static constexpr int NT = WN / 8;             // n8 tiles a warp
-  static constexpr int A_BYTES = KCH * BM * ROW;
-  static constexpr int B_BYTES = KCH * BN * ROW;
+  static constexpr int PLANES = KCH * CHUNK / GROUP;
+  static constexpr int A_PLANE = BM * GROUP;
+  static constexpr int B_PLANE = BN * GROUP;
+  static constexpr int A_BYTES = PLANES * A_PLANE;
+  static constexpr int B_BYTES = PLANES * B_PLANE;
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
   static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;
-  static constexpr int A_COPIES = KCH * BM * 2 / THREADS;   // 16-byte copies
-  static constexpr int B_COPIES = KCH * BN * 2 / THREADS;
-  static_assert(NT % 2 == 0, "ldmatrix.x4 loads two n8 tiles");
-  static_assert(KCH * BM * 2 % THREADS == 0 && KCH * BN * 2 % THREADS == 0,
-                "whole copies a thread");
-  static_assert(COP_ALIGN % BN == 0, "channel tiles inside the padding");
+  static constexpr int B_ROWS = KCH * BN / THREADS;   // (chunk, B row)s a thread
+  static constexpr int ACC = BN / 2;                   // s32 sums an m64 tile
+  static constexpr int PITCH = BN + 8;                 // epilogue tile row, ints
+  static constexpr int TILE_BYTES = BM * PITCH * 4;
+  static_assert(BM == THREADS && BM % 128 == 0, "a row of A a thread");
+  static_assert(KCH * BN % THREADS == 0, "whole B rows a thread");
+  static_assert(SMEM_BYTES <= SMEM_LIMIT, "shared memory of one block");
+  static_assert(TILE_BYTES + 2 * BN * 4 + BM * 8 <= SMEM_BYTES, "epilogue tile");
+  // descriptor fields are 14 bits in 16-byte units
+  static_assert(SMEM_LIMIT / 16 < (1 << 14) && A_PLANE / 16 < (1 << 14),
+                "descriptor");
 };
-
-// rows 8 apart in shared memory fall on distinct 16-byte bank groups, so an
-// 8 x 16-byte ldmatrix phase is conflict-free
-static_assert((ROW / 16) % 2 == 1 && ROW % 16 == 0 && ROW >= CHUNK,
-              "ldmatrix rows on distinct bank groups");
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int bytes) {
@@ -135,18 +180,153 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+// make this thread's shared-memory writes visible to the async proxy (wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
-// d += a (16 x 32, row) * b (32 x 8, col), int8 in, int32 sums
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accumulator reads and writes across the
+// asynchronous wgmma window
+template <int N> __device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
+// wgmma shared-memory matrix descriptor, no swizzle: start address, LBO and
+// SBO in 16-byte units (14 bits each), layout type 0
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, int lbo, int sbo) {
+  return uint64_t((addr >> 4) & 0x3FFF) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// D (64 x 192, s32, registers) += A (64 x 32, s8, smem) * B^T (192 x 32)
+__device__ __forceinline__ void wgmma_n192(int (&d)[96], uint64_t da,
+                                           uint64_t db) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D (64 x 128, s32, registers) += A (64 x 32, s8, smem) * B^T (128 x 32)
+__device__ __forceinline__ void wgmma_n128(int (&d)[64], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D (64 x 64, s32, registers) += A (64 x 32, s8, smem) * B^T (64 x 32)
+__device__ __forceinline__ void wgmma_n64(int (&d)[32], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[96], uint64_t da, uint64_t db) {
+  wgmma_n192(d, da, db);
+}
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db) {
+  wgmma_n128(d, da, db);
+}
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t da, uint64_t db) {
+  wgmma_n64(d, da, db);
 }
 
 // an input coordinate through the border map; -1 where it reads as zero
@@ -162,7 +342,7 @@ __device__ __forceinline__ float act_scale(const float* amax) {
 }
 
 template <int BN>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, 1)
 conv_kernel(const Int8ConvArgs p) {
   using T = Tile<BN>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -172,161 +352,221 @@ conv_kernel(const Int8ConvArgs p) {
   const int m0 = int(blockIdx.x / n_tiles) * BM;
   const int n0 = int(blockIdx.x % n_tiles) * BN;
   const int M = p.B * ph.hg * ph.wg;
-  if (m0 >= M) return;   // this phase's grid is smaller than the launch's
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  // this phase's grid is smaller than the launch's: the whole block
+  // leaves before its first barrier
+  if (m0 >= M) return;
+  const int tid = threadIdx.x;
   const int cpt = p.Cp / CHUNK;                 // chunks a tap
   const int chunks = ph.taps * cpt;
   const int n_stages = (chunks + KCH - 1) / KCH;
 
-  // this thread's copies: A rows (tid / 4) + 64 q, B rows (tid / 4) + 64 q;
-  // chunk kc = (tid % 4) / 2 of a stage, 16-byte half tid % 2
-  const int kc = (tid % 4) / 2, half = tid % 2;
-  int a_b[T::A_COPIES], a_h[T::A_COPIES], a_w[T::A_COPIES];
-#pragma unroll
-  for (int q = 0; q < T::A_COPIES; ++q) {
-    const int m = m0 + tid / 4 + q * (THREADS / 4);
+  // this thread's row of A: output pixel m0 + tid of the phase's grid
+  int a_b = -1, a_h = 0, a_w = 0;
+  {
+    const int m = m0 + tid;
     if (m < M) {
       const int per_img = ph.hg * ph.wg;
-      a_b[q] = m / per_img;
-      const int r = m - a_b[q] * per_img;
-      a_h[q] = (r / ph.wg) * p.stride;
-      a_w[q] = (r % ph.wg) * p.stride;
-    } else {
-      a_b[q] = -1;
-      a_h[q] = a_w[q] = 0;
+      a_b = m / per_img;
+      const int r = m - a_b * per_img;
+      a_h = (r / ph.wg) * p.stride;
+      a_w = (r % ph.wg) * p.stride;
     }
   }
 
+  // K order: the channels in groups of KCH chunks (128 bytes of a pixel;
+  // the last group may be shorter), for each group the taps, for each tap
+  // the group's chunks. Where C is a multiple of 128 a stage is one tap of
+  // one group and the next stage the next tap, whose pixels are those of
+  // the stage before, shifted by one (measured 2-4% faster than taps
+  // outermost: PERF.md). Chunk q of K is (tap, first channel c0)
+  const int full = cpt / KCH, rest = cpt % KCH;  // whole groups, chunks left
+  const int per_full = ph.taps * KCH;
+  auto chunk_of = [&](int q, int& tap, int& c0) {
+    int g, j;
+    if (q < full * per_full) {
+      g = q / per_full;
+      const int r = q - g * per_full;
+      tap = r / KCH;
+      j = r % KCH;
+    } else {
+      const int r = q - full * per_full;
+      g = full;
+      tap = r / rest;
+      j = r - tap * rest;
+    }
+    c0 = (g * KCH + j) * CHUNK;
+  };
+
+  // stage s: chunks s * KCH .. + KCH - 1 of K. A chunk past the last (the
+  // final stage of a K that is not a multiple of KCH chunks) is
+  // zero-filled, so every stage runs the same KCH wgmma steps; rows past
+  // M, borders that read as zero and the channels past C (zeros in the
+  // codes) likewise
   auto load_stage = [&](int slot, int s) {
     const uint32_t sa = smem_base + slot * T::STAGE_BYTES;
     const uint32_t sb = sa + T::A_BYTES;
-    const int q_chunk = s * KCH + kc;
-    const bool live = q_chunk < chunks;
-    const int tap = live ? q_chunk / cpt : 0;
-    const int c0 = live ? (q_chunk - tap * cpt) * CHUNK + half * 16 : 0;
-    const int dy = ph.dy[tap], dx = ph.dx[tap];
 #pragma unroll
-    for (int q = 0; q < T::A_COPIES; ++q) {
-      const int row = tid / 4 + q * (THREADS / 4);
-      const uint32_t dst = sa + (kc * BM + row) * ROW + half * 16;
-      const int hi = border_map(a_h[q] + dy, p.H, p.border);
-      const int wi = border_map(a_w[q] + dx, p.W, p.border);
-      const bool ok = live && a_b[q] >= 0 && hi >= 0 && wi >= 0;
-      const int8_t* src = ok ? p.x + ((size_t(a_b[q]) * p.H + hi) * p.W + wi)
+    for (int k = 0; k < KCH; ++k) {
+      const int q = s * KCH + k;
+      const bool live = q < chunks;
+      int tap = 0, c0 = 0;
+      if (live) chunk_of(q, tap, c0);
+      const int hi = border_map(a_h + ph.dy[tap], p.H, p.border);
+      const int wi = border_map(a_w + ph.dx[tap], p.W, p.border);
+      const bool ok = live && a_b >= 0 && hi >= 0 && wi >= 0;
+      const int8_t* src = ok ? p.x + ((size_t(a_b) * p.H + hi) * p.W + wi)
                                          * p.Cp + c0
                              : p.x;
-      cp_async16(dst, src, ok ? 16 : 0);
-    }
-    const int wt = ph.wtap[tap];
 #pragma unroll
-    for (int q = 0; q < T::B_COPIES; ++q) {
-      const int row = tid / 4 + q * (THREADS / 4);
-      const uint32_t dst = sb + (kc * BN + row) * ROW + half * 16;
-      const int8_t* src = live ? p.w + (size_t(wt) * p.COp + n0 + row) * p.Cp + c0
+      for (int half = 0; half < 2; ++half)
+        cp_async16(sa + (2 * k + half) * T::A_PLANE + tid * GROUP,
+                   src + half * GROUP, ok ? 16 : 0);
+    }
+#pragma unroll
+    for (int j = 0; j < T::B_ROWS; ++j) {
+      const int e = tid + j * THREADS;
+      const int k = e / BN, n = e % BN;
+      const int q = s * KCH + k;
+      const bool live = q < chunks;
+      int tap = 0, c0 = 0;
+      if (live) chunk_of(q, tap, c0);
+      const int8_t* src = live ? p.w + (size_t(ph.wtap[tap]) * p.COp + n0 + n)
+                                           * p.Cp + c0
                                : p.w;
-      cp_async16(dst, src, live ? 16 : 0);
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        cp_async16(sb + (2 * k + half) * T::B_PLANE + n * GROUP,
+                   src + half * GROUP, live ? 16 : 0);
     }
   };
 
-  int acc[T::MT][T::NT][4];
+  // warpgroup wg owns rows 128 wg .. 128 wg + 127: m64 sub-tiles acc[0]
+  // and acc[1]
+  const int wg = tid / 128;
+  int acc[2][T::ACC];
 #pragma unroll
-  for (int i = 0; i < T::MT; ++i)
+  for (int u = 0; u < 2; ++u)
 #pragma unroll
-    for (int j = 0; j < T::NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+    for (int i = 0; i < T::ACC; ++i) acc[u][i] = 0;
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < n_stages) load_stage(s, s);
     cp_async_commit();
   }
-
-  // ldmatrix lane addresses: A matrix j = lane / 8 is rows (j % 2) * 8 ..
-  // + 7 at bytes (j / 2) * 16 (a0..a3 of m16n8k32); B matrix j is n rows
-  // (j / 2) * 8 .. + 7 at bytes (j % 2) * 16 (b0, b1 of two n8 tiles)
-  const int warp_m = warp % 4, warp_n = warp / 4;
-  const int lr = lane % 8, lj = lane / 8;
-  const uint32_t a_off = (warp_m * 32 + (lj % 2) * 8 + lr) * ROW + (lj / 2) * 16;
-  const uint32_t b_off = (warp_n * T::WN + (lj / 2) * 8 + lr) * ROW + (lj % 2) * 16;
-
   for (int s = 0; s < n_stages; ++s) {
     cp_async_wait<STAGES - 2>();
-    __syncthreads();   // stage s landed for all; stage s - 1 consumed
-    if (s + STAGES - 1 < n_stages) load_stage((s + STAGES - 1) % STAGES, s + STAGES - 1);
-    cp_async_commit();
+    fence_proxy_async();   // the landed copies, to the tensor cores' proxy
+    __syncthreads();       // stage s staged by every thread; s - 1 consumed
     const uint32_t sa = smem_base + (s % STAGES) * T::STAGE_BYTES;
     const uint32_t sb = sa + T::A_BYTES;
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    wgmma_fence();
 #pragma unroll
     for (int k = 0; k < KCH; ++k) {
-      uint32_t a[T::MT][4];
-#pragma unroll
-      for (int i = 0; i < T::MT; ++i)
-        ldmatrix_x4(a[i], sa + (k * BM + i * 16) * ROW + a_off);
-#pragma unroll
-      for (int j = 0; j < T::NT; j += 2) {
-        uint32_t b[4];
-        ldmatrix_x4(b, sb + (k * BN + j * 8) * ROW + b_off);
-#pragma unroll
-        for (int i = 0; i < T::MT; ++i) {
-          mma_s8(acc[i][j], a[i], b[0], b[1]);
-          mma_s8(acc[i][j + 1], a[i], b[2], b[3]);
-        }
-      }
+      // K groups 2k (the descriptor's start) and 2k + 1 (start + LBO) of
+      // the chunk; the sub-tiles lie 64 rows (1024 B) apart
+      const uint64_t da = make_desc(sa + 2 * k * T::A_PLANE + wg * 128 * GROUP,
+                                    T::A_PLANE, 8 * GROUP);
+      const uint64_t db = make_desc(sb + 2 * k * T::B_PLANE, T::B_PLANE,
+                                    8 * GROUP);
+      wgmma_s8(acc[0], da, db);
+      wgmma_s8(acc[1], da + 64 * GROUP / 16, db);
     }
+    wgmma_commit();
+    // stage s + STAGES - 1 loads (into stage s - 1's slot) while the tensor
+    // cores run stage s
+    if (s + STAGES - 1 < n_stages)
+      load_stage((s + STAGES - 1) % STAGES, s + STAGES - 1);
+    cp_async_commit();
+    wgmma_wait_all();
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
   }
   cp_async_wait<0>();
+  __syncthreads();   // every warpgroup's wgmma reads are done: reuse smem
 
-  // epilogue: c0, c1 at row g, columns 2 t, 2 t + 1; c2, c3 at row g + 8
-  const int g = lane / 4, t = lane % 4;
-  const float s_x = p.out_kind == OUT_ACC ? 0.f : act_scale(p.amax);
-  const bool pair = p.Co % 2 == 0;
+  // epilogue, through shared memory. The s32 tile goes to [BM][PITCH]
+  // ints: sum i of a sub-tile is row 16 warp + lane / 4 + 8 ((i / 2) % 2),
+  // column 8 (i / 4) + 2 (lane % 4) + i % 2 (wgmma's D fragment), stored
+  // as pairs; PITCH = BN + 8 puts the 8 rows of a pair store on distinct
+  // banks. Each column's s_x * s_w[n] and bias[n] are read once a block,
+  // and each row's output offset (-1 past M) is worked out once, by thread
+  // row. Then each thread takes runs of 8 columns of one row: float(acc) *
+  // (s_x * s_w[n]) + bias[n], one rounding an operation, stored as 16-byte
+  // vectors (8 bf16; 8 fp32 or int32 as two) where C_out % 8 == 0
+  int* tile = reinterpret_cast<int*>(smem);
+  float* col_scale = reinterpret_cast<float*>(smem + T::TILE_BYTES);
+  float* col_bias = col_scale + BN;
+  long long* row_base = reinterpret_cast<long long*>(col_bias + BN);
+  const int lane = tid % 32, warp = (tid % 128) / 32;
 #pragma unroll
-  for (int i = 0; i < T::MT; ++i) {
+  for (int u = 0; u < 2; ++u)
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int m = m0 + warp_m * 32 + i * 16 + g + hr * 8;
-      if (m >= M) continue;
-      const int per_img = ph.hg * ph.wg;
-      const int b = m / per_img, r = m - b * per_img;
-      const int oy = (r / ph.wg) * p.ostride + ph.oy0;
-      const int ox = (r % ph.wg) * p.ostride + ph.ox0;
-      const size_t base = ((size_t(b) * p.Ho + oy) * p.Wo + ox) * p.Co;
+    for (int i = 0; i < T::ACC; i += 2) {
+      const int row = wg * 128 + u * 64 + warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
+      const int col = 8 * (i / 4) + 2 * (lane % 4);
+      *reinterpret_cast<uint2*>(tile + row * T::PITCH + col) =
+          make_uint2(unsigned(acc[u][i]), unsigned(acc[u][i + 1]));
+    }
+  if (tid < BN) {
+    const int n = n0 + tid;
+    const bool dq = n < p.Co && p.out_kind != OUT_ACC;
+    const float s_x = dq ? act_scale(p.amax) : 0.f;
+    col_scale[tid] = dq ? __fmul_rn(s_x, p.s_w[n]) : 0.f;
+    col_bias[tid] = dq && p.bias ? p.bias[n] : 0.f;
+  }
+  {
+    const int m = m0 + tid, per_img = ph.hg * ph.wg;
+    const int b = m / per_img, r = m - b * per_img;
+    const int oy = (r / ph.wg) * p.ostride + ph.oy0;
+    const int ox = (r % ph.wg) * p.ostride + ph.ox0;
+    row_base[tid] = m < M ? (((long long)b * p.Ho + oy) * p.Wo + ox) * p.Co : -1;
+  }
+  __syncthreads();
+  const bool vec = p.Co % 8 == 0 && reinterpret_cast<uintptr_t>(p.out) % 16 == 0;
+  for (int i = tid; i < BM * BN / 8; i += THREADS) {
+    const int row = i / (BN / 8), v = i % (BN / 8);
+    const int n = n0 + 8 * v;
+    if (row_base[row] < 0 || n >= p.Co) continue;
+    const size_t base = size_t(row_base[row]) + n;
+    const int cnt = p.Co - n < 8 ? p.Co - n : 8;
+    const int* a = tile + row * T::PITCH + 8 * v;
+    if (p.out_kind == OUT_ACC) {
+      int* o = static_cast<int*>(p.out) + base;
+      if (vec) {
+        reinterpret_cast<uint4*>(o)[0] = reinterpret_cast<const uint4*>(a)[0];
+        reinterpret_cast<uint4*>(o)[1] = reinterpret_cast<const uint4*>(a)[1];
+      } else {
+        for (int e = 0; e < cnt; ++e) o[e] = a[e];
+      }
+      continue;
+    }
+    float f[8];
 #pragma unroll
-      for (int j = 0; j < T::NT; ++j) {
-        const int n = n0 + warp_n * T::WN + j * 8 + 2 * t;
-        if (n >= p.Co) continue;
-        const int v0 = acc[i][j][2 * hr], v1 = acc[i][j][2 * hr + 1];
-        const bool two = n + 1 < p.Co;
-        if (p.out_kind == OUT_ACC) {
-          int* o = static_cast<int*>(p.out) + base + n;
-          if (two && pair) { *reinterpret_cast<int2*>(o) = make_int2(v0, v1); }
-          else { o[0] = v0; if (two) o[1] = v1; }
-          continue;
-        }
-        // float(acc) * (s_x * s_w[n]) + bias[n], one rounding an operation
-        float f0 = __fmul_rn(__int2float_rn(v0), __fmul_rn(s_x, p.s_w[n]));
-        float f1 = two ? __fmul_rn(__int2float_rn(v1), __fmul_rn(s_x, p.s_w[n + 1])) : 0.f;
-        if (p.bias) {
-          f0 = __fadd_rn(f0, p.bias[n]);
-          if (two) f1 = __fadd_rn(f1, p.bias[n + 1]);
-        }
-        if (p.out_kind == OUT_BF16) {
-          bf16* o = static_cast<bf16*>(p.out) + base + n;
-          if (two && pair) {
-            __nv_bfloat162 v;
-            v.x = __float2bfloat16_rn(f0);
-            v.y = __float2bfloat16_rn(f1);
-            *reinterpret_cast<__nv_bfloat162*>(o) = v;
-          } else {
-            o[0] = __float2bfloat16_rn(f0);
-            if (two) o[1] = __float2bfloat16_rn(f1);
-          }
-        } else {
-          float* o = static_cast<float*>(p.out) + base + n;
-          if (two && pair) { *reinterpret_cast<float2*>(o) = make_float2(f0, f1); }
-          else { o[0] = f0; if (two) o[1] = f1; }
-        }
+    for (int e = 0; e < 8; ++e) {
+      // float(acc) * (s_x * s_w[n]) + bias[n], one rounding an operation
+      f[e] = __fmul_rn(__int2float_rn(a[e]), col_scale[8 * v + e]);
+      if (p.bias) f[e] = __fadd_rn(f[e], col_bias[8 * v + e]);
+    }
+    if (p.out_kind == OUT_BF16) {
+      bf16* o = static_cast<bf16*>(p.out) + base;
+      __align__(16) bf16 h[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) h[e] = __float2bfloat16_rn(f[e]);
+      if (vec) {
+        *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(h);
+      } else {
+        for (int e = 0; e < cnt; ++e) o[e] = h[e];
+      }
+    } else {
+      float* o = static_cast<float*>(p.out) + base;
+      if (vec) {
+        reinterpret_cast<float4*>(o)[0] = make_float4(f[0], f[1], f[2], f[3]);
+        reinterpret_cast<float4*>(o)[1] = make_float4(f[4], f[5], f[6], f[7]);
+      } else {
+        for (int e = 0; e < cnt; ++e) o[e] = f[e];
       }
     }
   }
@@ -482,7 +722,9 @@ extern "C" int lama_int8_conv(const Int8ConvArgs* a, int bn, void* stream) {
     if (a->phase[i].taps < 1 || a->phase[i].taps > MAX_TAPS)
       return int(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
+  if ((a->Co + bn - 1) / bn * bn > a->COp) return int(cudaErrorInvalidValue);
   if (bn == 64) return launch_conv<64>(*a, s);
   if (bn == 128) return launch_conv<128>(*a, s);
+  if (bn == 192) return launch_conv<192>(*a, s);
   return int(cudaErrorInvalidValue);
 }

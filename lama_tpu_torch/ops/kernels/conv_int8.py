@@ -6,14 +6,15 @@ with int32 accumulation (lama_tpu/ops/quant.py:108 and :151). A conv on the
 card is three launches, two with a calibrated scale: max |x| over the
 whole tensor (dynamic scale), the quantize pass to int8 NHWC codes with
 the channels padded to a multiple of CHUNK, and one implicit GEMM on
-mma.sync s8 with int32 sums and the dequantize epilogue (see the source's
-header). A conv is a list of phases (`conv_plan`, `conv_transpose_plan`),
-each a stride-s gather with its own taps: a Conv2d is one phase of kh * kw
-taps; a stride-2 ConvTranspose2d is four phases, the output's row and
-column parities, of 1, 2, 2 and 4 taps over the undilated input. The
-weights are quantized per output channel and packed once per set of
-weights (`pack_weight`, cached by ops/conv.py's modules) as (taps, C_out
-padded to COP_ALIGN, C padded to CHUNK) int8.
+Hopper's int8 wgmma (m64nNk32, s8 x s8 -> s32, both operands staged in
+shared memory) with int32 sums and the dequantize epilogue (see the
+source's header). A conv is a list of phases (`conv_plan`,
+`conv_transpose_plan`), each a stride-s gather with its own taps: a
+Conv2d is one phase of kh * kw taps; a stride-2 ConvTranspose2d is four
+phases, the output's row and column parities, of 1, 2, 2 and 4 taps over
+the undilated input. The weights are quantized per output channel and
+packed once per set of weights (`pack_weight`, cached by ops/conv.py's
+modules) as (taps, C_out padded to COP_ALIGN, C padded to CHUNK) int8.
 
 The wrappers take the plain version (ops/quant.py) for a CPU tensor and
 under kernels='plain'; on a CUDA tensor they launch the kernel or raise.
@@ -31,12 +32,12 @@ from . import _build
 
 # the kernel's constants (csrc/conv_int8.cu; tests/test_torch_int8.py
 # checks that the source agrees)
-THREADS = 256
-BM = 128                  # output pixels a block tile
-TILE_N = (64, 128)        # the instances' output channels a block tile
-CHUNK = 32                # input channels a K chunk
-KCH = 2                   # chunks a pipeline stage
-ROW = 48                  # shared bytes a chunk row
+THREADS = 256             # two consumer warpgroups
+BM = 256                  # output pixels a block tile
+TILE_N = (64, 128, 192)   # the instances' output channels a block tile
+CHUNK = 32                # input channels a K chunk (one wgmma k32 step)
+KCH = 4                   # chunks a pipeline stage
+GROUP = 16                # bytes of K a core-matrix row
 STAGES = 4
 COP_ALIGN = 128           # the packed weight's C_out padding
 MAX_TAPS = 9

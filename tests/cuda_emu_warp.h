@@ -1,18 +1,19 @@
 // Warp-level stand-ins for tests/cuda_emu.h, for the int8 conv
 // (lama_tpu_torch/csrc/conv_int8.cu; tests/test_torch_int8_emulated.py):
-// ldmatrix, mma.sync m16n8k32 s8, __shfl_xor_sync, a two-dimensional grid,
-// and the few intrinsics and types that source uses beyond cuda_emu.h's.
-// The 32 threads of a warp meet at a barrier of their own; a collective
-// writes each lane's operands to a per-warp slot, waits, computes its own
-// lane's result from every lane's operands as the PTX ISA lays the
-// fragments out, and waits again before the slot is reused.
+// __shfl_xor_sync, a two-dimensional grid, a barrier per warp and per
+// warpgroup, and the few intrinsics and types that source uses beyond
+// cuda_emu.h's (its wgmma stand-ins are tests/cuda_emu_wgmma.h). The 32
+// threads of a warp meet at a barrier of their own; a collective writes
+// each lane's operands to a per-warp slot, waits, computes its own lane's
+// result from every lane's operands, and waits again before the slot is
+// reused.
 #pragma once
 #include "cuda_emu.h"
 #include <memory>
 #include <mutex>
 
-struct int2 { int x, y; };
-inline int2 make_int2(int a, int b) { return {a, b}; }
+#define __align__(n) alignas(n)
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
   return {a, b, c, d};
@@ -58,51 +59,13 @@ struct EmuWarp {
 inline EmuWarp emu_warps[EMU_MAX_WARPS];
 inline int emu_lane() { return threadIdx.x % 32; }
 inline EmuWarp& emu_warp() { return emu_warps[threadIdx.x / 32]; }
-
-// ldmatrix.x4: lane l reads, of matrix j, row l / 4 (whose address lane
-// 8 j + l / 4 holds) at 32-bit word l % 4
-inline void emu_ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  EmuWarp& w = emu_warp();
-  const int lane = emu_lane();
-  w.slot[lane][0] = addr;
-  w.bar->arrive_and_wait();
-  for (int j = 0; j < 4; ++j)
-    memcpy(&r[j], emu_smem + w.slot[8 * j + lane / 4][0] + 4 * (lane % 4), 4);
-  w.bar->arrive_and_wait();
+// the four warps of a warpgroup (a block of a multiple of 128 threads)
+inline std::unique_ptr<std::barrier<>> emu_warpgroups[EMU_MAX_WARPS / 4];
+inline void emu_warpgroup_sync() {
+  if (!emu_warpgroups[threadIdx.x / 128]) emu_fail("no warpgroup barrier");
+  emu_warpgroups[threadIdx.x / 128]->arrive_and_wait();
 }
-
-// mma.sync.m16n8k32.row.col s8: A register i of lane (g, t) holds row g +
-// 8 (i % 2), columns 4 t + 16 (i / 2) .. + 3; B register i holds column g,
-// rows 4 t + 16 i .. + 3; D element e holds row g + 8 (e / 2), column 2 t +
-// e % 2
-inline void emu_mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                       uint32_t b1) {
-  EmuWarp& w = emu_warp();
-  const int lane = emu_lane();
-  for (int i = 0; i < 4; ++i) w.slot[lane][i] = a[i];
-  w.slot[lane][4] = b0;
-  w.slot[lane][5] = b1;
-  w.bar->arrive_and_wait();
-  int8_t A[16][32], B[32][8];
-  for (int l = 0; l < 32; ++l) {
-    const int g = l / 4, t = l % 4;
-    for (int i = 0; i < 4; ++i)
-      for (int e = 0; e < 4; ++e)
-        A[g + 8 * (i % 2)][4 * t + 16 * (i / 2) + e] =
-            int8_t(w.slot[l][i] >> (8 * e));
-    for (int i = 0; i < 2; ++i)
-      for (int e = 0; e < 4; ++e)
-        B[4 * t + 16 * i + e][g] = int8_t(w.slot[l][4 + i] >> (8 * e));
-  }
-  const int g = lane / 4, t = lane % 4;
-  for (int e = 0; e < 4; ++e) {
-    const int row = g + 8 * (e / 2), col = 2 * t + e % 2;
-    int s = 0;
-    for (int k = 0; k < 32; ++k) s += int(A[row][k]) * int(B[k][col]);
-    d[e] += s;
-  }
-  w.bar->arrive_and_wait();
-}
+inline size_t emu_smem_bytes = 0;
 
 inline float __shfl_xor_sync(unsigned, float v, int mask) {
   EmuWarp& w = emu_warp();
@@ -123,9 +86,13 @@ void emu_launch2(K kernel, dim3 grid, int threads, int smem, cudaStream_t,
   if (threads % 32 || threads / 32 > EMU_MAX_WARPS) emu_fail("block size");
   std::vector<unsigned char> buf(smem > 0 ? smem : 1);
   emu_smem = buf.data();
+  emu_smem_bytes = smem > 0 ? size_t(smem) : 0;
   gridDim = {int(grid.x), int(grid.y), 1};
   for (int i = 0; i < threads / 32; ++i)
     emu_warps[i].bar = std::make_unique<std::barrier<>>(32);
+  for (int i = 0; i < EMU_MAX_WARPS / 4; ++i)
+    emu_warpgroups[i].reset(threads % 128 == 0 && i < threads / 128
+                                ? new std::barrier<>(128) : nullptr);
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       memset(buf.data(), 0xff, buf.size());

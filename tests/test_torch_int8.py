@@ -293,15 +293,17 @@ def test_int8_plan_refuses_what_the_kernel_does_not_take():
             ci.conv_plan(shape, (64, 64, 3, 3), 1, 1, **kwargs)
     with pytest.raises(NotImplementedError, match='item 12'):
         ci.conv_plan(shape, (64, 64, 5, 5), 1, 2)
-    assert ci.tile_n(192) == 64 and ci.tile_n(384) == 128
+    assert ci.tile_n(192) == 192 and ci.tile_n(384) == 192
     assert ci.tile_n(64) == 64 and ci.tile_n(512) == 128
+    assert ci.tile_n(128) == 128 and ci.tile_n(288) == 64
 
 
 def test_int8_source_matches_its_plan():
     """csrc/conv_int8.cu's constants and structures are the wrapper's; it
     quantizes by a division and rint (round half to even, as torch.round;
-    roundf rounds half away from zero), and its products are mma.sync s8
-    with int32 sums."""
+    roundf rounds half away from zero), and its products are int8 wgmma
+    (m64nNk32, s8 x s8 -> s32, one instance a tile width) from shared
+    memory, with no mma.sync or ldmatrix left."""
     import re
     from lama_tpu_torch.ops.kernels import _build
     with open(_build.source_path('conv_int8')) as f:
@@ -310,7 +312,7 @@ def test_int8_source_matches_its_plan():
     def const(name):
         return int(re.search(rf'constexpr int {name} = (\d+)', src).group(1))
 
-    for name in ('THREADS', 'BM', 'CHUNK', 'KCH', 'ROW', 'STAGES',
+    for name in ('THREADS', 'BM', 'CHUNK', 'KCH', 'GROUP', 'STAGES',
                  'COP_ALIGN', 'MAX_TAPS', 'MAX_PHASES'):
         assert const(name) == getattr(ci, name), name
     assert re.findall(r'if \(bn == (\d+)\) return launch_conv', src) == [
@@ -335,8 +337,13 @@ def test_int8_source_matches_its_plan():
     assert fields('Int8ConvArgs') == [f for f, _ in ci._Args._fields_]
     code = re.sub(r'//.*', '', src)
     assert 'roundf' not in code and 'rintf(__fdiv_rn(' in code
-    assert 'mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32' in code
-    assert '__fmul_rn(__int2float_rn(v0), __fmul_rn(s_x, p.s_w[n]))' in code
+    assert 'mma.sync' not in code and 'ldmatrix' not in code
+    assert re.findall(r'wgmma\.mma_async\.sync\.aligned\.m64n(\d+)k32'
+                      r'\.s32\.s8\.s8 ', code) == [
+        str(n) for n in sorted(ci.TILE_N, reverse=True)]
+    assert '__fmul_rn(s_x, p.s_w[n])' in code
+    assert '__fmul_rn(__int2float_rn(a[e]), col_scale[8 * v + e])' in code
+    assert '__fadd_rn(f[e], col_bias[8 * v + e])' in code
 
 
 # ----------------------------------------------------------- the generators

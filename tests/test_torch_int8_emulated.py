@@ -1,22 +1,25 @@
 """The int8 conv's CUDA source, run on the CPU.
 
-csrc/conv_int8.cu is built with g++ against tests/cuda_emu.h and
-tests/cuda_emu_warp.h (a std::thread per CUDA thread, a barrier per
-__syncthreads and per warp, cp.async copies deferred to the wait_group that
-retires them, ldmatrix and mma.sync m16n8k32 s8 computed from the warp's
-fragments as the PTX ISA lays them out, shared memory filled with 0xff
+csrc/conv_int8.cu is built with g++ against tests/cuda_emu.h,
+tests/cuda_emu_warp.h and tests/cuda_emu_wgmma.h (a std::thread per CUDA
+thread, a barrier per __syncthreads, per warp and per warpgroup, cp.async
+copies deferred to the wait_group that retires them, wgmma.mma_async
+m64nNk32 s8 products deferred to the wgmma.wait_group that retires them
+and computed from the no-swizzle descriptors as the PTX ISA lays the
+operands and the accumulator fragment out, shared memory filled with 0xff
 bytes), after textual replacements of its inline PTX, its shared-memory
 declarations and its `<<<>>>` launches. Its three extern "C" launchers then
 run on CPU tensors through the wrapper's plan and argument structure, and
 each result is held to ops/quant.py's plain version on the same inputs:
 the amax equal, the codes equal, the int32 sums equal, the fp32 and bf16
 outputs bit-equal (the epilogue rounds once per operation, as the plain
-dequantize does). The shapes cover both tile widths, channel tails past C
-and C_out, several pixel tiles, stride 1 and 2, the reflect, zero and
-zero_pad borders, a 1x1 conv, three ConvTranspose shapes (the four-phase
-k3 s2 p1 op1 among them), bf16 and fp32 inputs, channels-last and NCHW.
-Timing, registers and the PTX are the card's (tests/test_torch_cuda.py,
-chip_smoke.py). Skips without g++.
+dequantize does). The shapes cover both tile widths (an instance each over
+several channel tiles), channel tails past C and C_out, several pixel
+tiles, a K far longer than the pipeline ring, stride 1 and 2, the reflect,
+replicate, zero and zero_pad borders, a 1x1 conv, three ConvTranspose
+shapes (the four-phase k3 s2 p1 op1 among them), bf16 and fp32 inputs,
+channels-last and NCHW. Timing, registers and the PTX are the card's
+(tests/test_torch_cuda.py, chip_smoke.py). Skips without g++.
 """
 import ctypes
 import os
@@ -38,19 +41,29 @@ TESTS = os.path.dirname(os.path.abspath(__file__))
 def host_source(src):
     """conv_int8.cu with its device-only parts replaced by the stand-ins."""
     src = src.replace('#include <cuda_runtime.h>\n#include <cuda_bf16.h>\n',
-                      '#include "cuda_emu_warp.h"\n')
+                      '#include "cuda_emu_wgmma.h"\n')
     for helper, body in (
             (r'void cp_async16\(uint32_t dst, const void\* src,\s*int bytes\)',
              'emu_cp(dst, src, 16, bytes);'),
             (r'void cp_async_commit\(\)', 'emu_commit();'),
             (r'void cp_async_wait\(\)', 'emu_wait(N);'),
-            (r'void ldmatrix_x4\(uint32_t \(&r\)\[4\], uint32_t addr\)',
-             'emu_ldmatrix_x4(r, addr);'),
-            (r'void mma_s8\(int \(&d\)\[4\], const uint32_t \(&a\)\[4\],'
-             r'\s*uint32_t b0, uint32_t b1\)', 'emu_mma_s8(d, a, b0, b1);')):
+            (r'void fence_proxy_async\(\)', 'emu_fence_proxy_async();'),
+            (r'void wgmma_fence\(\)', 'emu_wgmma_fence();'),
+            (r'void wgmma_commit\(\)', 'emu_wgmma_commit();'),
+            (r'void wgmma_wait_all\(\)', 'emu_wgmma_wait(0);'),
+            (r'void wgmma_n192\(int \(&d\)\[96\], uint64_t da,\s*uint64_t db\)',
+             'emu_wgmma_s8(d, da, db, 192);'),
+            (r'void wgmma_n128\(int \(&d\)\[64\], uint64_t da,\s*uint64_t db\)',
+             'emu_wgmma_s8(d, da, db, 128);'),
+            (r'void wgmma_n64\(int \(&d\)\[32\], uint64_t da,\s*uint64_t db\)',
+             'emu_wgmma_s8(d, da, db, 64);')):
         src, n = re.subn(rf'({helper} \{{)\n  asm volatile\(.*?\);\n\}}',
                          rf'\1 {body} }}', src, flags=re.S)
         assert n == 1, helper
+    # the accumulator fence only orders the compiler's register accesses
+    fence = 'asm volatile("" : "+r"(d[i]) :: "memory");'
+    assert src.count(fence) == 1
+    src = src.replace(fence, '(void)d[i];')
     src = src.replace('extern __shared__ __align__(128) unsigned char smem[];',
                       'unsigned char* smem = emu_smem;')
     src = src.replace('__shared__ float red[', 'static float red[')
@@ -133,7 +146,30 @@ CONV_CASES = [
     (1, 32, 7, 6, 48, 3, 1, 'reflect', True, torch.bfloat16, False),
     (1, 64, 12, 10, 40, 3, 2, 'zeros', False, torch.float32, False),
     (2, 96, 5, 5, 40, 1, 1, 'zeros', False, torch.bfloat16, True),
+    # K of 27 stages (9 taps x 12 chunks), far past the 4-deep ring
+    (1, 384, 6, 5, 64, 3, 1, 'reflect', False, torch.bfloat16, True),
+    # one case per instance over several channel tiles: BN 64 over five
+    # (C_out 288), BN 128 over two with a tail (C_out 232) and two pixel
+    # tiles (M 312 > 256), the replicate border; BN 192 over two (C_out 384,
+    # as the SpectralTransform's 1x1 out, whose K is one whole 128-byte
+    # channel group and a shorter one) and over one with a tail (C_out 150)
+    (1, 64, 6, 7, 288, 3, 1, 'reflect', False, torch.float32, True),
+    (2, 32, 13, 12, 232, 3, 1, 'replicate', False, torch.bfloat16, True),
+    (1, 192, 6, 7, 384, 1, 1, 'zeros', False, torch.bfloat16, True),
+    (1, 96, 5, 6, 150, 3, 1, 'zeros', False, torch.bfloat16, False),
+    # K in channel groups of 128 bytes: one whole group and a shorter one
+    (1, 160, 5, 6, 48, 3, 1, 'reflect', True, torch.float32, False),
 ]
+
+
+def test_conv_cases_cover_every_instance():
+    """Each kernel instance (tile width) runs some case over more than one
+    channel tile, and some case's K outlasts the pipeline ring."""
+    multi = {ci.tile_n(co) for _, _, _, _, co, *_ in CONV_CASES
+             if co > ci.tile_n(co)}
+    assert multi == set(ci.TILE_N)
+    assert any(k * k * ci.round_up(c, ci.CHUNK) // ci.CHUNK
+               > ci.STAGES * ci.KCH for _, c, _, _, _, k, *_ in CONV_CASES)
 
 
 @pytest.mark.parametrize('b,c,h,w,co,k,stride,mode,zero_pad,dtype,cl',

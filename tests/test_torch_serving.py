@@ -207,6 +207,7 @@ def test_port_and_chip_smoke_import_nothing_of_lama_tpu():
             'lama_tpu_torch.models.ffc, lama_tpu_torch.data.datasets, '
             'lama_tpu_torch.ops.quant, lama_tpu_torch.ops.serving_mode, '
             'lama_tpu_torch.ops.kernels.conv_int8, lama_tpu_torch.convert, '
+            'lama_tpu_torch.tools.conv_int8_time, '
             'chip_smoke; chip_smoke.big_lama_kwargs(); '
             'lama_tpu_torch.losses.distance_weighting.'
             'make_mask_distance_weighter("pps"); '
