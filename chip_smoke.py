@@ -23,6 +23,8 @@ version):
      FourierUnit (kernel 1), the stem (kernel 7, 4 -> 64 at 512^2) and
      the head (kernel 5, 64 -> 3 at 512^2) at the served batch 16 too,
      and the head also at training's b10 256^2 and the refiner's 1024^2;
+     kernel 3 at ablv2_work_md's dilation-1 branch (16, 128, 64, 64) ->
+     512 and kernel 1 at an ffc_positions LFU unit's (16, 192, 32, 32);
      fp32
      (TF32 off; each fp32 3x3 stride-1 row prints the K split its grid
      ran with) and bf16, against its plain PyTorch version on the same
@@ -127,7 +129,7 @@ version):
      SEG_ATOL), and the masks equal those the same host code makes from
      the CPU's map with its near-ties given the card's labels; at least
      one mask is so compared.
- 15. the rest of training (last), `python -m lama_tpu_torch.train` in this
+ 15. the rest of training, `python -m lama_tpu_torch.train` in this
      process at b10 256^2, 4 steps a run (2 warm up), each step's losses
      finite, its launches exact and every G and D weight and BN statistic
      moved, one step profiled: run A `-cn ablv2_work_no_segmpl_vgg` as
@@ -148,7 +150,7 @@ version):
      control rejected each time. Kernel rows at the FFC D's shapes (kernel
      6 at L0 (10,3,256^2)->64 and L4 (10,512,32^2)->512, kernel 4 at L1-L3)
      join phase 3's, with run B's launches per step.
- 16. int8 serving (last): the int8 conv (csrc/conv_int8.cu) at big-lama's
+ 16. int8 serving: the int8 conv (csrc/conv_int8.cu) at big-lama's
      and big-lama-regular's int8 shapes at batch 16 (the four downsamples,
      l2l, l2g and g2l at 64^2, the SpectralTransform's 1x1 384 -> 192 and
      192 -> 384, the three ConvTranspose layers; the 512 -> 512 block conv
@@ -170,7 +172,27 @@ version):
      difference from the bf16 serve; the int8 generator kernels vs plain at
      512^2 b2 (fp32 compute within GEN_INT8_ATOL, bf16 logged); img/s at
      512^2 b16, int8 (headline, calibrated) vs bf16 in turns, one profiled
-     forward of each.
+     forward of each. The int8 rows include ablv2_work_md's branch convs
+     (16, 128, 64, 64) -> 512 at dilations 1, 2, 4, 8 (reflect) and 2, 4,
+     8 under quant_zero_pad, and a dilated (d 2) 512 -> 512 GlobalGenerator
+     block conv: their int32 sums bit-equal to the plain version's too.
+ 17. the multidilated family (last): `python -m lama_tpu_torch.train -cn
+     ablv2_work_md` as shipped (ngf 64, 9 MultidilatedResnetBlocks at 512
+     channels, cat_in, dilations 1, 2, 4, 8; random ResNetPL weights) in
+     this process at b10 256^2, bf16, 4 steps (2 warm up): losses finite,
+     launches exact (per step kernel 3 36, the stem 2, the head 2, the
+     others 0), every G and D weight and BN statistic moved, one step
+     profiled; its last.ckpt served by the predict CLI at batch 16 in bf16
+     and fp32 (wires fp32 and uint8; per forward kernel 3 18, stem 1, head
+     1) and in int8 with the headline flags and with dynamic scales (per
+     forward 78 int8 convs, stem 1, head 1), sizes, known pixels and the
+     hole's difference from bf16; the generator with kernels vs plain at
+     512^2 b2, fp32 within GEN_ATOL; img/s at 512^2 b16 in bf16 and fp32
+     (kernels vs plain) and int8 vs bf16 in turns, a profiled forward of
+     each; then big-lama-regular cut to 6 blocks with an inline FFC block
+     (LFU) before block 4 (ffc_positions), 512^2 b2 fp32, kernels vs plain
+     within GEN_ATOL, its launches exact (kernel 6 12, kernel 2 2, kernel
+     3 4, kernel 1 4, stem 1, head 1).
 Prints the `kernels` JSON line, then, as its last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device, and
 when run outside a checkout of the repository.
@@ -477,6 +499,13 @@ def kernel_cases(gen):
          conv_case(256, 512, 64, 3, False, b=10)),
         ('halo_conv3x3_reflect', 'd_l4',
          conv_case(512, 512, 32, 3, False, b=10)),
+        # ablv2_work_md's multidilated generator: each block conv's
+        # dilation-1 branch (cat_in, 128 of 512 channels -> 512, bias) at
+        # the served b16 64^2; the LFU unit of an ffc_positions block
+        # (its 48 channels' 2x2 tiles: 192 at 32^2) at b16
+        ('reflect_conv3x3_taps', 'md_branch_b16',
+         conv_case(128, 512, 64, 3, True, b=16)),
+        ('fused_fourier_unit', 'lfu_b16', fu_case(16, 32, 32)),
     ]
     src = 'lama_tpu/ops/pallas/'
 
@@ -857,7 +886,8 @@ def kernel_wrappers():
                 halo_conv3x3_reflect=hc.halo_conv3x3_reflect)
 
 
-GENERATOR_CLASSES = ('FFCResNetGenerator', 'GlobalGenerator')
+GENERATOR_CLASSES = ('FFCResNetGenerator', 'GlobalGenerator',
+                     'MultiDilatedGlobalGenerator')
 
 
 @contextlib.contextmanager
@@ -878,10 +908,12 @@ def counting_forwards():
         hook.remove()
 
 
-def serve(work, model_dir, per_forward=PER_FORWARD, label='big-lama'):
-    """The predict CLI on synthetic PNGs, bf16 and fp32, wire fp32 and
-    uint8: sizes, known pixels, bit-equal wires, and `per_forward` launches
-    of each kernel per generator forward. Returns the launch counts by
+def serve(work, model_dir, per_forward=PER_FORWARD, label='big-lama',
+          batch=BATCH, ckpt='best.ckpt'):
+    """The predict CLI on synthetic PNGs (the model dir's checkpoint
+    `ckpt`, `batch` images a forward), bf16 and fp32, wire fp32 and uint8:
+    sizes, known pixels, bit-equal wires, and `per_forward` launches of
+    each kernel per generator forward. Returns the launch counts by
     precision."""
     indir = os.path.join(work, 'in')
     sizes = write_images(indir, np.random.RandomState(0))
@@ -893,9 +925,10 @@ def serve(work, model_dir, per_forward=PER_FORWARD, label='big-lama'):
             fns = reset_counts()
             forwards[0] = 0
             t0 = time.perf_counter()
-            run_predict([f'model.path={model_dir}', f'indir={indir}',
-                         f'outdir={outdir}', 'device=cuda', f'batch_size={BATCH}',
-                         f'precision={precision}', f'wire={wire}'])
+            run_predict([f'model.path={model_dir}', f'model.checkpoint={ckpt}',
+                         f'indir={indir}', f'outdir={outdir}', 'device=cuda',
+                         f'batch_size={batch}', f'precision={precision}',
+                         f'wire={wire}'])
             secs = time.perf_counter() - t0
             counts = {k: fn.launches for k, fn in fns.items()}
             n = forwards[0]
@@ -2566,26 +2599,27 @@ INT8_OPS = 1979e12   # H100 SXM dense int8 tensor-core OP/s
 
 def int8_cases(gen):
     """(role, conv kind, x (bf16, channels-last, on the card), weight,
-    stride, padding mode) at the served batch 16: big-lama's and
-    big-lama-regular's int8 convs (tools/conv_int8_time.py's CASES)."""
+    stride, padding mode, dilation) at the served batch 16: big-lama's,
+    big-lama-regular's and ablv2_work_md's int8 convs
+    (tools/conv_int8_time.py's CASES)."""
     import torch
     from lama_tpu_torch.tools.conv_int8_time import BATCH, CASES
     out = []
-    for role, c, co, h, k, stride, mode, kind in CASES:
+    for role, c, co, h, k, stride, mode, kind, d in CASES:
         x = (torch.rand(BATCH, c, h, h, generator=gen) * 2 - 1)
         shape = (c, co, k, k) if kind == 'transposed' else (co, c, k, k)
         wt = (torch.rand(*shape, generator=gen) * 2 - 1) * (c * k * k) ** -0.5
         out.append((role, kind, x.cuda().bfloat16().contiguous(
-            memory_format=torch.channels_last), wt.cuda(), stride, mode))
+            memory_format=torch.channels_last), wt.cuda(), stride, mode, d))
     return out
 
 
-def int8_plan(kind, x, wt, stride, mode):
+def int8_plan(kind, x, wt, stride, mode, d=1):
     from lama_tpu_torch.ops.kernels import conv_int8 as ci
     if kind == 'transposed':
         return ci.conv_transpose_plan(x.shape, wt.shape)
-    return ci.conv_plan(x.shape, wt.shape, stride, wt.shape[-1] // 2, 1, 1,
-                        mode)
+    return ci.conv_plan(x.shape, wt.shape, stride, d * (wt.shape[-1] // 2),
+                        d, 1, mode)
 
 
 def int8_bound(x, wt, plan, co):
@@ -2619,10 +2653,11 @@ def int8_rows(gen, card_line):
     from lama_tpu_torch.ops.kernels import conv_int8 as ci
     from lama_tpu_torch.tools.conv_int8_time import gemm_bound
     rows = []
-    for role, kind, x, wt, stride, mode in int8_cases(gen):
+    for role, kind, x, wt, stride, mode, d in int8_cases(gen):
         tr = kind == 'transposed'
         co = wt.shape[1] if tr else wt.shape[0]
-        plan = int8_plan(kind, x, wt, stride, mode)
+        pad = d * (wt.shape[-1] // 2)
+        plan = int8_plan(kind, x, wt, stride, mode, d)
         packed, s_w = ci.pack_weight(wt, tr)
         amax = x.float().abs().amax()
         with torch.no_grad():
@@ -2632,8 +2667,7 @@ def int8_rows(gen, card_line):
             wq, _ = quant.quantize_weight(wt, tr)
             codes = quant.quantize(x, quant.act_scale(x))
             ref_acc = (quant.conv_transpose2d_acc(codes, wq) if tr else
-                       quant.conv2d_acc(codes, wq, stride, wt.shape[-1] // 2,
-                                        1, 1, mode))
+                       quant.conv2d_acc(codes, wq, stride, pad, d, 1, mode))
             torch.cuda.synchronize()
             check(torch.equal(acc, ref_acc),
                   f'int8 {role}: int32 sums differ from the plain version')
@@ -2649,12 +2683,12 @@ def int8_rows(gen, card_line):
             else:
                 def full(a=None):
                     return ci.quantized_conv2d(
-                        x, wt, None, stride, wt.shape[-1] // 2, 1, 1, mode,
-                        act_amax=a, packed=(packed, s_w))
+                        x, wt, None, stride, pad, d, 1, mode, act_amax=a,
+                        packed=(packed, s_w))
 
                 def plain():
                     return quant.quantized_conv2d(
-                        x, wt, None, stride, wt.shape[-1] // 2, 1, 1, mode)
+                        x, wt, None, stride, pad, d, 1, mode)
             out, ref = full(), plain()
             torch.cuda.synchronize()
             err = float((out.float() - ref.float()).abs().max())
@@ -2685,17 +2719,19 @@ def int8_rows(gen, card_line):
                 cudnn_ms = median_ms(lambda: F.conv_transpose2d(
                     x, wb, None, 2, 1, 1))
             else:
-                xpad = (F.pad(x, (k // 2,) * 4, mode=mode) if mode != 'zeros'
+                xpad = (F.pad(x, (pad,) * 4, mode=mode) if mode != 'zeros'
                         else x)
                 cudnn_ms = median_ms(lambda: F.conv2d(
-                    xpad, wb, None, stride, 0 if mode != 'zeros' else k // 2))
+                    xpad, wb, None, stride, 0 if mode != 'zeros' else pad,
+                    d))
         g_ms, g_by = gemm_bound(xq, packed, plan, x.shape[1], co)
         del xq
         b_ms, b_by = int8_bound(x, wt, plan, co)
         row = dict(name='quantized_conv2d', role=role, route='cuda',
                    source=INT8_SOURCE, replaces=INT8_REPLACES,
                    tpu_kernel=None, shape=list(x.shape), dtype='int8',
-                   c_out=co, kind=kind, max_abs_err=err, acc_bit_equal=True,
+                   c_out=co, kind=kind, dilation=d, max_abs_err=err,
+                   acc_bit_equal=True,
                    out_bit_equal=equal, tol=dict(rtol=INT8_OUT_RTOL),
                    within_tol=True, ms=ms, kernel_ms=ms, static_ms=static_ms,
                    conv_ms=conv_ms, kernel_device_ms=dev_ms,
@@ -2705,7 +2741,9 @@ def int8_rows(gen, card_line):
                    int_mm_ms=int_mm_ms, cudnn_bf16_ms=cudnn_ms,
                    phases=len(plan.phases))
         log(f'kernel int8/{role} {list(x.shape)} -> {co}'
-            f'{" (transposed)" if tr else ""}: int32 sums bit-equal, '
+            f'{" (transposed)" if tr else ""}'
+            f'{f" dilation {d} {mode}" if d > 1 else ""}: int32 sums '
+            f'bit-equal, '
             f'outputs max|d| {err:.3e} (bit-equal {equal}); ms {ms:.3f} '
             f'(calibrated {static_ms:.3f}, GEMM alone {conv_ms:.3f}), device '
             f'{"not measured" if dev_ms is None else f"{dev_ms:.4f}"} (GEMM '
@@ -2791,8 +2829,9 @@ def fu_store_rows(gen, card_line):
     return rows
 
 
-def serve_int8(work, model_dir, per_forward, label):
-    """The predict CLI in int8 on phase 4's synthetic PNGs, batch 16: the
+def serve_int8(work, model_dir, per_forward, label, ckpt='best.ckpt'):
+    """The predict CLI in int8 on phase 4's synthetic PNGs (the model dir's
+    checkpoint `ckpt`), batch 16: the
     headline flags (calibrated on the first 2 images) and dynamic scales;
     sizes, known pixels bit-equal, the holes changed, and per_forward
     launches a generator forward (the calibration forwards included). The
@@ -2800,8 +2839,8 @@ def serve_int8(work, model_dir, per_forward, label):
     difference. Returns the headline run's launch counts."""
     indir = os.path.join(work, 'in')
     sizes = write_images(indir, np.random.RandomState(0))
-    common = [f'model.path={model_dir}', f'indir={indir}', 'device=cuda',
-              'batch_size=16']
+    common = [f'model.path={model_dir}', f'model.checkpoint={ckpt}',
+              f'indir={indir}', 'device=cuda', 'batch_size=16']
     run_predict(common + [f'outdir={work}/out_bf16', 'precision=bf16'])
     launches = None
     with counting_forwards() as forwards:
@@ -2952,6 +2991,114 @@ def int8_serving(work, gen_kwargs, sd, reg_kind, reg_kwargs, reg_sd,
     return rows
 
 
+# ------------------------------------------------- the multidilated family
+MD_CONFIG = 'ablv2_work_md'
+MD_KIND = 'pix2pixhd_multidilated'
+MD_STEPS = 4   # 2 timed after 2 warm-up
+# ablv2_work_md's generator (pix2pixhd_multidilated_catin_4dil_9b): per
+# forward the dilation-1 branch of each of its 18 MultidilatedConvs (cat_in:
+# 128 of the block's 512 channels -> 512) on kernel 3, its dilated branches
+# (2, 4, 8), the zero-padded downsamples and the ConvTranspose layers on
+# cuDNN, the stem on kernel 7 and the head on kernel 5; two generator
+# forwards a train step, and its pix2pixhd_nlayer D is zero-padded (cuDNN)
+MD_PER_FORWARD = dict({k: 0 for k in PER_FORWARD}, reflect_conv3x3_taps=18,
+                      halo_conv_reflect_tiled=1, reflect_out_conv7x7=1)
+MD_PER_TRAIN_STEP = {k: 2 * v for k, v in MD_PER_FORWARD.items()}
+# in int8 every branch (72), downsample (3) and ConvTranspose (3) quantizes
+MD_INT8_PER_FORWARD = dict({k: 0 for k in PER_FORWARD}, quantized_conv2d=78,
+                           halo_conv_reflect_tiled=1, reflect_out_conv7x7=1)
+# ffc_positions at reduced depth: big-lama-regular's GlobalGenerator with 6
+# ResnetBlocks (kernel 6, two convs each) and an inline FFCResnetBlock with
+# LFU before block 4: per FFC layer l2l on kernel 2, l2g and g2l on kernel
+# 3, the g2g FourierUnit and the LFU's on kernel 1
+FFC_POS_BLOCKS, FFC_POS = 6, [4]
+FFC_POS_PER_FORWARD = dict({k: 0 for k in PER_FORWARD},
+                           halo_conv3x3_reflect=2 * FFC_POS_BLOCKS,
+                           reflect_conv3x3_cols=2, reflect_conv3x3_taps=4,
+                           fused_fourier_unit=4, halo_conv_reflect_tiled=1,
+                           reflect_out_conv7x7=1)
+
+
+def ffc_positions_vs_plain(reg_kwargs):
+    """The reduced big-lama-regular with ffc_positions at 512^2 b2, fp32:
+    the kernels forward's launches (FFC_POS_PER_FORWARD) and its output
+    against kernels='plain' within GEN_ATOL. Returns the launches."""
+    import torch
+    from lama_tpu_torch.models import make_generator
+    kw = dict(reg_kwargs, n_blocks=FFC_POS_BLOCKS, ffc_positions=FFC_POS)
+    sd = random_state_dict(make_generator('pix2pixhd_global', **kw), seed=7)
+    gens = {}
+    for kernels in ('cuda', 'plain'):
+        g = make_generator('pix2pixhd_global', kernels=kernels, **kw)
+        g.load_state_dict(sd, strict=True)
+        gens[kernels] = g.cuda().eval().requires_grad_(False)
+    x = random_batch(2, 512, 5)
+    with torch.inference_mode():
+        fns = reset_counts()
+        out = gens['cuda'](x)
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in fns.items()}
+        ref = gens['plain'](x)
+    err = float((out - ref).abs().max())
+    log(f'generator big-lama-regular ffc_positions={FFC_POS} '
+        f'({FFC_POS_BLOCKS} blocks) 512^2 b2 fp32: kernels vs plain max|d| '
+        f'{err:.3e} (atol {GEN_ATOL}); launches {counts}')
+    check(counts == FFC_POS_PER_FORWARD,
+          f'ffc_positions launches {counts}, expected {FFC_POS_PER_FORWARD}')
+    check(out.shape == (2, 3, 512, 512) and bool(torch.isfinite(out).all())
+          and err <= GEN_ATOL, 'ffc_positions generator vs plain')
+    return counts
+
+
+def multidilated(work, reg_kwargs, card_line):
+    """Phase 17: `-cn ablv2_work_md` trained, its checkpoint served, the
+    generator against the plain path and timed; ffc_positions at reduced
+    depth. Returns the launch counts: the bf16 serve's and the train step's
+    by kernel, the int8 headline serve's, and the ffc_positions forward's."""
+    import torch
+    from lama_tpu_torch.convert import load_checkpoint
+    from lama_tpu_torch.serving import generator_config
+    t0 = time.perf_counter()
+    write_train_images(os.path.join(work, 'train_data'),
+                       TRAIN_BATCH * MD_STEPS, np.random.RandomState(7))
+    rec, trainer = train_run(work, 'bf16', MD_CONFIG, MD_STEPS,
+                             MD_PER_TRAIN_STEP, tag='_md')
+    image, mask = rec.pop('batch')
+    st = trainer.state
+    rec['profile'] = device_profile(
+        lambda: trainer.step_fn(st, image, mask),
+        f'phase 17 {MD_CONFIG} bf16 b{TRAIN_BATCH} step', top=12)
+    del trainer, st
+    torch.cuda.empty_cache()
+    secs = dict(train=time.perf_counter() - t0)
+    run_dir = rec['run_dir']
+    md_kwargs = generator_config(os.path.join(run_dir, 'config.yaml'))
+    check(md_kwargs.pop('kind') == MD_KIND, f'{MD_CONFIG}: generator kind')
+    launches = serve(os.path.join(work, 'serve'), run_dir, MD_PER_FORWARD,
+                     MD_CONFIG, batch=16, ckpt='last.ckpt')
+    int8_launches = serve_int8(os.path.join(work, 'int8'), run_dir,
+                               MD_INT8_PER_FORWARD, MD_CONFIG,
+                               ckpt='last.ckpt')
+    secs['serve'] = time.perf_counter() - t0 - sum(secs.values())
+    sd = load_checkpoint(os.path.join(run_dir, 'models', 'last.ckpt'))
+    gens = make_generators(md_kwargs, sd, MD_KIND)
+    generator_vs_plain(gens, MD_CONFIG)
+    throughput(gens, card_line, label=MD_CONFIG)
+    del gens
+    torch.cuda.empty_cache()
+    int8_throughput(MD_KIND, md_kwargs, sd, card_line, MD_CONFIG)
+    torch.cuda.empty_cache()
+    secs['generator'] = time.perf_counter() - t0 - sum(secs.values())
+    ffc_launches = ffc_positions_vs_plain(reg_kwargs)
+    torch.cuda.empty_cache()
+    log(f'phase 17: {time.perf_counter() - t0:.1f} s (' + ', '.join(
+        f'{k} {v:.1f}' for k, v in secs.items()) + f'); train '
+        f'{rec["ms_per_step"]:.1f} ms/step, peak {rec["peak_gib"]:.2f} GiB, '
+        f'idle {rec["profile"]["idle"]}')
+    return dict(serve=launches, train=rec['launches'], int8=int8_launches,
+                ffc_positions=ffc_launches)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3034,8 +3181,25 @@ def main():
 
     # phase 16: int8 serving
     with tempfile.TemporaryDirectory() as work:
-        rows += int8_serving(work, gen_kwargs, sd, reg_kind, reg_kwargs,
-                             reg_sd, card_line)
+        int8_rows_ = int8_serving(work, gen_kwargs, sd, reg_kind, reg_kwargs,
+                                  reg_sd, card_line)
+    torch.cuda.empty_cache()
+
+    # phase 17: the multidilated family and ffc_positions
+    with tempfile.TemporaryDirectory() as work:
+        md = multidilated(work, reg_kwargs, card_line)
+    for row in rows:
+        name = row['name']
+        row['md_launches'] = md['serve'][row['dtype']][name]
+        row['md_train_launches'] = md['train'][name]
+        row['ffc_positions_launches'] = md['ffc_positions'][name]
+        if row['role'] == 'md_branch_b16':   # its path is ablv2_work_md's
+            row['launches'] = row['md_launches']
+        if row['role'] == 'lfu_b16':         # ffc_positions'
+            row['launches'] = row['ffc_positions_launches']
+    for row in int8_rows_:
+        row['md_launches'] = md['int8'][row['name']]
+    rows += int8_rows_
     log(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

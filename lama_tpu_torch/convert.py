@@ -2,7 +2,7 @@
 lama_tpu/training/convert.py).
 
 `state_dict_from_flax` turns the JAX package's {'params', 'batch_stats'}
-tree of the FFC generator, the GlobalGenerator, the N-layer discriminator,
+tree of any generator or discriminator of lama_tpu/models,
 the ResNet encoder or a score net (the VGG16, AlexNet and SqueezeNet trunks,
 whose `features_N` map to torchvision's `features.N`; the FID InceptionV3,
 whose names are pytorch-fid's as they stand; the ADE20k segmenter, whose
@@ -18,7 +18,7 @@ collection, serving.py::calibrate_int8) onto the port's non-persistent
 `act_amax` buffers, beside the weights.
 """
 import re
-from typing import Any, Dict, Iterable, Sequence, Set, Tuple
+from typing import Any, Dict, Iterable, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -50,12 +50,22 @@ def transposed_conv_paths(n_downsampling: int, n_blocks: int) -> Set[str]:
 
 def transposed_conv_paths_global_generator(n_downsampling: int, n_blocks: int,
                                            extra_blocks: int = 0) -> Set[str]:
-    """Sequential entries of GlobalGenerator that are ConvTranspose2d; the
-    extra blocks are its dilated ResnetBlocks (copy of
+    """Sequential entries of GlobalGenerator and MultiDilatedGlobalGenerator
+    that are ConvTranspose2d; the extra blocks are the former's dilated
+    ResnetBlocks and either's FFC blocks (copy of
     lama_tpu/training/convert.py:58-63, with its caller's count of
-    :73-76)."""
+    :73-79)."""
     base = 4 + 3 * n_downsampling + n_blocks + extra_blocks
     return {f'model_{base + 3 * i}' for i in range(n_downsampling)}
+
+
+def transposed_conv_names(model: torch.nn.Module) -> Set[str]:
+    """The module names of a port model's ConvTranspose2d layers, e.g.
+    {'model.12', 'tails.0.model.5'}: `state_dict_from_flax(transposed=)`
+    for the models whose layout no count of blocks gives (config_global,
+    super_channels, the multiscale family, a multi-step generator)."""
+    return {name for name, m in model.named_modules()
+            if isinstance(m, torch.nn.ConvTranspose2d)}
 
 
 # the PPM branches: lama_tpu's 'ppm_0_1' splits as 'ppm_0.1'
@@ -72,37 +82,47 @@ def _flatten(tree: Dict, prefix=()) -> Iterable[Tuple[Tuple[str, ...], Any]]:
 
 def state_dict_from_flax(variables: Dict, n_downsampling: int = 0,
                          n_blocks: int = 0, kind: str = 'ffc_resnet',
-                         extra_blocks: int = 0) -> Dict[str, torch.Tensor]:
+                         extra_blocks: int = 0,
+                         transposed: Optional[Iterable[str]] = None
+                         ) -> Dict[str, torch.Tensor]:
     """{'params', 'batch_stats'} of a lama_tpu model (numpy or array
     leaves) -> the port's state_dict, float32 CPU tensors. For a generator
     give its n_downsampling and n_blocks, which place its ConvTranspose
-    layers, and its `kind` (ffc_resnet or pix2pixhd_global; for the latter
-    also `extra_blocks`, the sum of its dilated_blocks_n*); the
-    discriminator, the ResNet encoder and the VGG16, AlexNet and SqueezeNet
-    trunks have none (the defaults); the FID InceptionV3 is kind
-    'inception' and the ADE20k segmenter (either encoder, either decoder;
-    a depthwise kernel (3, 3, 1, C) becomes (C, 1, 3, 3) like any other)
-    kind 'segmentation'."""
-    if kind == 'pix2pixhd_global':
-        tconv = transposed_conv_paths_global_generator(
-            n_downsampling, n_blocks, extra_blocks)
+    layers, and its `kind` (ffc_resnet, pix2pixhd_global or
+    pix2pixhd_multidilated; for the latter two also `extra_blocks`, the sum
+    of the dilated_blocks_n* and the FFC blocks), or `transposed`, the
+    ConvTranspose layers' module names (`transposed_conv_names` of the
+    port's model), which then decides; the discriminators, the ResNet
+    encoder and the VGG16, AlexNet and SqueezeNet trunks have none (the
+    defaults); the FID InceptionV3 is kind 'inception' and the ADE20k
+    segmenter (either encoder, either decoder; a depthwise kernel
+    (3, 3, 1, C) becomes (C, 1, 3, 3) like any other) kind
+    'segmentation'."""
+    if transposed is not None:
+        tconv = set(transposed)
+    elif kind in ('pix2pixhd_global', 'pix2pixhd_multidilated'):
+        tconv = {p.replace('_', '.') for p in
+                 transposed_conv_paths_global_generator(
+                     n_downsampling, n_blocks, extra_blocks)}
     elif kind == 'ffc_resnet':
-        tconv = transposed_conv_paths(n_downsampling, n_blocks)
+        tconv = {p.replace('_', '.') for p in
+                 transposed_conv_paths(n_downsampling, n_blocks)}
     elif kind in ('inception', 'segmentation'):
         tconv = set()
     else:
         raise ValueError(f'kind={kind!r}: expected ffc_resnet, '
-                         'pix2pixhd_global, inception or segmentation')
+                         'pix2pixhd_global, pix2pixhd_multidilated, '
+                         'inception or segmentation')
     indexed = kind != 'inception'
     out: Dict[str, torch.Tensor] = {}
     for path, val in _flatten(dict(variables.get('params', {}))):
         *mpath, leaf = path
         v = np.asarray(val)
+        key = flax_path_to_torch_key(mpath, leaf, indexed)
         if leaf == 'kernel' and v.ndim == 4:
-            v = np.transpose(v, (2, 3, 0, 1) if mpath[0] in tconv
+            v = np.transpose(v, (2, 3, 0, 1) if key.rsplit('.', 1)[0] in tconv
                              else (3, 2, 0, 1))
-        out[flax_path_to_torch_key(mpath, leaf, indexed)] = torch.tensor(
-            v, dtype=torch.float32)
+        out[key] = torch.tensor(v, dtype=torch.float32)
     for path, val in _flatten(dict(variables.get('batch_stats', {}))):
         *mpath, leaf = path
         out[flax_path_to_torch_key(mpath, leaf, indexed)] = torch.tensor(

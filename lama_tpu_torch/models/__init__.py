@@ -1,8 +1,24 @@
-"""Model factories (counterpart of lama_tpu/models/__init__.py:14-42); the
-port has the FFC generator, the pix2pixHD GlobalGenerator, the pix2pixHD
-N-layer discriminator and the FFC N-layer discriminator."""
+"""Model factories (counterpart of lama_tpu/models/__init__.py:14-42), with
+every kind of lama_tpu's: the generators ffc_resnet (models/ffc.py),
+pix2pixhd_global and pix2pixhd_multidilated (models/pix2pixhd.py),
+config_global and super_channels (models/pix2pixhd_extra.py); the
+discriminators pix2pixhd_nlayer, pix2pixhd_nlayer_multidilated and
+ffc_nlayer. models/multiscale.py's family has no kind, as in lama_tpu."""
 from .ffc import FFCNLayerDiscriminator, FFCResNetGenerator
-from .pix2pixhd import GlobalGenerator, NLayerDiscriminator
+from .pix2pixhd import (GlobalGenerator, MultiDilatedGlobalGenerator,
+                        MultidilatedNLayerDiscriminator, NLayerDiscriminator)
+from .pix2pixhd_extra import (ConfigGlobalGenerator,
+                              GlobalGeneratorFromSuperChannels)
+
+GENERATORS = {'ffc_resnet': FFCResNetGenerator,
+              'pix2pixhd_global': GlobalGenerator,
+              'pix2pixhd_multidilated': MultiDilatedGlobalGenerator,
+              'config_global': ConfigGlobalGenerator,
+              'super_channels': GlobalGeneratorFromSuperChannels}
+DISCRIMINATORS = {'pix2pixhd_nlayer': NLayerDiscriminator,
+                  'pix2pixhd_nlayer_multidilated':
+                      MultidilatedNLayerDiscriminator,
+                  'ffc_nlayer': FFCNLayerDiscriminator}
 
 
 def make_generator(kind, serving_mode=None, **kwargs):
@@ -11,22 +27,16 @@ def make_generator(kind, serving_mode=None, **kwargs):
     `serving_mode`: an ops/serving_mode.py ServingMode attached to the
     module tree (lama_tpu/models/__init__.py:14-20); None is the all-off
     default of training and the reference numerics."""
+    if kind not in GENERATORS:
+        raise ValueError(f'Unknown generator kind {kind}')
     if serving_mode is not None:
         kwargs['mode'] = serving_mode
-    if kind == 'ffc_resnet':
-        return FFCResNetGenerator(**kwargs)
-    if kind == 'pix2pixhd_global':
-        return GlobalGenerator(**kwargs)
-    raise NotImplementedError(f'generator kind {kind!r} is not ported yet '
-                              '(ROADMAP queue 1 item 12)')
+    return GENERATORS[kind](**kwargs)
 
 
 def make_discriminator(kind, **kwargs):
     """`kind` from a config's `discriminator:` section; the rest are the
     discriminator's keyword arguments (plus `dtype` and `kernels`)."""
-    if kind == 'pix2pixhd_nlayer':
-        return NLayerDiscriminator(**kwargs)
-    if kind == 'ffc_nlayer':
-        return FFCNLayerDiscriminator(**kwargs)
-    raise NotImplementedError(f'discriminator kind {kind!r} is not ported '
-                              'yet (ROADMAP queue 1 item 12)')
+    if kind not in DISCRIMINATORS:
+        raise ValueError(f'Unknown discriminator kind {kind}')
+    return DISCRIMINATORS[kind](**kwargs)

@@ -23,9 +23,12 @@ conv and FourierUnit of the tree: under int8 the eligible convs quantize
 (the l2l, l2g and g2l convs, the SpectralTransform's two 1x1 convs, the
 downsamples and the ConvTranspose layers; lama_tpu/models/ffc.py:349-373),
 the FourierUnit's spectral conv never does (:300-306), and
-spectral_bf16_store reaches the FourierUnit. Options of the reference that
-big-lama does not use raise
-NotImplementedError naming the ROADMAP item that ports them.
+spectral_bf16_store reaches the FourierUnit. The SpectralTransform's LFU
+(`enable_lfu`) is a second FourierUnit on the kernel path as the first;
+the FFCResnetBlock's `inline` form is the pix2pixHD generators'
+`ffc_positions` block. Item 4's other options (ffc3d, spectral positional
+encoding, SE, spatial scaling, groups, the gated FFC, the learnable spatial
+transform, out_ffc) raise NotImplementedError naming the ROADMAP item.
 """
 from typing import Optional, Sequence
 
@@ -121,31 +124,52 @@ class FourierUnit(nn.Module):
 
 
 class SpectralTransform(nn.Module):
-    """Reference ffc.py:116-163: 1x1 conv + BN + ReLU, FourierUnit, residual,
-    1x1 conv. Keys: conv1.0, conv1.1, fu, conv2."""
+    """Reference ffc.py:116-163 (lama_tpu models/ffc.py:333-374): 1x1 conv
+    + BN + ReLU, FourierUnit, with `enable_lfu` the local Fourier unit (the
+    first quarter of the channels, its 2x2 spatial tiles stacked on the
+    channels, through a second FourierUnit, then tiled back 2x2), the
+    residual sum, 1x1 conv. Keys: conv1.0, conv1.1, fu, lfu, conv2."""
 
     def __init__(self, in_channels, out_channels, stride=1, groups=1,
                  enable_lfu=True, kernels='cuda', mode=DEFAULT_MODE,
                  **fu_kwargs):
         super().__init__()
-        if enable_lfu:
-            raise _unsupported('enable_lfu', enable_lfu)
         if groups != 1:
             raise _unsupported('groups', groups)
+        half = out_channels // 2
         self.downsample = (nn.AvgPool2d(kernel_size=2, stride=2)
                            if stride == 2 else nn.Identity())
         self.conv1 = nn.Sequential(
-            Conv2d(in_channels, out_channels // 2, 1, bias=False,
-                   kernels=kernels, mode=mode),
-            BatchNorm2d(out_channels // 2), nn.ReLU())
-        self.fu = FourierUnit(out_channels // 2, out_channels // 2,
-                              kernels=kernels, mode=mode, **fu_kwargs)
-        self.conv2 = Conv2d(out_channels // 2, out_channels, 1, bias=False,
+            Conv2d(in_channels, half, 1, bias=False, kernels=kernels,
+                   mode=mode),
+            BatchNorm2d(half), nn.ReLU())
+        self.fu = FourierUnit(half, half, kernels=kernels, mode=mode,
+                              **fu_kwargs)
+        # lama_tpu gives the LFU none of fu_kwargs (models/ffc.py:366)
+        self.lfu = (FourierUnit(4 * (half // 4), half, kernels=kernels,
+                                mode=mode) if enable_lfu else None)
+        self.conv2 = Conv2d(half, out_channels, 1, bias=False,
                             kernels=kernels, mode=mode)
+
+    def local_fourier(self, x):
+        """The LFU term: x[:, :c // 4], its top and bottom halves stacked
+        on the channels, then its left and right halves (lama_tpu's NHWC
+        split and concatenate order), through `lfu`, tiled 2x2. An odd side
+        does not split in two and raises, as lama_tpu's jnp.split does."""
+        h, w = x.shape[2:]
+        if h % 2 or w % 2:
+            raise ValueError(f'LFU needs even sides: {h}x{w}')
+        xs = x[:, :x.shape[1] // 4]
+        xs = torch.cat(torch.split(xs, h // 2, dim=2), dim=1)
+        xs = torch.cat(torch.split(xs, w // 2, dim=3), dim=1)
+        return self.lfu(xs).repeat(1, 1, 2, 2)
 
     def forward(self, x):
         x = self.conv1(self.downsample(x))
-        return self.conv2(x + self.fu(x))
+        out = x + self.fu(x)
+        if self.lfu is not None:
+            out = out + self.local_fourier(x)
+        return self.conv2(out)
 
 
 class FFC(nn.Module):
@@ -235,11 +259,15 @@ class FFC_BN_ACT(nn.Module):
 
 class FFCResnetBlock(nn.Module):
     """Two 3x3 FFC_BN_ACT with a residual on both streams (reference
-    ffc.py:258-292). Keys: conv1, conv2."""
+    ffc.py:258-292; lama_tpu models/ffc.py:557-603). Keys: conv1, conv2.
+    `inline` takes and returns one tensor, its last int(dim * ratio_gin)
+    channels the global stream, as the pix2pixHD generators'
+    `ffc_positions` blocks do."""
 
     def __init__(self, dim, padding_type='reflect', activation='relu',
                  dilation=1, ratio_gin=0.75, ratio_gout=0.75,
-                 enable_lfu=True, kernels='cuda', **spectral_kwargs):
+                 enable_lfu=True, inline=False, kernels='cuda',
+                 **spectral_kwargs):
         super().__init__()
         kw = dict(kernel_size=3, ratio_gin=ratio_gin, ratio_gout=ratio_gout,
                   padding=dilation, dilation=dilation, activation=activation,
@@ -247,8 +275,12 @@ class FFCResnetBlock(nn.Module):
                   kernels=kernels, **spectral_kwargs)
         self.conv1 = FFC_BN_ACT(dim, dim, **kw)
         self.conv2 = FFC_BN_ACT(dim, dim, **kw)
+        self.global_in = int(dim * ratio_gin) if inline else None
 
     def forward(self, x):
+        if self.global_in is not None:
+            g = self.global_in
+            x = (x[:, :-g], x[:, -g:]) if g else (x, None)
         id_l, id_g = x if isinstance(x, tuple) else (x, None)
         x_l, x_g = self.conv2(self.conv1((id_l, id_g)))
 
@@ -260,7 +292,10 @@ class FFCResnetBlock(nn.Module):
             # downsamples (reflect pad + stock conv) hand over NCHW
             return ident if y is None else y + ident
 
-        return residual(id_l, x_l), residual(id_g, x_g)
+        out = residual(id_l, x_l), residual(id_g, x_g)
+        if self.global_in is not None:
+            return ConcatTupleLayer()(out)
+        return out
 
 
 class ConcatTupleLayer(nn.Module):

@@ -105,7 +105,20 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     weight = weight.to(x.dtype)
     bias = None if bias is None else bias.to(x.dtype)
     if padding_mode != 'zeros' and padding != (0, 0):
+        # the pad returns NCHW whatever its input's layout. A dilated reflect
+        # conv (a multidilated branch) is summed with a kernel's
+        # channels-last output: its padded channels-last input (channel
+        # stride 1, as the generators hand over, or a channel slice of one)
+        # is made channels-last again, so cuDNN returns channels-last and the
+        # sum takes no strided pass (ablv2_work_md, bf16, b16 at 512^2 on an
+        # H100: 51.3 -> 39.6 device ms a forward, PERF.md). The undilated
+        # stock convs keep NCHW: with the extra copy big-lama's plain bf16
+        # forward ran 125 img/s where it runs 156.
+        channels_last = (_pair(dilation) != (1, 1) and x.stride(1) == 1
+                         and x.shape[1] > 1)
         x = pad2d(x, padding, mode=padding_mode)
+        if channels_last:
+            x = x.contiguous(memory_format=torch.channels_last)
         padding = (0, 0)
     return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
 

@@ -10,7 +10,8 @@ Hopper's int8 wgmma (m64nNk32, s8 x s8 -> s32, both operands staged in
 shared memory) with int32 sums and the dequantize epilogue (see the
 source's header). A conv is a list of phases (`conv_plan`,
 `conv_transpose_plan`), each a stride-s gather with its own taps: a
-Conv2d is one phase of kh * kw taps; a stride-2 ConvTranspose2d is four
+Conv2d is one phase of kh * kw taps (d apart when dilated: the
+multidilated branches); a stride-2 ConvTranspose2d is four
 phases, the output's row and column parities, of 1, 2, 2 and 4 taps over
 the undilated input. The weights are quantized per output channel and
 packed once per set of weights (`pack_weight`, cached by ops/conv.py's
@@ -44,7 +45,6 @@ MAX_TAPS = 9
 MAX_PHASES = 4
 BORDERS = {'zeros': 0, 'reflect': 1, 'replicate': 2}
 OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, 'acc': 2}
-LATER = 'ROADMAP queue 1 item 12'
 
 # one phase: output offset (oy0, ox0), grid (hg, wg), taps [(dy, dx, wtap)]
 Phase = namedtuple('Phase', 'oy0 ox0 hg wg taps')
@@ -69,21 +69,25 @@ def tile_n(co: int) -> int:
 
 def _refuse(what, shape):
     return NotImplementedError(
-        f'int8 conv kernel: {what} at input {tuple(shape)} is not ported yet '
-        f'({LATER}, with the multidilated family)')
+        f'int8 conv kernel: {what} at input {tuple(shape)}: the kernel takes '
+        f'ungrouped convs of at most {MAX_TAPS} taps and square strides (no '
+        f'int8-eligible layer of lama_tpu\'s models needs more)')
 
 
 def conv_plan(x_shape, weight_shape, stride=1, padding=0, dilation=1,
               groups=1, padding_mode='zeros', zero_pad=False) -> Plan:
     """The one phase of a Conv2d on an NCHW input of x_shape: tap (ky, kx)
-    reads (ho * s + ky - ph, wo * s + kx - pw) through the border (zeros
-    for a zero-padded conv or under zero_pad), weight slice ky * kw + kx.
-    Raises for what the kernel does not take."""
+    reads (ho * s + ky * dh - ph, wo * s + kx * dw - pw) through the border
+    (zeros for a zero-padded conv or under zero_pad), weight slice
+    ky * kw + kx. A reflect border folds once, so it needs each pad below
+    its side; the reads then stay within one fold at any dilation. Raises
+    for what the kernel does not take."""
     _, c, h, w = x_shape
     kh, kw = weight_shape[-2:]
     (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
-    if groups != 1 or _pair(dilation) != (1, 1):
-        raise _refuse(f'groups={groups}, dilation={dilation}', x_shape)
+    dh, dw = _pair(dilation)
+    if groups != 1:
+        raise _refuse(f'groups={groups}', x_shape)
     if sh != sw or kh * kw > MAX_TAPS:
         raise _refuse(f'kernel {kh}x{kw}, stride {stride}', x_shape)
     border = 'zeros' if zero_pad or not (ph or pw) else padding_mode
@@ -92,8 +96,9 @@ def conv_plan(x_shape, weight_shape, stride=1, padding=0, dilation=1,
     if border == 'reflect' and (ph >= h or pw >= w):
         raise ValueError(f'reflect padding {padding} needs H, W > pad: '
                          f'{tuple(x_shape)}')
-    ho, wo = (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw + 1
-    taps = [(ky - ph, kx - pw, ky * kw + kx) for ky in range(kh)
+    ho = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+    wo = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+    taps = [(ky * dh - ph, kx * dw - pw, ky * kw + kx) for ky in range(kh)
             for kx in range(kw)]
     return Plan([Phase(0, 0, ho, wo, taps)], sh, 1, BORDERS[border], ho, wo)
 

@@ -9,7 +9,7 @@ one); `--tree` given twice or more, e.g. a `git archive` of the parent
 commit unpacked into a git-ignored directory and `.`, times them in the
 order a, b, .., b, a, each in a fresh process that imports that tree's
 lama_tpu_torch (and so builds that tree's csrc/conv_int8.cu). In each, at
-the int8 convs of both generator families at the served batch 16 (CASES,
+the int8 convs of the three generator families at the served batch 16 (CASES,
 the shapes of chip_smoke.py's phase 16), on a bf16 channels-last input
 with a calibrated scale (its amax):
   * the int32 sums of the GEMM against the plain version (ops/quant.py,
@@ -46,42 +46,58 @@ else:
                                     print_ratios)
 
 BATCH = 16
-# (role, C, C_out, H = W, k, stride, padding mode, conv or transposed): the
-# int8 convs of big-lama (ngf 64, 3 downsamplings, 18 FFC blocks at 64^2)
-# and big-lama-regular at 512^2
-CASES = [('down1', 64, 128, 512, 3, 2, 'reflect', 'conv'),
-         ('down2', 128, 256, 256, 3, 2, 'reflect', 'conv'),
-         ('down3_l2l', 256, 128, 128, 3, 2, 'reflect', 'conv'),
-         ('down3_l2g', 256, 384, 128, 3, 2, 'reflect', 'conv'),
-         ('l2l', 128, 128, 64, 3, 1, 'reflect', 'conv'),
-         ('l2g', 128, 384, 64, 3, 1, 'reflect', 'conv'),
-         ('g2l', 384, 128, 64, 3, 1, 'reflect', 'conv'),
-         ('st_1x1_in', 384, 192, 64, 1, 1, 'zeros', 'conv'),
-         ('st_1x1_out', 192, 384, 64, 1, 1, 'zeros', 'conv'),
-         ('convt1', 512, 256, 64, 3, 2, 'zeros', 'transposed'),
-         ('convt2', 256, 128, 128, 3, 2, 'zeros', 'transposed'),
-         ('convt3', 128, 64, 256, 3, 2, 'zeros', 'transposed'),
-         ('regular_block', 512, 512, 64, 3, 1, 'reflect', 'conv'),
-         ('regular_down1', 64, 128, 512, 3, 2, 'zeros', 'conv'),
-         ('regular_down2', 128, 256, 256, 3, 2, 'zeros', 'conv'),
-         ('regular_down3', 256, 512, 128, 3, 2, 'zeros', 'conv')]
+# (role, C, C_out, H = W, k, stride, padding mode, conv or transposed,
+# dilation): the int8 convs of big-lama (ngf 64, 3 downsamplings, 18 FFC
+# blocks at 64^2), big-lama-regular and ablv2_work_md's multidilated
+# generator (9 blocks of two cat_in convs, each four 128 -> 512 branches at
+# dilations 1, 2, 4, 8; the md_*_zp rows are the same under
+# quant_zero_pad, whose reflect border reads as zeros) at 512^2, and a
+# dilated GlobalGenerator block conv (dilated_blocks_n)
+CASES = [('down1', 64, 128, 512, 3, 2, 'reflect', 'conv', 1),
+         ('down2', 128, 256, 256, 3, 2, 'reflect', 'conv', 1),
+         ('down3_l2l', 256, 128, 128, 3, 2, 'reflect', 'conv', 1),
+         ('down3_l2g', 256, 384, 128, 3, 2, 'reflect', 'conv', 1),
+         ('l2l', 128, 128, 64, 3, 1, 'reflect', 'conv', 1),
+         ('l2g', 128, 384, 64, 3, 1, 'reflect', 'conv', 1),
+         ('g2l', 384, 128, 64, 3, 1, 'reflect', 'conv', 1),
+         ('st_1x1_in', 384, 192, 64, 1, 1, 'zeros', 'conv', 1),
+         ('st_1x1_out', 192, 384, 64, 1, 1, 'zeros', 'conv', 1),
+         ('convt1', 512, 256, 64, 3, 2, 'zeros', 'transposed', 1),
+         ('convt2', 256, 128, 128, 3, 2, 'zeros', 'transposed', 1),
+         ('convt3', 128, 64, 256, 3, 2, 'zeros', 'transposed', 1),
+         ('regular_block', 512, 512, 64, 3, 1, 'reflect', 'conv', 1),
+         ('regular_down1', 64, 128, 512, 3, 2, 'zeros', 'conv', 1),
+         ('regular_down2', 128, 256, 256, 3, 2, 'zeros', 'conv', 1),
+         ('regular_down3', 256, 512, 128, 3, 2, 'zeros', 'conv', 1),
+         ('md_d1', 128, 512, 64, 3, 1, 'reflect', 'conv', 1),
+         ('md_d2', 128, 512, 64, 3, 1, 'reflect', 'conv', 2),
+         ('md_d4', 128, 512, 64, 3, 1, 'reflect', 'conv', 4),
+         ('md_d8', 128, 512, 64, 3, 1, 'reflect', 'conv', 8),
+         ('md_d2_zp', 128, 512, 64, 3, 1, 'zeros', 'conv', 2),
+         ('md_d4_zp', 128, 512, 64, 3, 1, 'zeros', 'conv', 4),
+         ('md_d8_zp', 128, 512, 64, 3, 1, 'zeros', 'conv', 8),
+         ('regular_block_d2', 512, 512, 64, 3, 1, 'reflect', 'conv', 2)]
 # launches of each shape in one served forward (big-lama: 187 int8 convs,
-# 36 of each FFC conv and SpectralTransform 1x1; big-lama-regular: 42)
+# 36 of each FFC conv and SpectralTransform 1x1; big-lama-regular: 42;
+# ablv2_work_md: 78, 18 of each branch)
 LAUNCHES = {
     'big-lama': dict(down1=1, down2=1, down3_l2l=1, down3_l2g=1, l2l=36,
                      l2g=36, g2l=36, st_1x1_in=36, st_1x1_out=36, convt1=1,
                      convt2=1, convt3=1),
     'big-lama-regular': dict(regular_block=36, regular_down1=1,
                              regular_down2=1, regular_down3=1, convt1=1,
-                             convt2=1, convt3=1)}
+                             convt2=1, convt3=1),
+    'ablv2_work_md': dict(md_d1=18, md_d2=18, md_d4=18, md_d8=18,
+                          regular_down1=1, regular_down2=1, regular_down3=1,
+                          convt1=1, convt2=1, convt3=1)}
 INT8_OPS = 1979e12   # H100 SXM dense int8 tensor-core OP/s
 HBM_BPS = 3.35e12    # H100 SXM HBM3 bytes/s
 
 
-def plan_of(ci, x_shape, w_shape, k, stride, mode, kind):
+def plan_of(ci, x_shape, w_shape, k, stride, mode, kind, d=1):
     if kind == 'transposed':
         return ci.conv_transpose_plan(x_shape, w_shape)
-    return ci.conv_plan(x_shape, w_shape, stride, k // 2, 1, 1, mode)
+    return ci.conv_plan(x_shape, w_shape, stride, d * (k // 2), d, 1, mode)
 
 
 def gemm_bound(xq, packed, plan, c, co):
@@ -104,7 +120,7 @@ def _worker(tree, shapes):
     from lama_tpu_torch.ops.kernels import conv_int8 as ci
     gen = torch.Generator(device='cuda').manual_seed(0)
     rows = []
-    for role, c, co, h, k, stride, mode, kind in CASES:
+    for role, c, co, h, k, stride, mode, kind, d in CASES:
         if role not in shapes:
             continue
         tr = kind == 'transposed'
@@ -113,7 +129,7 @@ def _worker(tree, shapes):
         shape = (c, co, k, k) if tr else (co, c, k, k)
         wt = ((torch.rand(*shape, generator=gen, device='cuda') * 2 - 1)
               * (c * k * k) ** -0.5)
-        plan = plan_of(ci, x.shape, wt.shape, k, stride, mode, kind)
+        plan = plan_of(ci, x.shape, wt.shape, k, stride, mode, kind, d)
         amax = x.float().abs().amax()
         with torch.no_grad():
             packed, s_w = ci.pack_weight(wt, tr)
@@ -123,7 +139,8 @@ def _worker(tree, shapes):
             wq, _ = quant.quantize_weight(wt, tr)
             codes = quant.quantize(x, quant.act_scale(x, amax))
             ref = (quant.conv_transpose2d_acc(codes, wq) if tr else
-                   quant.conv2d_acc(codes, wq, stride, k // 2, 1, 1, mode))
+                   quant.conv2d_acc(codes, wq, stride, d * (k // 2), d, 1,
+                                    mode))
             torch.cuda.synchronize()
             equal = bool(torch.equal(acc, ref))
             del acc, ref, codes
@@ -138,8 +155,8 @@ def _worker(tree, shapes):
                                                   packed=(packed, s_w))
             else:
                 def wrapper():
-                    ci.quantized_conv2d(x, wt, None, stride, k // 2, 1, 1,
-                                        mode, act_amax=amax,
+                    ci.quantized_conv2d(x, wt, None, stride, d * (k // 2),
+                                        d, 1, mode, act_amax=amax,
                                         packed=(packed, s_w))
             # the same GEMM as one library call a phase, timed only
             cp = xq.shape[-1]
@@ -158,6 +175,7 @@ def _worker(tree, shapes):
             b_ms, b_by = gemm_bound(xq, packed, plan, c, co)
             rows.append(dict(
                 role=role, shape=[BATCH, c, h, h], c_out=co, kind=kind,
+                dilation=d,
                 phases=len(plan.phases), acc_bit_equal=equal,
                 gemm_ms=events_ms(gemm), gemm_dev_ms=device_ms(gemm),
                 wrapper_ms=events_ms(wrapper),

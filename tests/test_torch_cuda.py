@@ -68,6 +68,10 @@ def _close(out, ref, dtype):
     ('reflect_conv3x3_taps', 384, 128, 9, 8, 3, True, 1),
     ('reflect_conv3x3_taps', 256, 512, 20, 30, 3, False, 2),
     ('reflect_conv3x3_taps', 128, 384, 64, 64, 3, False, 16),
+    # the multidilated generator's dilation-1 branch (ablv2_work_md: cat_in,
+    # 128 of the block's 512 channels -> 512), at 16^2 and the served b16
+    ('reflect_conv3x3_taps', 128, 512, 16, 16, 3, True, 2),
+    ('reflect_conv3x3_taps', 128, 512, 64, 64, 3, True, 16),
     # bf16 cols and down on the wgmma kernel (down: its stride-2 form, 16x16
     # output tiles, 16-channel chunks): output sides that are not multiples
     # of 16 (20x35), C = 64 (four chunks), C = 256 -> 384 (three N tiles,
@@ -503,6 +507,9 @@ def _fourier_unit_case(device, b, c, co, h, w):
                                         (1, 16, 16, 128, 128),
                                         # the served batch
                                         (16, 192, 192, 64, 64),
+                                        # the LFU unit of an ffc_positions
+                                        # block at the served batch
+                                        (16, 192, 192, 32, 32),
                                         # C % 4 != 0: 4-byte copies (fp32)
                                         # and element loads (bf16)
                                         (2, 6, 10, 13, 11),
@@ -688,6 +695,63 @@ def test_global_generator_kernels_match_plain(device):
         out = ours.to(device)(x.to(device))
     after = [fn.launches for fn in fns]
     assert [a - b for a, b in zip(after, before)] == [0, 0, 0, 1, 0, 1, 2]
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_multidilated_generator_kernels_match_plain(device, dtype):
+    """configs/training/ablv2_work_md.yaml's generator at its widths (ngf
+    64, 3 downsamplings, cat_in over dilations 1, 2, 4, 8: 128 -> 512 a
+    branch), one block: the dilation-1 branches on kernel 3 (2), the stem
+    and the head on kernels 7 and 5, the dilated branches, downsamples and
+    ConvTranspose layers on cuDNN; fp32 within 1e-4 of the plain
+    generator, bf16 within the kernels' 2e-2 of the fp32 plain one."""
+    from lama_tpu_torch.models import make_generator
+    from lama_tpu_torch.ops.kernels import halo_conv as hc
+    kw = dict(input_nc=4, output_nc=3, ngf=64, n_downsampling=3, n_blocks=1,
+              add_out_act='sigmoid',
+              multidilation_kwargs=dict(comb_mode='cat_in', dilation_num=4))
+    plain = make_generator('pix2pixhd_multidilated', kernels='plain',
+                           **kw).eval()
+    ours = make_generator('pix2pixhd_multidilated', dtype=dtype, **kw).eval()
+    ours.load_state_dict(plain.state_dict())
+    x = torch.rand(2, 4, 128, 128, generator=torch.Generator().manual_seed(2))
+    fns = (rc.reflect_conv3x3_cols, rc.reflect_conv3x3_taps,
+           fu.fused_fourier_unit, rc.reflect_out_conv7x7,
+           rc.reflect_down_conv3x3, hc.halo_conv_reflect_tiled,
+           hc.halo_conv3x3_reflect)
+    before = [fn.launches for fn in fns]
+    with torch.inference_mode():
+        ref = plain.to(device)(x.to(device))
+        out = ours.to(device)(x.to(device))
+    after = [fn.launches for fn in fns]
+    assert [a - b for a, b in zip(after, before)] == [0, 2, 0, 1, 0, 1, 0]
+    _close(out, ref, dtype)
+
+
+def test_ffc_positions_generator_kernels_match_plain(device):
+    """A GlobalGenerator with an inline FFC block (LFU on) before its one
+    ResnetBlock, at the family's widths: l2l on kernel 2, l2g and g2l on
+    kernel 3, the g2g FourierUnit and the LFU's on kernel 1, the
+    ResnetBlock on kernel 6, fp32 against the plain generator."""
+    from lama_tpu_torch.models import make_generator
+    from lama_tpu_torch.ops.kernels import halo_conv as hc
+    kw = dict(input_nc=4, output_nc=3, ngf=64, n_downsampling=3, n_blocks=1,
+              add_out_act='sigmoid', ffc_positions=[0])
+    plain = make_generator('pix2pixhd_global', kernels='plain', **kw).eval()
+    ours = make_generator('pix2pixhd_global', **kw).eval()
+    ours.load_state_dict(plain.state_dict())
+    x = torch.rand(2, 4, 128, 128, generator=torch.Generator().manual_seed(3))
+    fns = (rc.reflect_conv3x3_cols, rc.reflect_conv3x3_taps,
+           fu.fused_fourier_unit, rc.reflect_out_conv7x7,
+           rc.reflect_down_conv3x3, hc.halo_conv_reflect_tiled,
+           hc.halo_conv3x3_reflect)
+    before = [fn.launches for fn in fns]
+    with torch.inference_mode():
+        ref = plain.to(device)(x.to(device))
+        out = ours.to(device)(x.to(device))
+    after = [fn.launches for fn in fns]
+    assert [a - b for a, b in zip(after, before)] == [2, 4, 4, 1, 0, 1, 2]
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
 
 
@@ -969,14 +1033,44 @@ def test_int8_conv_transpose_kernel(device, dtype, b, c, co, h, w, stride,
     assert float((out.float() - ref.float()).abs().max()) <= 1e-6 * scale
 
 
-def test_int8_conv_refuses_gradients_and_dilation(device):
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_int8_conv_refuses_gradients_and_dilation(device, dtype):
+    """A gradient is refused; a dilated conv (the multidilated branches'
+    128 -> 512 at dilations 2, 4 and 8, reflect, zero and zero_pad borders,
+    and stride 2 at dilation 2) runs, its int32 sums bit-equal to the
+    plain version's."""
+    from lama_tpu_torch.ops import quant
     from lama_tpu_torch.ops.kernels import conv_int8 as ci
     x, weight, _ = _int8_case(device, 1, 64, 64, 8, 8, 3, torch.float32,
                               True, False)
     with pytest.raises(RuntimeError, match='gradient'):
         ci.quantized_conv2d(x, weight.requires_grad_(), None, 1, 1)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match='item 12'):
-        ci.quantized_conv2d(x, weight, None, 1, 2, dilation=2)
+    for d, stride, mode, zero_pad in ((2, 1, 'reflect', False),
+                                      (4, 1, 'reflect', False),
+                                      (8, 1, 'reflect', False),
+                                      (8, 1, 'reflect', True),
+                                      (8, 1, 'zeros', False),
+                                      (2, 2, 'reflect', False)):
+        x, weight, bias = _int8_case(device, 2, 128, 512, 16, 16, 3, dtype,
+                                     True, False, seed=d + stride)
+        plan = ci.conv_plan(x.shape, weight.shape, stride, d, d, 1, mode,
+                            zero_pad)
+        packed, s_w = ci.pack_weight(weight)
+        xq, amax = ci.quantize_activation(x)
+        acc = ci.conv_codes(xq, amax, packed, s_w, None, plan, 512, 'acc')
+        wq, _ = quant.quantize_weight(weight)
+        ref_acc = quant.conv2d_acc(quant.quantize(x, quant.act_scale(x)), wq,
+                                   stride, d, d, 1, mode, zero_pad)
+        torch.cuda.synchronize()
+        assert torch.equal(acc, ref_acc), (d, stride, mode, zero_pad)
+        with torch.no_grad():
+            out = ci.quantized_conv2d(x, weight, bias, stride, d, d, 1, mode,
+                                      zero_pad=zero_pad)
+            ref = quant.quantized_conv2d(x, weight, bias, stride, d, d, 1,
+                                         mode, zero_pad=zero_pad)
+        torch.cuda.synchronize()
+        scale = float(ref.float().abs().max())
+        assert float((out.float() - ref.float()).abs().max()) <= 1e-6 * scale
 
 
 @pytest.mark.parametrize('b,c,co,h,w', [(2, 192, 192, 16, 16),
@@ -1005,12 +1099,14 @@ def test_fourier_unit_store_bf16_kernel(device, b, c, co, h, w):
                        fu.fused_fourier_unit(x, *args))
 
 
-@pytest.mark.parametrize('kind', ['ffc_resnet', 'pix2pixhd_global'])
+@pytest.mark.parametrize('kind', ['ffc_resnet', 'pix2pixhd_global',
+                                  'pix2pixhd_multidilated'])
 def test_int8_generator_kernels_match_plain(device, kind):
     """An int8 generator at the families' widths (ngf 64, 3
     downsamplings), one block, fp32 compute: every eligible conv on the
     int8 kernel (FFC: 4 downsamples, 3 x 2 FFC convs, 2 x 2 1x1 convs, 3
-    ConvTranspose = 17; GlobalGenerator: 3 + 2 + 3 = 8), the reflect-conv
+    ConvTranspose = 17; GlobalGenerator: 3 + 2 + 3 = 8; multidilated (cat_in,
+    dilations 1-8): 3 + 8 + 3 = 14), the reflect-conv
     kernels 2, 3, 4 and 6 idle, against the int8 plain generator within
     1e-2 (sigmoid output; a code may round the other way where the
     non-int8 kernels' sums differ from the plain ones in the last bit)."""
@@ -1027,6 +1123,8 @@ def test_int8_generator_kernels_match_plain(device, kind):
                                               enable_lfu=False),
                   resnet_conv_kwargs=dict(ratio_gin=0.75, ratio_gout=0.75,
                                           enable_lfu=False))
+    if kind == 'pix2pixhd_multidilated':
+        kw['multidilation_kwargs'] = dict(comb_mode='cat_in', dilation_num=4)
     plain = make_generator(kind, kernels='plain', **kw).eval()
     ours = make_generator(kind, **kw).eval()
     ours.load_state_dict(plain.state_dict())
@@ -1040,7 +1138,8 @@ def test_int8_generator_kernels_match_plain(device, kind):
         ref = plain.to(device)(x.to(device))
         out = ours.to(device)(x.to(device))
     after = [fn.launches for fn in fns]
-    want = ([17, 0, 0, 0, 0, 2, 1, 1] if kind == 'ffc_resnet'
-            else [8, 0, 0, 0, 0, 0, 1, 1])
+    want = {'ffc_resnet': [17, 0, 0, 0, 0, 2, 1, 1],
+            'pix2pixhd_global': [8, 0, 0, 0, 0, 0, 1, 1],
+            'pix2pixhd_multidilated': [14, 0, 0, 0, 0, 0, 1, 1]}[kind]
     assert [a - b for a, b in zip(after, before)] == want
     assert float((out - ref).abs().max()) <= 1e-2

@@ -110,16 +110,29 @@ def test_fourier_unit_planar_cache_follows_weights():
     dict(spectral_kwargs=dict(spatial_scale_factor=0.5)),
 ])
 def test_unported_options_raise(kwargs):
+    """Item 4's options raise, but for LFU, which is ported: its generator
+    builds with an `lfu` unit in each block's SpectralTransform
+    (tests/test_torch_pix2pixhd_extra.py holds it to lama_tpu)."""
     kw = dict(GEN_KW, **kwargs)
+    if kw['resnet_conv_kwargs']['enable_lfu']:
+        g = make_generator('ffc_resnet', **kw)
+        assert g.model[5].conv1.ffc.convg2g.lfu is not None
+        return
     with pytest.raises(NotImplementedError):
         make_generator('ffc_resnet', **kw)
 
 
 def test_gated_ffc_raises():
+    """The gated FFC is still refused; the multidilated generator, once
+    refused beside it, builds, and an unknown kind raises as lama_tpu's
+    factory does."""
+    from lama_tpu_torch.models import MultiDilatedGlobalGenerator
     with pytest.raises(NotImplementedError):
         ffc.FFC(8, 8, 3, 0.5, 0.5, padding=1, gated=True, enable_lfu=False)
-    with pytest.raises(NotImplementedError):
-        make_generator('pix2pixhd_multidilated')
+    assert isinstance(make_generator('pix2pixhd_multidilated'),
+                      MultiDilatedGlobalGenerator)
+    with pytest.raises(ValueError, match='Unknown generator kind'):
+        make_generator('no_such_kind')
 
 
 def test_train_mode_raises(jax_model):

@@ -265,6 +265,32 @@ def test_int8_plan_replay_matches_plain(b, c, co, h, w, k, stride, mode,
     assert torch.equal(_replay(xq, packed, plan, co), ref.long())
 
 
+@pytest.mark.parametrize('c,co,h,w,stride,d,mode,zero_pad', [
+    (40, 72, 12, 11, 1, 2, 'reflect', False),
+    (32, 48, 12, 10, 1, 8, 'reflect', False),
+    (32, 48, 12, 10, 1, 8, 'reflect', True),
+    (24, 40, 11, 9, 1, 2, 'zeros', False),
+    (24, 40, 13, 12, 1, 8, 'zeros', False),
+    (64, 40, 12, 9, 2, 2, 'reflect', False),
+    (24, 16, 9, 7, 1, 4, 'replicate', False)])
+def test_int8_dilated_plan_replay_matches_plain(c, co, h, w, stride, d, mode,
+                                                zero_pad):
+    """The multidilated branches' convs (3x3, pad = dilation): the plan
+    replayed in numpy equals the exact plain sums at dilations 2, 4 and 8,
+    with reflect, zero and replicate borders, zero_pad and stride 2."""
+    g = torch.Generator().manual_seed(c + co + d)
+    x = torch.rand(2, c, h, w, generator=g) * 2 - 1
+    weight = torch.rand(co, c, 3, 3, generator=g) - 0.5
+    xq = quant.quantize(x, quant.act_scale(x))
+    packed, _ = ci.pack_weight(weight)
+    wq, _ = quant.quantize_weight(weight)
+    plan = ci.conv_plan(x.shape, weight.shape, stride, d, d, 1, mode,
+                        zero_pad)
+    ref = quant.conv2d_acc(xq, wq, stride, d, d, 1, mode, zero_pad)
+    assert (plan.ho, plan.wo) == tuple(ref.shape[2:])
+    assert torch.equal(_replay(xq, packed, plan, co), ref.long())
+
+
 @pytest.mark.parametrize('stride,padding,output_padding,taps', [
     (2, 1, 1, [1, 2, 2, 4]), (2, 0, 0, [4, 2, 2, 1]), (1, 1, 0, [9])])
 def test_int8_transposed_phases_replay_matches_plain(stride, padding,
@@ -287,12 +313,22 @@ def test_int8_transposed_phases_replay_matches_plain(stride, padding,
 
 
 def test_int8_plan_refuses_what_the_kernel_does_not_take():
+    """Grouped convs and more than 9 taps stay refused; a dilated conv is
+    planned (its taps d apart, the output size of torch's formula), and a
+    reflect pad must stay below the side at any dilation."""
     shape = (1, 64, 8, 8)
-    for kwargs in (dict(dilation=2), dict(groups=2)):
-        with pytest.raises(NotImplementedError, match='item 12'):
-            ci.conv_plan(shape, (64, 64, 3, 3), 1, 1, **kwargs)
-    with pytest.raises(NotImplementedError, match='item 12'):
+    with pytest.raises(NotImplementedError, match='ungrouped'):
+        ci.conv_plan(shape, (64, 64, 3, 3), 1, 1, groups=2)
+    with pytest.raises(NotImplementedError, match='ungrouped'):
         ci.conv_plan(shape, (64, 64, 5, 5), 1, 2)
+    plan = ci.conv_plan(shape, (64, 64, 3, 3), 1, 2, dilation=2,
+                        padding_mode='reflect')
+    assert (plan.ho, plan.wo) == (8, 8)
+    assert [t[:2] for t in plan.phases[0].taps][:3] == [(-2, -2), (-2, 0),
+                                                        (-2, 2)]
+    with pytest.raises(ValueError, match='reflect padding'):
+        ci.conv_plan(shape, (64, 64, 3, 3), 1, 8, dilation=8,
+                     padding_mode='reflect')
     assert ci.tile_n(192) == 192 and ci.tile_n(384) == 192
     assert ci.tile_n(64) == 64 and ci.tile_n(512) == 128
     assert ci.tile_n(128) == 128 and ci.tile_n(288) == 64
@@ -358,6 +394,13 @@ FFC_KW = dict(input_nc=4, output_nc=3, ngf=16, n_downsampling=2, n_blocks=1,
                                       enable_lfu=False))
 GG_KW = dict(input_nc=4, output_nc=3, ngf=8, n_downsampling=2, n_blocks=1,
              add_out_act='sigmoid')
+# configs/training/ablv2_work_md.yaml's blocks (cat_in, dilations 1, 2, 4,
+# 8) at 48^2: the 12^2 bottleneck keeps the dilation-8 reflect pad of 8
+# below its side
+MD_KW = dict(GG_KW, multidilation_kwargs=dict(comb_mode='cat_in',
+                                                      dilation_num=4))
+FAMILIES = {'ffc_resnet': (FFC_KW, 32), 'pix2pixhd_global': (GG_KW, 32),
+            'pix2pixhd_multidilated': (MD_KW, 48)}
 
 
 def _inputs(seed=0, size=32):
@@ -375,17 +418,17 @@ def _apply(module, variables, x):
         variables, jnp.asarray(x)))
 
 
-@pytest.fixture(scope='module', params=['ffc_resnet', 'pix2pixhd_global'])
+@pytest.fixture(scope='module', params=sorted(FAMILIES))
 def family(request):
     """lama_tpu's generator of one family in int8 (lowered gates) and its
     variables, the port's in int8 with those weights, an input, and the
     int8-vs-fp32 difference of lama_tpu's output on it."""
     from lama_tpu.models import make_generator as jax_make
     kind = request.param
-    kw = FFC_KW if kind == 'ffc_resnet' else GG_KW
+    kw, size = FAMILIES[kind]
     jmode = JaxMode(int8=True, **GATES)
     jgen = jax_make(kind, serving_mode=jmode, **kw)
-    img, mask, x = _inputs()
+    img, mask, x = _inputs(size=size)
     variables = jax_init(jgen, x, seed=3)
     fp32 = _apply(jax_make(kind, **kw), variables, x)
     ref = _apply(jgen, variables, x)
@@ -397,7 +440,8 @@ def family(request):
         g.load_state_dict(sd, strict=True)
         return g.eval()
 
-    return types.SimpleNamespace(kind=kind, kw=kw, jgen=jgen, jmode=jmode,
+    return types.SimpleNamespace(kind=kind, kw=kw, size=size, jgen=jgen,
+                                 jmode=jmode,
                                  variables=variables, img=img, mask=mask,
                                  x=x, ref=ref, int8_vs_fp32=float(
                                      np.abs(ref - fp32).max()), port=port)
@@ -447,7 +491,7 @@ def test_calibration_matches_lama_tpu(family):
     set_act_amax(served, stats)
     # with the calibration input, one that saturates where it exceeds the
     # stats (static scales: each image's output is its own in a batch)
-    both = np.concatenate([family.x, _inputs(seed=1)[2]])
+    both = np.concatenate([family.x, _inputs(seed=1, size=family.size)[2]])
     np.testing.assert_allclose(_run(served, both),
                                _apply(family.jgen, calibrated, both), rtol=0,
                                atol=GEN_ATOL)

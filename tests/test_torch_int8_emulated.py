@@ -202,6 +202,43 @@ def test_conv_source_on_the_host_matches_plain(lib, b, c, h, w, co, k, stride,
         x, quant.act_scale(x, amax_static)).permute(0, 2, 3, 1))
 
 
+# the multidilated branches' convs, 3x3 with pad = dilation: (b, c, h, w,
+# co, stride, dilation, padding mode, zero_pad, dtype); the reflect pad of 8
+# stays below the side
+DILATED_CASES = [
+    (1, 64, 9, 10, 72, 1, 2, 'reflect', False, torch.bfloat16),
+    (2, 32, 10, 9, 48, 1, 8, 'reflect', False, torch.float32),
+    (1, 64, 9, 10, 72, 1, 2, 'zeros', False, torch.float32),
+    (1, 32, 10, 11, 150, 1, 8, 'zeros', False, torch.bfloat16),
+    (1, 64, 9, 10, 64, 1, 2, 'reflect', True, torch.bfloat16),
+    (1, 32, 10, 9, 48, 1, 8, 'reflect', True, torch.float32),
+    (1, 64, 11, 10, 72, 2, 2, 'reflect', False, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize('b,c,h,w,co,stride,d,mode,zero_pad,dtype',
+                         DILATED_CASES)
+def test_dilated_conv_source_on_the_host_matches_plain(lib, b, c, h, w, co,
+                                                       stride, d, mode,
+                                                       zero_pad, dtype):
+    """Dilations 2 and 8 with reflect, zero and zero_pad borders, and
+    stride 2 with dilation 2: the int32 sums bit-equal to the plain
+    version's, the outputs equal."""
+    x, weight, bias = _inputs(b + c + d, b, c, h, w, co, 3, dtype, True)
+    xq, amax = host_quantize(lib, x)
+    codes = quant.quantize(x, quant.act_scale(x))
+    plan = ci.conv_plan(x.shape, weight.shape, stride, d, d, 1, mode,
+                        zero_pad)
+    acc = host_conv(lib, xq, amax, weight, None, plan, co, torch.int32)
+    wq, _ = quant.quantize_weight(weight)
+    ref = quant.conv2d_acc(codes, wq, stride, d, d, 1, mode, zero_pad)
+    assert acc.shape == ref.shape and torch.equal(acc, ref)
+    out = host_conv(lib, xq, amax, weight, bias, plan, co, dtype)
+    assert torch.equal(out, quant.quantized_conv2d(
+        x, weight, bias, stride, d, d, 1, mode, out_dtype=dtype,
+        zero_pad=zero_pad))
+
+
 @pytest.mark.parametrize('stride,padding,output_padding,taps', [
     (2, 1, 1, [1, 2, 2, 4]), (2, 0, 0, [4, 2, 2, 1]), (1, 1, 0, [9])])
 def test_conv_transpose_source_on_the_host_matches_plain(

@@ -228,8 +228,26 @@ def test_global_generator_routes_its_reflect_convs_to_the_kernels(monkeypatch):
                                     dict(is_resblock_depthwise=True),
                                     dict(conv_kind='depthwise')])
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match='item 12'):
-        make_generator('pix2pixhd_global', **GEN_KW, **kwargs)
+    """These options were refused until the rest of the model zoo was
+    ported; now each builds the blocks it names (an inline FFCResnetBlock
+    with LFU before block 0, a depthwise second conv in every plain block,
+    DepthWiseSeparableConv block convs) and runs. tests/
+    test_torch_pix2pixhd_extra.py holds each to lama_tpu."""
+    from lama_tpu_torch.models.ffc import FFCResnetBlock
+    from lama_tpu_torch.models.pix2pixhd import DepthWiseSeparableConv
+    g = make_generator('pix2pixhd_global', **GEN_KW, **kwargs).eval()
+    blocks = [m for m in g.model if isinstance(m, (ResnetBlock,
+                                                   FFCResnetBlock))]
+    if 'ffc_positions' in kwargs:
+        assert isinstance(blocks[0], FFCResnetBlock)
+        assert blocks[0].conv1.ffc.convg2g.lfu is not None
+    elif 'is_resblock_depthwise' in kwargs:
+        assert all(b.conv_block[5].groups == 32 for b in blocks)
+    else:
+        assert all(isinstance(b.conv_block[i], DepthWiseSeparableConv)
+                   for b in blocks for i in (1, 5))
+    with torch.no_grad():
+        assert g(torch.rand(1, 4, 64, 64)).shape == (1, 3, 64, 64)
 
 
 # ------------------------------------------------------------------ serving

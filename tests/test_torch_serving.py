@@ -22,7 +22,9 @@ import yaml
 
 from lama_tpu.data.io import load_image, save_image
 from lama_tpu_torch import predict as port_predict
-from lama_tpu_torch.serving import bucket_shape, load_serving_model
+from lama_tpu_torch.models import make_generator
+from lama_tpu_torch.serving import (bucket_shape, load_serving_model,
+                                    make_inpaint_forward)
 
 torch.set_num_threads(1)
 
@@ -183,6 +185,8 @@ def test_port_and_chip_smoke_import_nothing_of_lama_tpu():
             'lama_tpu_torch.losses.perceptual, lama_tpu_torch.losses.adversarial, '
             'lama_tpu_torch.losses.feature_matching, '
             'lama_tpu_torch.models.pix2pixhd, lama_tpu_torch.models.aux.resnet, '
+            'lama_tpu_torch.models.pix2pixhd_extra, '
+            'lama_tpu_torch.models.multiscale, '
             'lama_tpu_torch.data.masks, lama_tpu_torch.data.transforms, '
             'lama_tpu_torch.utils.ramps, lama_tpu_torch.ops.kernels.halo_conv, '
             'lama_tpu_torch.evaluation, lama_tpu_torch.evaluate_predicts, '
@@ -349,11 +353,23 @@ def test_cuda_device_without_a_card_raises(served):
 
 
 def test_model_enable_lfu_raises(tmp_path):
+    """A model dir whose generator has LFU (refused until LFU was ported)
+    loads its checkpoint strictly, `lfu` weights included, and serves."""
     cfg = dict(GEN_CFG, resnet_conv_kwargs=dict(ratio_gin=0.75,
                                                 ratio_gout=0.75,
                                                 enable_lfu=True))
     (tmp_path / 'models').mkdir()
     with open(tmp_path / 'config.yaml', 'w') as f:
         yaml.safe_dump({'generator': cfg}, f)
-    with pytest.raises(NotImplementedError):
-        load_serving_model(str(tmp_path), precision='fp32', device='cpu')
+    kw = dict(cfg)
+    sd = make_generator(kw.pop('kind'), **kw).state_dict()
+    assert any('.lfu.' in k for k in sd)
+    torch.save({'state_dict': {f'generator.{k}': v for k, v in sd.items()}},
+               tmp_path / 'models' / 'best.ckpt')
+    gen, _ = load_serving_model(str(tmp_path), precision='fp32', device='cpu')
+    forward = make_inpaint_forward(gen)
+    image, mask = torch.rand(1, 32, 32, 3), torch.zeros(1, 32, 32, 1)
+    mask[:, 8:20, 8:24] = 1
+    out = forward(image, mask)
+    assert out.shape == (1, 32, 32, 3)
+    assert torch.equal(out[mask[..., 0] == 0], image[mask[..., 0] == 0])

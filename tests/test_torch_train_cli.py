@@ -126,8 +126,9 @@ def test_resume_matches_an_unbroken_run(runs):
                                            atol=0)
 
 
-# the options of lama_tpu's trainer: those ROADMAP queue 1 item 10 ported
-# train (with the keys each needs beside the one named); the others raise
+# the options of lama_tpu's trainer: those ported (ROADMAP queue 1 item 10,
+# LFU and the multidilated discriminator) train (with the keys each needs
+# beside the one named); the others raise
 PORTED = {
     'trainer.kwargs.steps_per_dispatch=2': [
         'trainer.kwargs.limit_train_batches=2'],
@@ -137,6 +138,10 @@ PORTED = {
         '+training_model.rescale_scheduler_kwargs.values=[64,80]'],
     '+training_model.fake_fakes_proba=0.5': [],
     'data.train.kind=default_web': ['data.train.indir={root}/shard.tar'],
+    'generator.resnet_conv_kwargs.enable_lfu=true': [],
+    # its [2, 3] padding names two branches
+    'discriminator.kind=pix2pixhd_nlayer_multidilated': [
+        '+discriminator.multidilation_kwargs.dilation_num=2'],
 }
 
 
@@ -151,9 +156,9 @@ PORTED = {
     'discriminator.kind=pix2pixhd_nlayer_multidilated',
 ])
 def test_options_of_later_items_raise(tmp_path, override):
-    """More than one device (item 11), LFU (item 4) and the multidilated
-    discriminator (item 12) raise; the options item 10 ported train one
-    epoch (one step; two for steps_per_dispatch) with finite losses."""
+    """More than one device (item 11) raises; the options item 10 ported,
+    LFU and the multidilated discriminator train one epoch (one step; two
+    for steps_per_dispatch) with finite losses."""
     _write_jpegs(str(tmp_path / 'data' / 'train'))
     if override not in PORTED:
         with pytest.raises(NotImplementedError):
