@@ -120,10 +120,10 @@ version):
      the card: every value finite, the per-class columns there, each bin's
      total_freq/* summing to 1 within 1e-4, segm_ssim and segm_lpips means
      equal to phase 13's per-image SSIM and LPIPS means within 1e-6, total
-     and per bin; segm_fid on 4 of the pairs without groups (N + 1 host
+     and per bin; segm_fid on 2 of the pairs without groups (N + 1 host
      sqrtm) equal to `python -m lama_tpu_torch.fid_score` on the same pairs
      within 1e-4 relative; object-shaped masks (SegmentationMask with the
-     ADE20k panoptic predictor on the card, seeded rng) on 4 images, each
+     ADE20k panoptic predictor on the card, seeded rng) on 2 images, each
      binary, image-sized and above min_mask_area; the card's and the CPU's
      maps differ only at the CPU's near-ties (top-2 margin within
      SEG_ATOL), and the masks equal those the same host code makes from
@@ -193,6 +193,21 @@ version):
      (LFU) before block 4 (ffc_positions), 512^2 b2 fp32, kernels vs plain
      within GEN_ATOL, its launches exact (kernel 6 12, kernel 2 2, kernel
      3 4, kernel 1 4, stem 1, head 1).
+ 18. the device CLIs (ROADMAP queue 1 item 12), each on an earlier phase's
+     files: `python -m lama_tpu_torch.export` of big-lama at 512^2 in fp32,
+     bf16 and int8 (static scales calibrated on phase 4's PNGs) after phase
+     6, and of big-lama-regular in bf16 after phase 12: each program
+     reloaded within the CLI's bound of the direct call (1e-4 fp32, 2e-2
+     bf16 and int8), its launches per forward counted at the registered
+     ops (PER_FORWARD, INT8_PER_FORWARD, REGULAR_PER_FORWARD) and equal to
+     the eager module's, both timed at b1 (median of 10); make_checkpoint
+     on phase 6's bf16 run dir (the best epoch, generator only, the EMA
+     weights that run kept from its first step; every tensor finite), its
+     best.ckpt served by the predict CLI; analyze_errors on
+     phase 13's 32 pairs (and --only-report); then precompile (shapes
+     512x512,1000x760 at b16, then refine=true), predict_inner_features on
+     one 512^2 PNG (one heat map a level) and evaluator_example. Prints the
+     phase's seconds by part.
 Prints the `kernels` JSON line, then, as its last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device, and
 when run outside a checkout of the repository.
@@ -1430,6 +1445,11 @@ def throughput(gens, card_line, iters=3, label='big-lama'):
 # ---------------------------------------------------------------- training
 TRAIN_BATCH, TRAIN_SIZE = 10, 256   # configs/training/data/abl-04-256-mh-dist
 TRAIN_STEPS, TRAIN_WARMUP = 6, 2    # steps per run; the first ones warm up
+# phase 6's bf16 big-lama run keeps an EMA of the generator from its first
+# step, so phase 18's make_checkpoint deploys trained EMA weights
+TRAIN_EMA = ('training_model.average_generator=true',
+             'training_model.average_generator_start_step=0',
+             'training_model.average_generator_period=1')
 REGULAR_TRAIN_STEPS = 4             # big-lama-regular: 2 timed after warm-up
 # one fp32 G step, kernels vs kernels='plain': the losses within
 # TRAIN_LOSS_RTOL; the G gradient within TRAIN_FLOOR_FACTOR times the plain
@@ -1824,8 +1844,10 @@ def train(work, config_name='big-lama', steps=TRAIN_STEPS,
         write_val_images(val_dir, np.random.RandomState(4))
     out = {}
     for precision in ('bf16', 'fp32'):
+        bf16_val = precision == 'bf16' and val_dir is not None
         rec, trainer = train_run(work, precision, config_name, steps, per_step,
-                                 val_dir if precision == 'bf16' else None)
+                                 val_dir if bf16_val else None,
+                                 extra=TRAIN_EMA if bf16_val else ())
         image, mask = rec.pop('batch')
         rec['split'] = train_step_split(trainer, image, mask, precision,
                                         label=config_name)
@@ -2312,8 +2334,9 @@ EVAL2_SEGM = os.path.join(REPO, 'configs', 'eval2_segm.yaml')
 # the resnet50dilated read 1.0e-4 on an H100 at 512^2 (PERF.md §6)
 SEG_ATOL = 5e-4
 # SEG_MASK_N: the object-mask search is host time (~10 s an image on a
-# slow host); image 0 gives the compared masks
-SEG_CPU_N, SEG_FID_N, SEG_MASK_N = 2, 4, 4
+# slow host); image 0 gives the compared masks. SEG_FID_N: each pair adds
+# one host sqrtm of 2048^2 (14-24 s on the card's host) to segm_fid's N + 1
+SEG_CPU_N, SEG_FID_N, SEG_MASK_N = 2, 2, 2
 SEG_DEVICE = 'cuda'   # main() stops without a card
 
 
@@ -3099,6 +3122,219 @@ def multidilated(work, reg_kwargs, card_line):
                 ffc_positions=ffc_launches)
 
 
+# ------------------------------------------------------- the device CLIs
+# phase 18 (ROADMAP queue 1 item 12): the CLIs beside predict and train,
+# each on an earlier phase's files where it needs them. The exported
+# programs call the kernels as registered ops (ops/kernels/library.py),
+# whose CUDA implementations count the launches.
+EXPORT_SIZE = 512
+EXPORT_TOL = {'fp32': 1e-4, 'bf16': 2e-2, 'int8': 2e-2}   # the CLI's bounds
+INNER_LEVELS = {1: 512, 2: 256, 3: 128, 4: 64}   # level: its side at 512^2
+PRECOMPILE_SHAPES = '512x512,1000x760'
+ANALYZE_CONFIG = os.path.join(REPO, 'configs', 'analyze_mask_errors.yaml')
+
+
+def export_cli(work, model_dir, label, precision, per_forward, card_line,
+               extra=()):
+    """`python -m lama_tpu_torch.export` (its main, in this process) at
+    EXPORT_SIZE^2 on the card: the reloaded program within the CLI's bound
+    of the direct call, its launches per forward counted at the ops equal
+    to `per_forward` and to the eager module's, and both timed at batch 1
+    (CUDA events, median of 10)."""
+    import torch
+    from lama_tpu_torch import export as export_mod
+    t0 = time.perf_counter()
+    res = export_mod.main([
+        f'model.path={model_dir}', f'outdir={os.path.join(work, "export")}',
+        f'height={EXPORT_SIZE}', f'width={EXPORT_SIZE}', 'device=cuda',
+        f'precision={precision}', *extra])
+    secs = time.perf_counter() - t0
+    check(res['max_abs_diff'] < EXPORT_TOL[precision],
+          f'export {label} {precision}: max |d| {res["max_abs_diff"]}')
+    program, module = res.pop('program'), res.pop('module')
+    image, mask = export_mod.seeded_input(EXPORT_SIZE, EXPORT_SIZE, 'cuda')
+
+    def launches(fn):
+        fns = reset_counts()
+        with torch.no_grad():
+            fn(image, mask)
+        torch.cuda.synchronize()
+        return {k: f.launches for k, f in fns.items()}
+
+    ours, eager = launches(program), launches(module)
+    for k, per in per_forward.items():
+        check(ours[k] == per, f'export {label} {precision}: {k} {ours[k]} '
+              f'launches a forward, expected {per}')
+    check(ours == eager, f'export {label} {precision}: program {ours}, '
+          f'eager {eager}')
+    with torch.no_grad():
+        ms = median_ms(lambda: program(image, mask))
+        eager_ms = median_ms(lambda: module(image, mask))
+    res.update(seconds=secs, launches=ours, ms=ms, eager_ms=eager_ms)
+    log(f'export {label} {precision}: {res["bytes"]} bytes, max |d| '
+        f'{res["max_abs_diff"]:.3e}, CLI {secs:.1f} s; launches a forward '
+        f'{ours} (= eager); b1 {EXPORT_SIZE}^2 ms program {ms:.3f} vs eager '
+        f'{eager_ms:.3f} ({card_line})')
+    return res
+
+
+def export_big_lama(work, model_dir, card_line):
+    """Phase 18's big-lama exports: fp32, bf16, and int8 with static
+    scales calibrated on phase 4's PNGs."""
+    import torch
+    out = {}
+    for precision, per, extra in (
+            ('fp32', PER_FORWARD, ()), ('bf16', PER_FORWARD, ()),
+            ('int8', INT8_PER_FORWARD,
+             (f'calibration_indir={os.path.join(work, "in")}',))):
+        out[precision] = export_cli(os.path.join(work, f'x_{precision}'),
+                                    model_dir, 'big-lama', precision, per,
+                                    card_line, extra)
+        torch.cuda.empty_cache()
+    return out
+
+
+def make_checkpoint_cli(work, run_dir):
+    """`python -m lama_tpu_torch.make_checkpoint` on phase 6's bf16 run
+    dir: the best epoch by the monitor, generator only, its EMA weights in
+    place of the parameters (that run keeps an EMA, TRAIN_EMA, so some must
+    differ from the raw weights), every tensor finite; then its best.ckpt
+    served by the predict CLI (strict load)."""
+    import torch
+    t0 = time.perf_counter()
+    out = os.path.join(work, 'deploy')
+    run_module('lama_tpu_torch.make_checkpoint', [run_dir, out])
+    with open(os.path.join(run_dir, 'models', 'index.json')) as f:
+        best = max(json.load(f), key=lambda r: r['value'])['name']
+    src = torch.load(os.path.join(run_dir, 'models', best),
+                     map_location='cpu', weights_only=True)['state_dict']
+    sd = torch.load(os.path.join(out, 'models', 'best.ckpt'),
+                    map_location='cpu', weights_only=True)['state_dict']
+    check(sd and all(k.startswith('generator.') for k in sd),
+          f'make_checkpoint: keys {sorted(sd)[:4]}')
+    ema = {'generator.' + k[len('generator_average.'):]: v
+           for k, v in src.items() if k.startswith('generator_average.')}
+    want = dict({k: v for k, v in src.items() if k.startswith('generator.')},
+                **ema)
+    check(sorted(sd) == sorted(want) and all(
+        torch.equal(sd[k], want[k]) for k in sd),
+          'make_checkpoint: best.ckpt is not the best epoch\'s generator '
+          'with its EMA weights')
+    check(any(not torch.equal(v, src[k]) for k, v in ema.items()),
+          f'make_checkpoint: {best} holds no EMA weights that differ from '
+          f'the raw ones ({len(ema)} EMA tensors)')
+    bad = [k for k, v in sd.items()
+           if v.is_floating_point() and not bool(torch.isfinite(v).all())]
+    check(not bad, f'make_checkpoint: non-finite tensors {bad[:4]}')
+    serve_checkpoint(work, out, 'best.ckpt')
+    secs = time.perf_counter() - t0
+    log(f'make_checkpoint: {best} of {run_dir} -> {out}/models/best.ckpt '
+        f'({len(sd)} tensors, {len(ema)} from the EMA), served; {secs:.1f} s')
+    return secs
+
+
+def inner_features_cli(work, model_dir):
+    """`python -m lama_tpu_torch.predict_inner_features` on one of phase
+    4's 512^2 PNGs: one heat map a level, at that level's side."""
+    import shutil
+    t0 = time.perf_counter()
+    indir, outdir = (os.path.join(work, d) for d in ('inner_in', 'inner'))
+    os.makedirs(indir)
+    for name in ('img0.png', 'img0_mask.png'):
+        shutil.copy(os.path.join(work, 'in', name), indir)
+    run_module('lama_tpu_torch.predict_inner_features',
+               [f'model.path={model_dir}', f'indir={indir}',
+                f'outdir={outdir}', 'device=cuda'])
+    for level, side in INNER_LEVELS.items():
+        heat = read_png(os.path.join(outdir, f'img0_mask_lev{level:02d}_norm'
+                                     '.png'), 'L')
+        check(heat.shape == (side, side) and heat.max() > heat.min(),
+              f'inner features: level {level} {heat.shape}, range '
+              f'{heat.min()}-{heat.max()}')
+    secs = time.perf_counter() - t0
+    log(f'inner features: levels {list(INNER_LEVELS)} at 512^2, {secs:.1f} s')
+    return secs
+
+
+def analyze_errors_cli(work, ev):
+    """`python -m lama_tpu_torch.analyze_errors` on phase 13's 32 pairs
+    (InceptionV3 on the card, the port's linear SVM), then --only-report
+    on its pickles."""
+    import pickle
+    t0 = time.perf_counter()
+    out = os.path.join(work, 'analyze')
+    argv = [ANALYZE_CONFIG, ev['data'], ev['pred'], out, '--device', 'cuda']
+    run_module('lama_tpu_torch.analyze_errors', argv)
+    run_module('lama_tpu_torch.analyze_errors', argv + ['--only-report'])
+    with open(os.path.join(out, 'latents', 'join_scores_table.csv')) as f:
+        rows = f.read().strip().splitlines()
+    scores = {}
+    for name in ('real_scores', 'fake_scores'):
+        with open(os.path.join(out, 'latents', f'{name}.pkl'), 'rb') as f:
+            scores[name] = np.asarray(pickle.load(f))
+    n = len(ev['bins'])
+    check(len(rows) == n + 1, f'analyze_errors: {len(rows)} table lines')
+    check(all(np.isfinite(v).all() and len(v) == n for v in scores.values()),
+          f'analyze_errors: scores {scores}')
+    for d in ('global_best', 'global_worst'):
+        files = os.listdir(os.path.join(out, d))
+        check(len(files) == min(30, n), f'analyze_errors: {d} {len(files)}')
+    real, fake = scores['real_scores'], scores['fake_scores']
+    check(real.mean() > fake.mean(), f'analyze_errors: real scores '
+          f'{real.mean()} vs fake {fake.mean()}')
+    secs = time.perf_counter() - t0
+    log(f'analyze_errors: {n} pairs, real score mean {real.mean():.3f}, fake '
+        f'{fake.mean():.3f}, {secs:.1f} s (with --only-report)')
+    return secs
+
+
+def precompile_cli(work, model_dir):
+    """`python -m lama_tpu_torch.precompile` (its main, in this process):
+    the build (already warm here: 0.0 s a source), then shapes
+    PRECOMPILE_SHAPES at b16 bf16, then the same with refine=true."""
+    from lama_tpu_torch import precompile
+    from lama_tpu_torch.ops.kernels import _build
+    t0 = time.perf_counter()
+    common = [f'model.path={model_dir}', f'shapes={PRECOMPILE_SHAPES}',
+              'batch_size=16', 'precision=bf16', 'device=cuda']
+    serve_rep = precompile.main(common)
+    refine_rep = precompile.main(common + ['refine=true'])
+    shapes = precompile.parse_shapes(PRECOMPILE_SHAPES)
+    check(sorted(serve_rep['build']) == sorted(_build.SOURCES),
+          f'precompile: build {serve_rep["build"]}')
+    check(sorted(serve_rep['predict']) == sorted(shapes)
+          and sorted(refine_rep['refine']) == sorted(shapes),
+          f'precompile: {serve_rep}, {refine_rep}')
+    secs = time.perf_counter() - t0
+    log(f'precompile: build (warm) {serve_rep["build"]}; b16 forwards '
+        + ', '.join(f'{h}x{w} {v:.2f} s' for (h, w), v in
+                    serve_rep['predict'].items())
+        + '; refine ' + ', '.join(f'{h}x{w} {v:.2f} s' for (h, w), v in
+                                  refine_rep['refine'].items())
+        + f'; {secs:.1f} s')
+    return secs
+
+
+def device_clis(work, gen_kwargs, sd):
+    """The rest of phase 18 in its own dir: precompile, inner features on
+    a copy of phase 4's first PNG pair, evaluator_example."""
+    from lama_tpu_torch import evaluator_example
+    model_dir = os.path.join(work, 'model')
+    write_model_dir(model_dir, dict(kind='ffc_resnet', **gen_kwargs), sd)
+    write_images(os.path.join(work, 'in'), np.random.RandomState(0))
+    secs = dict(precompile=precompile_cli(work, model_dir),
+                inner_features=inner_features_cli(work, model_dir))
+    t0 = time.perf_counter()
+    res = evaluator_example.main([])
+    ssim = res['ssim', 'total']['mean']
+    check(math.isfinite(ssim) and 0 < ssim <= 1,
+          f'evaluator_example: {res}')
+    secs['evaluator_example'] = time.perf_counter() - t0
+    log(f'evaluator_example: ssim total {ssim:.4f}, '
+        f'{secs["evaluator_example"]:.1f} s')
+    return secs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3125,6 +3361,12 @@ def main():
         launches = serve(work, model_dir)
         refine_launches = refine(work, model_dir)
         trained = train(work)
+        # phase 18 on phases 4 and 6's files
+        t18 = time.perf_counter()
+        exports = export_big_lama(work, model_dir, card_line)
+        cli_secs = dict(export=time.perf_counter() - t18)
+        cli_secs['make_checkpoint'] = make_checkpoint_cli(
+            work, trained['bf16']['run_dir'])
     for row in rows:
         row['launches'] = launches[row['dtype']][row['name']]
         row['refine_launches'] = refine_launches[row['name']]
@@ -3142,6 +3384,7 @@ def main():
         write_model_dir(model_dir, dict(kind='ffc_resnet', **gen_kwargs), sd)
         ev = evaluate(work, model_dir, card_line)
         segmentation(work, ev, card_line)
+        cli_secs['analyze_errors'] = analyze_errors_cli(work, ev)   # phase 18
     torch.cuda.empty_cache()
 
     # big-lama-regular: the GlobalGenerator, kernel 6 on its block convs
@@ -3156,6 +3399,11 @@ def main():
         refine_refused(work, model_dir)
         reg_trained = train(work, 'big-lama-regular', REGULAR_TRAIN_STEPS,
                             REGULAR_PER_TRAIN_STEP)
+        t18 = time.perf_counter()   # phase 18
+        exports['regular_bf16'] = export_cli(
+            os.path.join(work, 'x_regular'), model_dir, 'big-lama-regular',
+            'bf16', REGULAR_PER_FORWARD, card_line)
+        cli_secs['export'] += time.perf_counter() - t18
     gens = make_generators(reg_kwargs, reg_sd, reg_kind)
     generator_vs_plain(gens, 'big-lama-regular')
     throughput(gens, card_line, label='big-lama-regular')
@@ -3200,6 +3448,17 @@ def main():
     for row in int8_rows_:
         row['md_launches'] = md['int8'][row['name']]
     rows += int8_rows_
+    torch.cuda.empty_cache()
+
+    # phase 18: the device CLIs (their other parts ran beside phases 6, 14
+    # and 12)
+    with tempfile.TemporaryDirectory() as work:
+        cli_secs.update(device_clis(work, gen_kwargs, sd))
+    log(f'phase 18: {sum(cli_secs.values()):.1f} s (' + ', '.join(
+        f'{k} {v:.1f}' for k, v in cli_secs.items()) + '); exports ' + ', '.join(
+        f'{k} {v["bytes"]} bytes, max |d| {v["max_abs_diff"]:.2e}, ms '
+        f'{v["ms"]:.3f} vs eager {v["eager_ms"]:.3f}'
+        for k, v in exports.items()))
     log(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

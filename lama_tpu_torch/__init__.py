@@ -37,6 +37,13 @@ Component map (counterparts in lama_tpu):
                                  (lama_tpu.evaluation.refinement)
   lama_tpu_torch.predict       — `python -m lama_tpu_torch.predict` (bin/predict.py)
   lama_tpu_torch.train         — `python -m lama_tpu_torch.train` (bin/train.py)
+  lama_tpu_torch.export, .make_checkpoint, .predict_inner_features,
+  .precompile, .evaluator_example, .analyze_errors,
+  .verify_reference_parity     — the device CLIs (bin/to_stablehlo.py as a
+                                 torch.export program, and the bin/ scripts
+                                 of the same names); the kernels are
+                                 registered ops (ops/kernels/library.py),
+                                 so an exported program calls them
   lama_tpu_torch.config, .data, .utils — copies of the host-only parts of
                                  lama_tpu.config, lama_tpu.data and
                                  lama_tpu.utils it uses

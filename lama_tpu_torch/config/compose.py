@@ -5,6 +5,7 @@ list of group entries composed from `configs/<context>/<group>/<name>.yaml`,
 A copy of lama_tpu/config/compose.py, so the port imports nothing of
 lama_tpu.
 """
+import copy
 import os
 import re
 from typing import Dict, List, Optional, Sequence
@@ -56,6 +57,16 @@ def parse_overrides(overrides: Sequence[str]) -> Dict[str, object]:
             put(k, yaml.safe_load(v))
         else:
             put(k, _parse_scalar(v))
+    return result
+
+
+def with_overrides(defaults: Dict, overrides: Sequence[str] = ()) -> ConfigNode:
+    """A CLI's config without a YAML: a copy of `defaults` with the
+    `a.b.c=value` overrides set (bin/to_stablehlo.py's ConfigNode and
+    set_path)."""
+    result = ConfigNode(copy.deepcopy(defaults))
+    for k, v in parse_overrides(overrides).items():
+        result.set_path(k, v)
     return result
 
 

@@ -41,6 +41,7 @@ from ..ops.serving_mode import DEFAULT as DEFAULT_MODE
 from ..ops.kernels.fourier_unit import (fourier_unit_plain,
                                         fourier_unit_with_norm,
                                         fused_fourier_unit, planar_params)
+from ..ops.kernels.library import exporting, frozen
 from ..ops.norm import BatchNorm2d
 from ..ops.precision import check_dtype, widen
 
@@ -81,6 +82,10 @@ class FourierUnit(nn.Module):
         self.bn = BatchNorm2d(out_channels * 2)
         self._planar_key = None
         self._planar = None
+        # the folded weights a program exported from this module reads as
+        # constants (`freeze_for_export`); not part of the state dict
+        self.register_buffer('export_planar_weight', None, persistent=False)
+        self.register_buffer('export_planar_bias', None, persistent=False)
 
     def _params(self):
         return (self.conv_layer.weight, self.bn.weight, self.bn.bias,
@@ -101,6 +106,13 @@ class FourierUnit(nn.Module):
             self._planar_key = key
         return self._planar
 
+    def freeze_for_export(self):
+        """Fill the export buffers with `planar()` of the current weights,
+        so a program exported after this call reads the folded weights as
+        constants instead of folding them at every call."""
+        if self.kernels != 'plain':
+            self.export_planar_weight, self.export_planar_bias = self.planar()
+
     def train(self, mode=True):
         self._planar_key = None
         return super().train(mode)
@@ -116,10 +128,13 @@ class FourierUnit(nn.Module):
             out = fourier_unit_plain(x, *self._params(), eps=self.bn.eps,
                                      store_bf16=store_bf16)
         else:
-            out = fused_fourier_unit(
-                x, *self._params(), eps=self.bn.eps,
-                planar=self.planar() if x.is_cuda else None,
-                store_bf16=store_bf16)
+            # exporting: the parameters have no storage to key the cache
+            # on; the program reads the export buffers as constants
+            planar = (frozen(self, 'export_planar_weight',
+                             'export_planar_bias') if exporting()
+                      else self.planar())
+            out = fused_fourier_unit(x, *self._params(), eps=self.bn.eps,
+                                     planar=planar, store_bf16=store_bf16)
         return out.to(x.dtype)
 
 

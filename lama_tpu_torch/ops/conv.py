@@ -35,7 +35,9 @@ never quantizes: it is a plain nn.Conv2d, not this module. Its activation scale 
 unless its non-persistent `act_amax` buffer holds a calibrated max |x|
 (serving.py::calibrate_int8, lama_tpu's 'quant_stats' collection; out of
 the state_dict, so a reference checkpoint still loads strictly). Its
-packed int8 weight is kept per set of weights.
+packed int8 weight is kept per set of weights; while exporting, the
+weight has no storage to key that cache on, and the module reads the
+packed weight that `freeze_for_export` stored in its buffers instead.
 """
 import functools
 
@@ -47,6 +49,7 @@ from . import quant
 from .kernels import conv_int8
 from .kernels import halo_conv as hc
 from .kernels import reflect_conv as rc
+from .kernels.library import exporting, frozen
 from .pad import pad2d
 from .serving_mode import DEFAULT as DEFAULT_MODE
 
@@ -136,6 +139,10 @@ class _Quantized:
         self.register_buffer('act_amax', None, persistent=False)
         self._packed_key = None
         self._packed = None
+        # the packed weight a program exported from this module reads as
+        # constants (`freeze_for_export`)
+        self.register_buffer('export_packed_codes', None, persistent=False)
+        self.register_buffer('export_packed_scales', None, persistent=False)
 
     def _act_amax(self, x):
         """The static amax, or None for a dynamic scale. Calibrating, this
@@ -149,19 +156,29 @@ class _Quantized:
             return None
         return self.act_amax
 
-    def _pack(self, x, transposed):
+    def _pack(self):
         """pack_weight's result, recomputed only when the weight changed
         (its storage or, for a tensor with a version, its version), as
-        FourierUnit.planar keys its cache; None where the plain version
-        runs."""
-        if self.kernels == 'plain' or not x.is_cuda:
+        FourierUnit.planar keys its cache; None under kernels='plain'.
+        Exporting, the weight has no storage: the export buffers."""
+        if self.kernels == 'plain':
             return None
+        if exporting():
+            return frozen(self, 'export_packed_codes', 'export_packed_scales')
         w = self.weight
         key = (w.data_ptr(), -1 if w.is_inference() else w._version)
         if key != self._packed_key:
-            self._packed = conv_int8.pack_weight(w, transposed)
+            self._packed = conv_int8.pack_weight(w, self.transposed)
             self._packed_key = key
         return self._packed
+
+    def freeze_for_export(self):
+        """Fill the export buffers with the packed weight of the current
+        weights, so a program exported after this call reads them as
+        constants instead of quantizing the weight at every call."""
+        if self.quantized and self.kernels != 'plain':
+            self.export_packed_codes, self.export_packed_scales = (
+                self._pack())
 
 
 class Conv2d(_Quantized, nn.Conv2d):
@@ -181,7 +198,7 @@ class Conv2d(_Quantized, nn.Conv2d):
                 x, self.weight, self.bias, self.stride, self.padding,
                 self.dilation, self.groups, self.padding_mode,
                 act_amax=self._act_amax(x), zero_pad=self.mode.zero_pad,
-                packed=self._pack(x, False), kernels=self.kernels)
+                packed=self._pack(), kernels=self.kernels)
         return conv2d(x, self.weight, self.bias, self.stride, self.padding,
                       self.dilation, self.groups, self.padding_mode,
                       self.kernels)
@@ -202,7 +219,7 @@ class ConvTranspose2d(_Quantized, nn.ConvTranspose2d):
             return conv_int8.quantized_conv_transpose2d(
                 x, self.weight, self.bias, self.stride, self.padding,
                 self.output_padding, act_amax=self._act_amax(x),
-                packed=self._pack(x, True), kernels=self.kernels)
+                packed=self._pack(), kernels=self.kernels)
         return F.conv_transpose2d(
             x, self.weight.to(x.dtype),
             None if self.bias is None else self.bias.to(x.dtype),

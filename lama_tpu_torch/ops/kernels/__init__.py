@@ -6,5 +6,8 @@
 the stride-2 down conv of `reflect_conv`, the 3x3 halo conv), and
 `conv3x3_simt` the fp32 path of the 3x3 halo conv and the down conv.
 `_autograd.differentiable` gives every kernel a backward pass: the VJP of
-its plain version.
+its plain version. `library` registers each kernel as an op of the
+`lama_tpu_torch` namespace, which the wrappers call; importing this package
+registers them.
 """
+from . import library  # noqa: F401  (registers the ops the wrappers call)

@@ -45,10 +45,26 @@ class _PlainVJP(torch.autograd.Function):
         return (None, None) + tuple(next(grads) if n else None for n in need)
 
 
+def needs_grad(*inputs) -> bool:
+    """Whether autograd needs a gradient of any of `inputs` (None
+    allowed)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in inputs)
+
+
 def differentiable(kernel_fn, plain_fn, *inputs):
     """`kernel_fn(*inputs)`, with the plain version's VJP as its backward
     when autograd needs a gradient of any input (None inputs allowed)."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in inputs):
+    if needs_grad(*inputs):
         return _PlainVJP.apply(kernel_fn, plain_fn, *inputs)
     return kernel_fn(*inputs)
+
+
+def through_op(op, plain_fn, *inputs):
+    """The one path of every kernel wrapper: `op(*inputs)`, a registered op
+    of library.py (the kernel on CUDA tensors, the plain version on CPU
+    ones), through `differentiable`. A CPU call that needs a gradient takes
+    `plain_fn` itself, whose autograd is PyTorch's own."""
+    if not inputs[0].is_cuda and needs_grad(*inputs):
+        return plain_fn(*inputs)
+    return differentiable(op, plain_fn, *inputs)

@@ -17,9 +17,15 @@ the undilated input. The weights are quantized per output channel and
 packed once per set of weights (`pack_weight`, cached by ops/conv.py's
 modules) as (taps, C_out padded to COP_ALIGN, C padded to CHUNK) int8.
 
-The wrappers take the plain version (ops/quant.py) for a CPU tensor and
-under kernels='plain'; on a CUDA tensor they launch the kernel or raise.
-They count their launches in `.launches`. int8 is for serving only: the
+The wrappers call two registered ops (library.py): `int8_amax_quantize`
+(the amax and quantize passes; with a calibrated scale `int8_quantize`,
+the quantize pass alone on the act_amax buffer as it stands) and
+`int8_conv` (the GEMM), which launch the
+kernels on a CUDA tensor (or raise) and compute the plain versions on a CPU
+one (`quantize_activation_plain`, `conv_codes_plain`: ops/quant.py's
+arithmetic). kernels='plain', and a CPU call that needs a gradient, take
+ops/quant.py's plain conv itself. The GEMM op's CUDA implementation counts
+the convs in quantized_conv2d's `.launches`. int8 is for serving only: the
 rounding has no gradient, and a CUDA call that needs one raises.
 """
 import ctypes
@@ -30,6 +36,7 @@ import torch
 
 from .. import quant
 from . import _build
+from ._autograd import needs_grad
 
 # the kernel's constants (csrc/conv_int8.cu; tests/test_torch_int8.py
 # checks that the source agrees)
@@ -74,6 +81,7 @@ def _refuse(what, shape):
         f'int8-eligible layer of lama_tpu\'s models needs more)')
 
 
+@functools.lru_cache(maxsize=4096)
 def conv_plan(x_shape, weight_shape, stride=1, padding=0, dilation=1,
               groups=1, padding_mode='zeros', zero_pad=False) -> Plan:
     """The one phase of a Conv2d on an NCHW input of x_shape: tap (ky, kx)
@@ -81,7 +89,8 @@ def conv_plan(x_shape, weight_shape, stride=1, padding=0, dilation=1,
     (zeros for a zero-padded conv or under zero_pad), weight slice
     ky * kw + kx. A reflect border folds once, so it needs each pad below
     its side; the reads then stay within one fold at any dilation. Raises
-    for what the kernel does not take."""
+    for what the kernel does not take. Cached: a wrapper's check and its
+    op's launch read one plan (the arguments are shapes and tuples)."""
     _, c, h, w = x_shape
     kh, kw = weight_shape[-2:]
     (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
@@ -98,9 +107,9 @@ def conv_plan(x_shape, weight_shape, stride=1, padding=0, dilation=1,
                          f'{tuple(x_shape)}')
     ho = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
     wo = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
-    taps = [(ky * dh - ph, kx * dw - pw, ky * kw + kx) for ky in range(kh)
-            for kx in range(kw)]
-    return Plan([Phase(0, 0, ho, wo, taps)], sh, 1, BORDERS[border], ho, wo)
+    taps = tuple((ky * dh - ph, kx * dw - pw, ky * kw + kx)
+                 for ky in range(kh) for kx in range(kw))
+    return Plan((Phase(0, 0, ho, wo, taps),), sh, 1, BORDERS[border], ho, wo)
 
 
 def _transposed_taps(k, s, p, r):
@@ -109,12 +118,13 @@ def _transposed_taps(k, s, p, r):
     return [((r + p - ky) // s, ky) for ky in range(k) if (r + p - ky) % s == 0]
 
 
+@functools.lru_cache(maxsize=4096)
 def conv_transpose_plan(x_shape, weight_shape, stride=2, padding=1,
                         output_padding=1) -> Plan:
     """The phases of a ConvTranspose2d (weight (I, O, kh, kw)): one per
     output residue (py, px) mod the stride, each a stride-1 gather of the
     undilated input with a zero border; k3 s2 p1 op1 gives four phases of
-    1, 2, 2 and 4 taps."""
+    1, 2, 2 and 4 taps. Cached, as conv_plan."""
     _, c, h, w = x_shape
     kh, kw = weight_shape[-2:]
     (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
@@ -126,9 +136,9 @@ def conv_transpose_plan(x_shape, weight_shape, stride=2, padding=1,
     phases = []
     for py in range(min(sh, ho)):
         for px in range(min(sw, wo)):
-            taps = [(dy, dx, ky * kw + kx)
-                    for dy, ky in _transposed_taps(kh, sh, ph, py)
-                    for dx, kx in _transposed_taps(kw, sw, pw, px)]
+            taps = tuple((dy, dx, ky * kw + kx)
+                         for dy, ky in _transposed_taps(kh, sh, ph, py)
+                         for dx, kx in _transposed_taps(kw, sw, pw, px))
             if len(taps) > MAX_TAPS:
                 raise _refuse(f'transposed kernel {kh}x{kw}', x_shape)
             if taps:
@@ -138,7 +148,7 @@ def conv_transpose_plan(x_shape, weight_shape, stride=2, padding=1,
         # an output residue no tap reaches is all bias: not a shipped layer
         raise _refuse(f'transposed kernel {kh}x{kw} < stride {stride}',
                       x_shape)
-    return Plan(phases, 1, sh, BORDERS['zeros'], ho, wo)
+    return Plan(tuple(phases), 1, sh, BORDERS['zeros'], ho, wo)
 
 
 @torch.no_grad()
@@ -201,31 +211,61 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def quantize_activation(x, act_amax=None):
-    """x (B, C, H, W) bf16 or fp32 on the card -> (codes (B, H, W, Cp) int8,
-    amax (1,) float32 on the card): the amax kernel unless the calibrated
-    `act_amax` is given, then the quantize kernel."""
+def activation_amax(x):
+    """max |x| of x (B, C, H, W) bf16 or fp32 on the card, (1,) float32 on
+    the card: the amax kernel (the dynamic scale)."""
+    _check_input(x)
+    dense = x if (x.is_contiguous() or x.is_contiguous(
+        memory_format=torch.channels_last)) else x.contiguous()
+    amax = torch.empty(1, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _check('the amax pass', _lib().lama_int8_amax(
+            dense.data_ptr(), int(x.dtype == torch.bfloat16), dense.numel(),
+            amax.data_ptr(), _stream(x)))
+    return amax
+
+
+def quantize_codes(x, amax):
+    """x (B, C, H, W) bf16 or fp32 on the card -> its codes (B, H, W, Cp)
+    int8 at the scale amax / QMAX: the quantize kernel. `amax` is one
+    float32 on x's device (activation_amax's, or a calibrated act_amax as
+    it stands)."""
+    _check_input(x)
+    if (amax.dtype != torch.float32 or amax.numel() != 1
+            or amax.device != x.device):
+        raise ValueError(f'int8 conv: amax {amax.dtype} {tuple(amax.shape)} '
+                         f'on {amax.device} for an input on {x.device}')
+    b, c, h, w = x.shape
+    cp = round_up(c, CHUNK)
+    xq = torch.empty((b, h, w, cp), dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        _check('the quantize pass', _lib().lama_int8_quantize(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), b, c, h, w,
+            *x.stride(), cp, amax.data_ptr(), xq.data_ptr(), _stream(x)))
+    return xq
+
+
+def _check_input(x):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f'int8 conv: input dtype {x.dtype}')
-    b, c, h, w = x.shape
-    bf16 = int(x.dtype == torch.bfloat16)
-    with torch.cuda.device(x.device):
-        if act_amax is None:
-            dense = x if (x.is_contiguous() or x.is_contiguous(
-                memory_format=torch.channels_last)) else x.contiguous()
-            amax = torch.empty(1, dtype=torch.float32, device=x.device)
-            _check('the amax pass', _lib().lama_int8_amax(
-                dense.data_ptr(), bf16, dense.numel(), amax.data_ptr(),
-                _stream(x)))
-        else:
-            amax = act_amax.detach().to(device=x.device,
-                                        dtype=torch.float32).reshape(1)
-        cp = round_up(c, CHUNK)
-        xq = torch.empty((b, h, w, cp), dtype=torch.int8, device=x.device)
-        _check('the quantize pass', _lib().lama_int8_quantize(
-            x.data_ptr(), bf16, b, c, h, w, *x.stride(), cp, amax.data_ptr(),
-            xq.data_ptr(), _stream(x)))
-    return xq, amax
+
+
+def static_amax(act_amax, device):
+    """A calibrated act_amax as the quantize and GEMM launches read it: one
+    float32 on `device`; the buffer itself when it is one already."""
+    if act_amax.dtype == torch.float32 and act_amax.device == device:
+        return act_amax
+    return act_amax.to(device=device, dtype=torch.float32)
+
+
+def quantize_activation(x, act_amax=None):
+    """x (B, C, H, W) bf16 or fp32 on the card -> (codes (B, H, W, Cp) int8,
+    amax, one float32 on the card): the amax kernel unless the calibrated
+    `act_amax` is given (then returned as `static_amax` gives it), then
+    the quantize kernel."""
+    amax = (activation_amax(x) if act_amax is None
+            else static_amax(act_amax, x.device))
+    return quantize_codes(x, amax), amax
 
 
 def conv_codes(xq, amax, packed, s_w, bias, plan: Plan, co: int,
@@ -271,36 +311,109 @@ def conv_args(xq, amax, packed, s_w, bias, plan: Plan, out):
     return args
 
 
-def _on_card(x, kernels, params):
-    """Whether the kernel runs: on a CUDA tensor unless kernels='plain';
-    raises there when a gradient is needed."""
-    if kernels == 'plain' or not x.is_cuda:
+def quantize_activation_plain(x, act_amax=None):
+    """Plain version of quantize_activation: (codes (B, H, W, Cp) int8, the
+    channels zero-filled to a multiple of CHUNK, amax (1,) float32), the
+    codes ops/quant.py's."""
+    amax = (x.detach().float().abs().amax() if act_amax is None
+            else act_amax.detach().float()).reshape(1).clone()
+    q = quant.quantize(x, torch.clamp(amax, min=1e-12) / quant.QMAX)
+    b, c, h, w = x.shape
+    codes = q.new_zeros((b, h, w, round_up(c, CHUNK)))
+    codes[..., :c] = q.permute(0, 2, 3, 1)
+    return codes, amax
+
+
+def unpack_weight(packed, c: int, co: int, kh: int, kw: int,
+                  transposed: bool = False):
+    """pack_weight's codes back in the weight's layout: (C_out, C, kh, kw),
+    or (C, C_out, kh, kw) for a ConvTranspose2d."""
+    taps = packed[:, :co, :c].reshape(kh, kw, co, c)
+    return taps.permute(3, 2, 0, 1) if transposed else taps.permute(2, 3, 0, 1)
+
+
+def conv_codes_plain(xq, amax, packed, s_w, bias, c, co, kh, kw, stride,
+                     padding, dilation, output_padding, padding_mode,
+                     zero_pad, transposed, out_dtype):
+    """Plain version of the GEMM launch on quantize_activation's codes
+    (ops/quant.py's exact int32 sums and dequantize): (B, co, Ho, Wo) in
+    out_dtype, channels-last."""
+    xc = xq[..., :c].permute(0, 3, 1, 2)
+    wq = unpack_weight(packed, c, co, kh, kw, transposed)
+    if transposed:
+        acc = quant.conv_transpose2d_acc(xc, wq, stride, padding,
+                                         output_padding)
+    else:
+        acc = quant.conv2d_acc(xc, wq, stride, padding, dilation, 1,
+                               padding_mode, zero_pad)
+    s_x = torch.clamp(amax.reshape(()), min=1e-12) / quant.QMAX
+    out = quant.dequantize(acc, s_x, s_w, bias, out_dtype)
+    return out.contiguous(memory_format=torch.channels_last)
+
+
+def _on_kernel(x, kernels, params):
+    """Whether the registered ops run (the kernel on a CUDA tensor, the
+    plain version on a CPU one): not under kernels='plain', nor on the CPU
+    when a gradient is needed (the plain version then runs itself); on the
+    card a call that needs a gradient raises."""
+    if kernels == 'plain':
         return False
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, *params)):
+    if needs_grad(x, *params):
+        if not x.is_cuda:
+            return False
         raise RuntimeError('int8 conv: int8 convs serve only (the rounding '
                            'has no gradient); run under torch.no_grad or '
                            'inference_mode')
     return True
 
 
+def _takes(x, plan, *args) -> bool:
+    """Whether the kernel takes the conv: `plan(*args)` raises
+    NotImplementedError for what it refuses, which a CUDA call passes on
+    and a CPU call answers with the plain version."""
+    if x.is_cuda:
+        plan(*args)
+        return True
+    try:
+        plan(*args)
+    except NotImplementedError:
+        return False
+    return True
+
+
+def _conv_op(x, act_amax, wp, s_w, bias, co, kh, kw, stride=1, padding=0,
+             dilation=1, output_padding=0, padding_mode='zeros',
+             zero_pad=False, transposed=False):
+    """The two registered ops of an int8 conv: the quantize pass (with the
+    amax pass unless `act_amax` is given: then both ops read the buffer as
+    it stands), then the GEMM."""
+    if act_amax is None:
+        xq, amax = torch.ops.lama_tpu_torch.int8_amax_quantize.default(x)
+    else:
+        amax = static_amax(act_amax, x.device)
+        xq = torch.ops.lama_tpu_torch.int8_quantize.default(x, amax)
+    return torch.ops.lama_tpu_torch.int8_conv.default(
+        xq, amax, wp, s_w, bias, x.shape[1], co, kh, kw, _pair(stride),
+        _pair(padding), _pair(dilation), _pair(output_padding), padding_mode,
+        bool(zero_pad), transposed, x.dtype)
+
+
 def quantized_conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1,
                      groups=1, padding_mode='zeros', act_amax=None,
                      zero_pad: bool = False, packed=None, kernels='cuda'):
     """int8 Conv2d, NCHW input (any memory format), OIHW weight; returns
-    x's dtype (channels-last from the kernel). `packed`: pack_weight's
-    result, when the caller keeps it."""
-    if not _on_card(x, kernels, (weight, bias)):
+    x's dtype (channels-last from the registered ops). `packed`:
+    pack_weight's result, when the caller keeps it."""
+    if not (_on_kernel(x, kernels, (weight, bias)) and _takes(
+            x, conv_plan, x.shape, weight.shape, stride, padding, dilation,
+            groups, padding_mode, zero_pad)):
         return quant.quantized_conv2d(x, weight, bias, stride, padding,
                                       dilation, groups, padding_mode,
                                       act_amax=act_amax, zero_pad=zero_pad)
-    plan = conv_plan(x.shape, weight.shape, stride, padding, dilation,
-                     groups, padding_mode, zero_pad)
     wp, s_w = packed if packed is not None else pack_weight(weight)
-    xq, amax = quantize_activation(x, act_amax)
-    out = conv_codes(xq, amax, wp, s_w, bias, plan, weight.shape[0], x.dtype)
-    quantized_conv2d.launches += 1
-    return out
+    return _conv_op(x, act_amax, wp, s_w, bias, weight.shape[0],
+                    *weight.shape[-2:], stride, padding, dilation, 0,
+                    padding_mode, zero_pad)
 
 
 def quantized_conv_transpose2d(x, weight, bias=None, stride=2, padding=1,
@@ -308,18 +421,17 @@ def quantized_conv_transpose2d(x, weight, bias=None, stride=2, padding=1,
                                kernels='cuda'):
     """int8 ConvTranspose2d, NCHW input, weight (I, O, kh, kw); returns
     x's dtype. Counted with quantized_conv2d: one kernel."""
-    if not _on_card(x, kernels, (weight, bias)):
+    if not (_on_kernel(x, kernels, (weight, bias)) and _takes(
+            x, conv_transpose_plan, x.shape, weight.shape, stride, padding,
+            output_padding)):
         return quant.quantized_conv_transpose2d(
             x, weight, bias, stride, padding, output_padding,
             act_amax=act_amax)
-    plan = conv_transpose_plan(x.shape, weight.shape, stride, padding,
-                               output_padding)
     wp, s_w = (packed if packed is not None
                else pack_weight(weight, transposed=True))
-    xq, amax = quantize_activation(x, act_amax)
-    out = conv_codes(xq, amax, wp, s_w, bias, plan, weight.shape[1], x.dtype)
-    quantized_conv2d.launches += 1
-    return out
+    return _conv_op(x, act_amax, wp, s_w, bias, weight.shape[1],
+                    *weight.shape[-2:], stride, padding, 1, output_padding,
+                    transposed=True)
 
 
 quantized_conv2d.launches = 0

@@ -31,10 +31,13 @@ where its DFT path runs, max(H, W) <= 256 (spectral.py:252-254); elsewhere
 the unit is the one without it. The plain version rounds at the same four
 points.
 
-When a gradient is needed, the kernel runs inside
-`_autograd.differentiable`: its backward is the VJP of
-`fourier_unit_plain` recomputed on the saved inputs, with respect to x and
-the conv and BN parameters. The TPU kernel has no VJP at all (the JAX
+The wrapper calls the registered op `lama_tpu_torch::fused_fourier_unit`
+(library.py; the folded weights are op inputs), which launches the kernel
+on a CUDA tensor and computes the plain version on a CPU one; a CPU call
+that needs a gradient takes the plain version itself. When a gradient is
+needed on the card, the op runs inside `_autograd.differentiable`: its
+backward is the VJP of `fourier_unit_plain` recomputed on the saved inputs,
+with respect to x and the conv and BN parameters. The TPU kernel has no VJP at all (the JAX
 package runs it only outside training, models/ffc.py:196-210), so there is
 no backward kernel to port.
 """
@@ -48,7 +51,7 @@ import torch.nn.functional as F
 
 from .. import spectral
 from . import _build
-from ._autograd import differentiable
+from ._autograd import differentiable, needs_grad
 
 MAX_SIDE = 256   # the TPU kernel's envelope, max(H, W) <= 256
 
@@ -449,25 +452,31 @@ def fused_fourier_unit(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var,
                        store_bf16: bool = False):
     """Eval-mode FourierUnit (ortho norm). x: (B, C, H, W); conv_weight:
     (2C', 2C, 1, 1) in the reference's interleaved order; BN over 2C'.
-    `planar`: the (W, bias) of `planar_params`, when the caller keeps them
-    (the forward reads them; a gradient flows through the plain version's
-    parameters). Returns float32 (B, C', H, W); bf16 where `store_bf16`
-    acts (`stores_bf16`)."""
+    `planar`: the (W, bias) of `planar_params`, when the caller keeps them;
+    else computed here. The forward reads
+    them; a gradient flows through the plain version's parameters. Runs
+    the registered op `lama_tpu_torch::fused_fourier_unit` (library.py:
+    the kernel on a CUDA tensor, the plain version on a CPU one). Returns
+    float32 (B, C', H, W); bf16 where `store_bf16` acts (`stores_bf16`)."""
     store_bf16 = stores_bf16(x, store_bf16)
-    if not x.is_cuda:
-        return fourier_unit_plain(x, conv_weight, bn_weight, bn_bias, bn_mean,
-                                  bn_var, eps, store_bf16)
-    out = differentiable(
-        functools.partial(_launch, eps=eps, planar=planar,
-                          store_bf16=store_bf16),
-        functools.partial(fourier_unit_plain, eps=eps, store_bf16=store_bf16),
-        x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var)
-    fused_fourier_unit.launches += 1
-    return out
+    inputs = (x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var)
+    plain = functools.partial(fourier_unit_plain, eps=eps,
+                              store_bf16=store_bf16)
+    if not x.is_cuda and needs_grad(*inputs):
+        return plain(*inputs)
+    if planar is None:
+        planar = planar_params(*inputs[1:], eps)
+
+    def op(*args):
+        return torch.ops.lama_tpu_torch.fused_fourier_unit.default(
+            *args, *planar, eps, store_bf16)
+    return differentiable(op, plain, *inputs)
 
 
 def _launch(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var, eps, planar,
             store_bf16=False):
+    """The kernel's five launches on CUDA tensors: the CUDA implementation
+    of the registered op (library.py)."""
     b, c, h, w = x.shape
     co = conv_weight.shape[0] // 2
     if x.dtype not in (torch.float32, torch.bfloat16):

@@ -29,10 +29,13 @@ conv3x3_simt.py), and returns a channels-last output.
 Types: float32 (fp32 FMA, no TF32) and bfloat16 (fp32 accumulation, bf16
 output).
 
-On a CPU tensor a wrapper computes its plain version; on a CUDA tensor it
-launches its kernel or raises. When a gradient is needed the launch runs
-inside `_autograd.differentiable` (the plain version's VJP as its backward).
-Each wrapper counts its launches in its `launches` attribute.
+Each wrapper calls its registered op (library.py), which launches the
+kernel on a CUDA tensor (or raises) and computes the plain version on a CPU
+tensor; a CPU call that needs a gradient takes the plain version itself.
+When a gradient is needed on the card the op runs inside
+`_autograd.differentiable` (the plain version's VJP as its backward). The
+op's CUDA implementation counts the launches in the wrapper's `launches`
+attribute.
 """
 import ctypes
 import functools
@@ -40,7 +43,7 @@ import functools
 import torch
 
 from . import _build, conv3x3_simt, conv3x3_wgmma, stem_conv
-from ._autograd import differentiable
+from ._autograd import through_op
 from .reflect_conv import reflect_conv_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -131,20 +134,33 @@ def _launch(name, supported, extra, stride, x, weight, bias, bf16=None,
     return out
 
 
+def launch_3x3(x, weight, bias=None):
+    """halo_conv3x3_reflect's kernel on CUDA tensors: the CUDA
+    implementation of its registered op (library.py)."""
+    return _launch('halo_conv3x3_reflect', _kernel6_supported, (), 1, x,
+                   weight, bias, bf16=conv3x3_wgmma.conv3x3_reflect_bf16,
+                   fp32=conv3x3_simt.conv3x3_reflect_fp32)
+
+
+def launch_tiled(x, weight, bias=None, stride=1):
+    """halo_conv_reflect_tiled's kernel on CUDA tensors (stem_conv.cu
+    inside its envelope, else halo_conv.cu): the CUDA implementation of
+    its registered op (library.py)."""
+    k = weight.shape[-1]
+    route = tiled_route(x.shape[2], x.shape[3], x.shape[1], weight.shape[0],
+                        k, stride)
+    return _launch('halo_conv_reflect_tiled',
+                   halo_conv_reflect_tiled_supported, (k, stride), stride, x,
+                   weight, bias, bf16=route, fp32=route)
+
+
 def halo_conv3x3_reflect(x, weight, bias=None):
     """3x3 stride-1 reflect-'same' conv of any channel counts; on the
     GlobalGenerator's path: its ResnetBlocks' 512 -> 512 convs. bf16: the
     wgmma kernel of csrc/conv3x3_wgmma.cu; fp32: the stride-1 SIMT kernel
     of csrc/conv3x3_simt.cu."""
-    if not x.is_cuda:
-        return halo_conv3x3_reflect_plain(x, weight, bias)
-    out = differentiable(
-        functools.partial(_launch, 'halo_conv3x3_reflect', _kernel6_supported,
-                          (), 1, bf16=conv3x3_wgmma.conv3x3_reflect_bf16,
-                          fp32=conv3x3_simt.conv3x3_reflect_fp32),
-        halo_conv3x3_reflect_plain, x, weight, bias)
-    halo_conv3x3_reflect.launches += 1
-    return out
+    return through_op(torch.ops.lama_tpu_torch.halo_conv3x3_reflect.default,
+                      halo_conv3x3_reflect_plain, x, weight, bias)
 
 
 def halo_conv_reflect_tiled(x, weight, bias=None, stride=1):
@@ -152,19 +168,11 @@ def halo_conv_reflect_tiled(x, weight, bias=None, stride=1):
     on the generators' path: the 7x7 4 -> 64 stem, which runs
     csrc/stem_conv.cu in both dtypes (`tiled_route`); every other shape
     runs csrc/halo_conv.cu."""
-    plain = functools.partial(reflect_conv_plain, stride=stride)
-    if not x.is_cuda:
-        return plain(x, weight, bias)
-    k = weight.shape[-1]
-    route = tiled_route(x.shape[2], x.shape[3], x.shape[1], weight.shape[0],
-                        k, stride)
-    out = differentiable(
-        functools.partial(_launch, 'halo_conv_reflect_tiled',
-                          halo_conv_reflect_tiled_supported, (k, stride),
-                          stride, bf16=route, fp32=route),
-        plain, x, weight, bias)
-    halo_conv_reflect_tiled.launches += 1
-    return out
+    return through_op(
+        functools.partial(
+            torch.ops.lama_tpu_torch.halo_conv_reflect_tiled.default,
+            stride=stride),
+        functools.partial(reflect_conv_plain, stride=stride), x, weight, bias)
 
 
 halo_conv3x3_reflect.launches = 0

@@ -29,13 +29,16 @@ view of `x` (a copy only if `x` is not channels-last already), the packed
 weight of conv3x3_wgmma.py, conv3x3_simt.py or head_conv.py, and returns
 a channels-last output.
 
-On a CPU tensor a wrapper computes its plain version; on a CUDA tensor it
-launches its kernel or raises. When a gradient is needed, the launch runs
-inside `_autograd.differentiable`: the forward is the kernel, the backward
-the VJP of the plain version recomputed on the saved inputs, as the TPU
-kernels' `_diff_wrap` (reflect_conv.py:59-87) takes the XLA VJP. Neither
-has a backward kernel. Each wrapper counts its launches in its `launches`
-attribute.
+Each wrapper calls its registered op, `lama_tpu_torch::<wrapper name>`
+(library.py), which launches the kernel on a CUDA tensor (or raises) and
+computes the plain version on a CPU tensor; a CPU call that needs a
+gradient takes the plain version itself. When a gradient is needed on the
+card, the op runs inside `_autograd.differentiable`: the forward is the
+kernel, the backward the VJP of the plain version recomputed on the saved
+inputs, as the TPU kernels' `_diff_wrap` (reflect_conv.py:59-87) takes the
+XLA VJP. Neither has a backward kernel. The op's CUDA implementation counts
+the launches in the wrapper's `launches` attribute, so a loaded exported
+program's calls count too.
 """
 import functools
 
@@ -43,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from . import conv3x3_simt, conv3x3_wgmma, head_conv
-from ._autograd import differentiable
+from ._autograd import through_op
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -113,66 +116,66 @@ def _launch(name, supported, x, weight, bias, bf16=None, fp32=None):
                  bias)
 
 
-def _kernel(wrapper, supported, stride, x, weight, bias, bf16=None,
-            fp32=None):
-    """The common body of the wrappers below, for a CUDA tensor."""
-    plain = functools.partial(reflect_conv_plain, stride=stride)
-    out = differentiable(
-        functools.partial(_launch, wrapper.__name__, supported, bf16=bf16,
-                          fp32=fp32),
-        plain, x, weight, bias)
-    wrapper.launches += 1
-    return out
+# each wrapper's launch: its envelope, stride and the route of each dtype
+ROUTES = {
+    'reflect_conv3x3_cols': (reflect_conv3x3_cols_supported, 1,
+                             conv3x3_wgmma.conv3x3_reflect_bf16,
+                             conv3x3_simt.conv3x3_reflect_fp32),
+    'reflect_conv3x3_taps': (reflect_conv3x3_taps_supported, 1,
+                             conv3x3_wgmma.conv3x3_reflect_bf16,
+                             conv3x3_simt.conv3x3_reflect_fp32),
+    'reflect_down_conv3x3': (
+        reflect_down_conv3x3_supported, 2,
+        functools.partial(conv3x3_wgmma.conv3x3_reflect_bf16, stride=2),
+        functools.partial(conv3x3_simt.conv3x3_reflect_fp32, stride=2)),
+    'reflect_out_conv7x7': (reflect_out_conv7x7_supported, 1,
+                            head_conv.head_conv_reflect,
+                            head_conv.head_conv_reflect),
+}
+
+
+def launch(name, x, weight, bias=None):
+    """The kernel of wrapper `name` on CUDA tensors: the CUDA implementation
+    of its registered op (library.py)."""
+    supported, _, bf16, fp32 = ROUTES[name]
+    return _launch(name, supported, x, weight, bias, bf16=bf16, fp32=fp32)
+
+
+def _call(name, x, weight, bias):
+    """The body of every wrapper below: the registered op
+    `lama_tpu_torch::<name>` (the kernel on a CUDA tensor, the plain
+    version on a CPU one), which counts the launches."""
+    plain = functools.partial(reflect_conv_plain, stride=ROUTES[name][1])
+    return through_op(getattr(torch.ops.lama_tpu_torch, name).default,
+                      plain, x, weight, bias)
 
 
 def reflect_conv3x3_cols(x, weight, bias=None):
     """3x3 stride-1 reflect conv for C = C_out = 128 (the FFC l2l convs).
     bf16: the wgmma kernel of csrc/conv3x3_wgmma.cu; fp32: the stride-1
     SIMT kernel of csrc/conv3x3_simt.cu."""
-    if not x.is_cuda:
-        return reflect_conv_plain(x, weight, bias)
-    return _kernel(reflect_conv3x3_cols, reflect_conv3x3_cols_supported, 1,
-                   x, weight, bias,
-                   bf16=conv3x3_wgmma.conv3x3_reflect_bf16,
-                   fp32=conv3x3_simt.conv3x3_reflect_fp32)
+    return _call('reflect_conv3x3_cols', x, weight, bias)
 
 
 def reflect_conv3x3_taps(x, weight, bias=None):
     """3x3 stride-1 reflect conv for wide channels (the FFC l2g/g2l convs).
     bf16: the wgmma kernel of csrc/conv3x3_wgmma.cu; fp32: the stride-1
     SIMT kernel of csrc/conv3x3_simt.cu."""
-    if not x.is_cuda:
-        return reflect_conv_plain(x, weight, bias)
-    return _kernel(reflect_conv3x3_taps, reflect_conv3x3_taps_supported, 1,
-                   x, weight, bias,
-                   bf16=conv3x3_wgmma.conv3x3_reflect_bf16,
-                   fp32=conv3x3_simt.conv3x3_reflect_fp32)
+    return _call('reflect_conv3x3_taps', x, weight, bias)
 
 
 def reflect_down_conv3x3(x, weight, bias=None):
     """3x3 stride-2 reflect conv (the generator's downsamples). bf16: the
     stride-2 wgmma kernel of csrc/conv3x3_wgmma.cu; fp32: the stride-2 SIMT
     kernel of csrc/conv3x3_simt.cu."""
-    if not x.is_cuda:
-        return reflect_down_conv3x3_plain(x, weight, bias)
-    return _kernel(reflect_down_conv3x3, reflect_down_conv3x3_supported, 2,
-                   x, weight, bias,
-                   bf16=functools.partial(conv3x3_wgmma.conv3x3_reflect_bf16,
-                                          stride=2),
-                   fp32=functools.partial(conv3x3_simt.conv3x3_reflect_fp32,
-                                          stride=2))
+    return _call('reflect_down_conv3x3', x, weight, bias)
 
 
 def reflect_out_conv7x7(x, weight, bias=None):
     """7x7 stride-1 reflect conv with at most 8 output channels (the head),
     in either dtype the kernel of csrc/reflect_conv.cu (see head_conv.py):
     bf16 on mma.sync, fp32 a register-tiled FFMA conv."""
-    if not x.is_cuda:
-        return reflect_conv_plain(x, weight, bias)
-    return _kernel(reflect_out_conv7x7, reflect_out_conv7x7_supported, 1,
-                   x, weight, bias,
-                   bf16=head_conv.head_conv_reflect,
-                   fp32=head_conv.head_conv_reflect)
+    return _call('reflect_out_conv7x7', x, weight, bias)
 
 
 reflect_conv3x3_cols.launches = 0

@@ -130,23 +130,43 @@ def bucket_shape(h: int, w: int, modulo: int, bucket: int) -> Tuple[int, int]:
     return ceil_to(max(ph, modulo), bucket), ceil_to(max(pw, modulo), bucket)
 
 
+class Inpainter(torch.nn.Module):
+    """The served function as a module, with the semantics of
+    lama_tpu/serving.py:180-224: (image (B,H,W,3), mask (B,H,W,1)) float32
+    in [0, 1] on the generator's device -> float32 (B,H,W,3), the
+    generator's output on (masked image, mask) composited over the known
+    pixels (out_key 'inpainted': mask * pred + (1 - mask) * image) or as
+    it stands (out_key 'predicted_image'). make_inpaint_forward serves it;
+    export.py exports it."""
+
+    def __init__(self, generator, out_key: str = 'inpainted'):
+        super().__init__()
+        if out_key not in ('inpainted', 'predicted_image'):
+            raise ValueError(f'out_key={out_key!r}: expected inpainted or '
+                             'predicted_image')
+        self.generator = generator
+        self.out_key = out_key
+
+    def forward(self, image, mask):
+        x = torch.cat([image * (1 - mask), mask], dim=-1).permute(0, 3, 1, 2)
+        pred = self.generator(x).permute(0, 2, 3, 1).float()
+        if self.out_key == 'predicted_image':
+            return pred
+        return mask * pred + (1 - mask) * image
+
+
 def make_inpaint_forward(generator, wire: str = 'fp32',
                          out_key: str = 'inpainted'):
-    """The serving forward: (image (B,H,W,3), mask (B,H,W,1)) tensors on the
-    generator's device -> the served image (B,H,W,3), with the semantics of
-    lama_tpu/serving.py:180-224.
+    """The serving forward: `Inpainter(generator, out_key)` under
+    torch.inference_mode, on tensors on the generator's device.
 
-    out_key: 'inpainted' (known pixels kept: mask * pred + (1 - mask) *
-    image) or 'predicted_image' (the raw generator output).
     wire: 'fp32' (float32 in [0,1] in, float32 out) or 'uint8' (uint8 image
     0-255 and {0,1} mask in; uint8 out as floor(clip(out * 255, 0, 255)),
     the map save_image applies to float results, so both wires write the
     same files for 8-bit sources)."""
     if wire not in ('fp32', 'uint8'):
         raise ValueError(f'wire={wire!r}: expected fp32 or uint8')
-    if out_key not in ('inpainted', 'predicted_image'):
-        raise ValueError(f'out_key={out_key!r}: expected inpainted or '
-                         'predicted_image')
+    inpainter = Inpainter(generator, out_key)
     u8 = wire == 'uint8'
 
     @torch.inference_mode()
@@ -154,10 +174,7 @@ def make_inpaint_forward(generator, wire: str = 'fp32',
         if u8:
             image = image.float() / 255.0
             mask = mask.float()
-        x = torch.cat([image * (1 - mask), mask], dim=-1).permute(0, 3, 1, 2)
-        pred = generator(x).permute(0, 2, 3, 1).float()
-        out = pred if out_key == 'predicted_image' else (
-            mask * pred + (1 - mask) * image)
+        out = inpainter(image, mask)
         if u8:
             return torch.floor(torch.clamp(out * 255.0, 0.0, 255.0)).to(
                 torch.uint8)

@@ -124,3 +124,36 @@ class CheckpointManager:
         if not self.records:
             return None
         return os.path.join(self.directory, self._ranked()[0]['name'])
+
+    @classmethod
+    def repair_index(cls, directory: str, monitor: str = '',
+                     mode: str = 'max',
+                     monitor_range: Optional[Tuple[float, float]] = None
+                     ) -> Dict:
+        """Repair `directory`/index.json in place (lama_tpu/training/
+        checkpoint.py:155-184): drop the records whose checkpoint file is
+        gone, and demote the records whose value is non-finite or outside
+        the monitor's valid range to strictly worst, keeping the original
+        under 'invalid_value', so a value a faulty metric recorded is never
+        taken as best. Returns {'kept', 'dropped', 'demoted'} by name."""
+        index_path = os.path.join(directory, 'index.json')
+        with open(index_path) as f:
+            records = json.load(f)
+        rng = (tuple(monitor_range) if monitor_range is not None
+               else cls.monitor_range_for(monitor))
+        lo, hi = rng if rng is not None else (float('-inf'), float('inf'))
+        worst = float('-inf') if mode == 'max' else float('inf')
+        kept, dropped, demoted = [], [], []
+        for r in records:
+            if not os.path.isfile(os.path.join(directory, str(r['name']))):
+                dropped.append(r['name'])
+                continue
+            v = float(r['value'])
+            if not (math.isfinite(v) and lo <= v <= hi):
+                r = {**r, 'value': worst, 'invalid_value': v}
+                demoted.append(r['name'])
+            kept.append(r)
+        with open(index_path, 'w') as f:
+            json.dump(kept, f)
+        return {'kept': [r['name'] for r in kept], 'dropped': dropped,
+                'demoted': demoted}

@@ -1409,9 +1409,10 @@ def test_head_routes_to_reflect_conv_cu():
     import inspect
 
     from lama_tpu_torch.ops.kernels import head_conv as hc
-    body = inspect.getsource(trc.reflect_out_conv7x7)
-    assert 'bf16=head_conv.head_conv_reflect' in body
-    assert 'fp32=head_conv.head_conv_reflect' in body
+    _, _, bf16, fp32 = trc.ROUTES['reflect_out_conv7x7']
+    assert bf16 is hc.head_conv_reflect and fp32 is hc.head_conv_reflect
+    assert "'reflect_out_conv7x7'" in inspect.getsource(
+        trc.reflect_out_conv7x7)
     assert "_build.load('reflect_conv').lama_reflect_out_conv7x7" in \
         inspect.getsource(hc._launcher)
 

@@ -173,7 +173,8 @@ def test_port_imports_no_jax():
 
 def test_port_and_chip_smoke_import_nothing_of_lama_tpu():
     """The port (its serving, refining, training and evaluation entry points
-    and modules) and chip_smoke.py load no module of lama_tpu, jax or flax,
+    and modules, the device CLIs and the op registrations) and
+    chip_smoke.py load no module of lama_tpu, jax or flax,
     also while chip_smoke.py reads the big-lama config and an evaluator is
     built."""
     code = ('import sys; import lama_tpu_torch, lama_tpu_torch.serving, '
@@ -212,6 +213,13 @@ def test_port_and_chip_smoke_import_nothing_of_lama_tpu():
             'lama_tpu_torch.ops.quant, lama_tpu_torch.ops.serving_mode, '
             'lama_tpu_torch.ops.kernels.conv_int8, lama_tpu_torch.convert, '
             'lama_tpu_torch.tools.conv_int8_time, '
+            'lama_tpu_torch.ops.kernels.library, lama_tpu_torch.export, '
+            'lama_tpu_torch.make_checkpoint, '
+            'lama_tpu_torch.predict_inner_features, '
+            'lama_tpu_torch.precompile, lama_tpu_torch.evaluator_example, '
+            'lama_tpu_torch.analyze_errors, '
+            'lama_tpu_torch.evaluation.linear_svm, '
+            'lama_tpu_torch.verify_reference_parity, '
             'chip_smoke; chip_smoke.big_lama_kwargs(); '
             'lama_tpu_torch.losses.distance_weighting.'
             'make_mask_distance_weighter("pps"); '
