@@ -24,7 +24,9 @@ version):
      the head (kernel 5, 64 -> 3 at 512^2) at the served batch 16 too,
      and the head also at training's b10 256^2 and the refiner's 1024^2;
      kernel 3 at ablv2_work_md's dilation-1 branch (16, 128, 64, 64) ->
-     512 and kernel 1 at an ffc_positions LFU unit's (16, 192, 32, 32);
+     512 and kernel 1 at an ffc_positions LFU unit's (16, 192, 32, 32),
+     and kernel 1 at the served (16, 192, 64, 64) with norm='backward'
+     and norm='forward' (each against the plain unit of its norm);
      fp32
      (TF32 off; each fp32 3x3 stride-1 row prints the K split its grid
      ran with) and bf16, against its plain PyTorch version on the same
@@ -89,8 +91,9 @@ version):
      kernel 6 72, stem 2, head 2, the others 0), its checkpoint served, and
      the fp32 G-step check with the stem's gradient dropped as the control;
  13. evaluate (run after phase 9, before phase 10): 32 synthetic 512^2
-     image + mask pairs in the eval2 layout, masks in 5 of the 10 area
-     bins, served by `python -m lama_tpu_torch.predict` (big-lama bf16,
+     image + mask pairs in the eval2 layout, masks in 1 of the 10 area
+     bins (EVAL_MAX_AREA: each non-empty bin costs one host sqrtm),
+     served by `python -m lama_tpu_torch.predict` (big-lama bf16,
      launches counted), then `python -m lama_tpu_torch.evaluate_predicts
      configs/eval2.yaml` on the card (SSIM, LPIPS-vgg16 at 512^2, FID on
      the whole InceptionV3 at 299^2, batch 8, seeded random score-net
@@ -143,13 +146,15 @@ version):
      plus the FFC D's kernel 6 2 and kernel 4 3 per D forward, 4 forwards,
      5 when that step's fake-fakes draw is 1); run C `-cn big-lama` bf16
      on web shards with bce, steps_per_dispatch 2 and an online val set of
-     8 images (validated, the served counts per eval forward). Then, on
+     8 images (validated with SSIM and LPIPS, no FID, best-k on SSIM; the
+     served counts per eval forward). Then, on
      run B's fp32 trainer, the gradient of the D loss with R1 w.r.t. the
-     FFC D's weights, kernels vs kernels='plain', on 10 batches, each
-     within TRAIN_FLOOR_FACTOR x the plain path's spread, the detached-R1
-     control rejected each time. Kernel rows at the FFC D's shapes (kernel
-     6 at L0 (10,3,256^2)->64 and L4 (10,512,32^2)->512, kernel 4 at L1-L3)
-     join phase 3's, with run B's launches per step.
+     FFC D's weights, kernels vs kernels='plain', on 5 batches
+     (D_REPEATS), each within TRAIN_FLOOR_FACTOR x the plain path's
+     spread, the detached-R1 control rejected each time. Kernel rows at
+     the FFC D's shapes (kernel 6 at L0 (10,3,256^2)->64 and L4
+     (10,512,32^2)->512, kernel 4 at L1-L3) join phase 3's, with run B's
+     launches per step.
  16. int8 serving: the int8 conv (csrc/conv_int8.cu) at big-lama's
      and big-lama-regular's int8 shapes at batch 16 (the four downsamples,
      l2l, l2g and g2l at 64^2, the SpectralTransform's 1x1 384 -> 192 and
@@ -208,6 +213,21 @@ version):
      512x512,1000x760 at b16, then refine=true), predict_inner_features on
      one 512^2 PNG (one heat map a level) and evaluator_example. Prints the
      phase's seconds by part.
+ 19. the item-4 options (last; ROADMAP queue 1 item 4): big-lama at full
+     width and depth (ngf 64, 3 downsamplings, 18 blocks, ratio 0.75, no
+     LFU, sigmoid; seeded random weights, spatial transform angles
+     uniform in [0, 80)) with fft_norm='backward' (opt_norm), spatial
+     scale 0.5 by 'area' (opt_scaled_area: kernel 1 at 32^2, the area
+     resize both ways), blocks 4 and 12 in a learnable spatial transform
+     and out_ffc (opt_st_outffc: kernels 1-3 at 128^2, the out_ffc block
+     at 512^2 with its two units on cuFFT and its LFU units on kernel 1),
+     positional encoding, SE and ffc3d (opt_plain_units: every unit off
+     kernel 1), each at 512^2 b4, and plain big-lama at 2560^2 b1
+     (big_image: its 320^2 units past kernel 1's envelope, on cuFFT):
+     fp32 kernels vs the fp32 plain generator within GEN_ATOL, bf16
+     kernels within GEN_BF16_ATOL, each kernel's launches and the cuFFT
+     units a forward exact (OPT_PER_FORWARD), one profiled bf16 forward
+     at b16 (big_image b1): device ms and the top 5 kernels.
 Prints the `kernels` JSON line, then, as its last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device, and
 when run outside a checkout of the repository.
@@ -302,6 +322,15 @@ def check(cond, msg):
 
 def log(*args):
     print(*args, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def mark(what):
+    """Logs the script's seconds so far as each part starts: where its
+    1200 s go."""
+    log(f'[{time.perf_counter() - T_START:.1f} s] {what}')
 
 
 def card():
@@ -521,6 +550,10 @@ def kernel_cases(gen):
         ('reflect_conv3x3_taps', 'md_branch_b16',
          conv_case(128, 512, 64, 3, True, b=16)),
         ('fused_fourier_unit', 'lfu_b16', fu_case(16, 32, 32)),
+        # kernel 1 with the other norms' twiddle tables at the served b16
+        # (phase 19's opt_norm generator runs 'backward')
+        ('fused_fourier_unit', 'fu_b16_norm_backward', fu_case(16, 64, 64)),
+        ('fused_fourier_unit', 'fu_b16_norm_forward', fu_case(16, 64, 64)),
     ]
     src = 'lama_tpu/ops/pallas/'
 
@@ -553,6 +586,10 @@ def kernel_cases(gen):
         if s != 1 and name == 'halo_conv_reflect_tiled':
             kfn = functools.partial(halo, s=s)
             pfn = functools.partial(rc.reflect_conv_plain, stride=s)
+        if '_norm_' in role:
+            norm = role.rsplit('_', 1)[1]
+            kfn = functools.partial(kfn, norm=norm)
+            pfn = functools.partial(pfn, norm=norm)
         out.append((name, src + tpu, role, kfn, pfn, args))
     return out
 
@@ -1892,7 +1929,7 @@ REST_B = [
 # (the largest of TRAIN_DRAWS draws of TRAIN_X_EPS noise on the images), by
 # the G check's three measures; the control (R1's gradient detached: the
 # penalty's second-order term dropped) must fall outside. D_REPEATS batches.
-D_REPEATS = 10
+D_REPEATS = 5
 
 
 def rest_b_per_step(use_ff):
@@ -2049,7 +2086,13 @@ def rest_of_training(work):
                 'trainer.kwargs.steps_per_dispatch=2',
                 f'data.val.indir={val_dir}', 'data.val.kind=online',
                 'data.val.img_suffix=.png',
-                '+data.val.mask_gen_kwargs.segm_proba=0'])]
+                '+data.val.mask_gen_kwargs.segm_proba=0',
+                # SSIM and LPIPS only: the FID costs one host sqrtm of
+                # 2048^2 per non-empty mask-area group (13-26 s each),
+                # and phase 6's validation holds the trainer's FID and
+                # its ssim_fid100_f1 monitor
+                '+evaluator.fid=false', '~evaluator.integral_kind',
+                'trainer.checkpoint_kwargs.monitor=val_ssim_total_mean'])]
     out = {}
     for name, precision, config_name, per_step, extra in runs:
         rec, trainer = train_run(work, precision, config_name, REST_STEPS,
@@ -2095,14 +2138,17 @@ def rest_of_training(work):
 # ---------------------------------------------------------------- evaluate
 EVAL_N, EVAL_SIZE, EVAL_BATCH = 32, 512, 8   # configs/eval2.yaml: batch 8
 EVAL_CPU_BATCHES = 1   # the card-vs-CPU scores: the first batch of pairs
+# the masks' largest area: all in bin 0-10%. Each non-empty bin adds one
+# host sqrtm of 2048^2 (13-26 s on the card's host) to the FID
+EVAL_MAX_AREA = 0.09
 EVAL2 = os.path.join(REPO, 'configs', 'eval2.yaml')
 
 
 def write_eval_images(root, rng, n=EVAL_N, size=EVAL_SIZE):
     """The eval2 layout: <root>/data/imgNN.png + imgNN_mask.png (a band of
-    rows covering 2% to 48% of the image: mask-area bins 0-4, 6 or 7
-    images each), and <root>/gt/imgNN_mask.png, the ground truth under the
-    prediction's name. Returns the two dirs and the masks' bins."""
+    rows covering 2% to EVAL_MAX_AREA of the image: mask-area bin 0), and
+    <root>/gt/imgNN_mask.png, the ground truth under the prediction's
+    name. Returns the two dirs and the masks' bins."""
     data, gt = os.path.join(root, 'data'), os.path.join(root, 'gt')
     os.makedirs(data)
     os.makedirs(gt)
@@ -2113,8 +2159,12 @@ def write_eval_images(root, rng, n=EVAL_N, size=EVAL_SIZE):
                        -1)
         img = np.clip(0.5 + 0.4 * img + 0.05 * rng.randn(size, size, 3), 0, 1)
         img = np.rint(img * 255).astype(np.uint8)
-        rows = int(round((0.02 + 0.46 * i / (n - 1)) * size))
-        y0 = rng.randint(0, size - rows + 1)
+        # y0 is drawn as for a band of 2% to 48% of the rows, whatever
+        # EVAL_MAX_AREA is: the rng's stream, and so every image (and the
+        # segmenters' BatchNorm statistics in phase 14), stays the same
+        span = int(round((0.02 + 0.46 * i / (n - 1)) * size))
+        y0 = rng.randint(0, size - span + 1)
+        rows = int(round((0.02 + (EVAL_MAX_AREA - 0.02) * i / (n - 1)) * size))
         mask = np.zeros((size, size), np.uint8)
         mask[y0:y0 + rows] = 255
         bins.append(min(int(rows / size * 10), 9))
@@ -2246,7 +2296,8 @@ def evaluate(work, model_dir, card_line):
     table = read_table(table_path)
     _, names = _interval_names(10)
     groups = ['total'] + [names[b] for b in sorted(set(bins))]
-    check(len(set(bins)) >= 5, f'evaluate: masks in bins {sorted(set(bins))}')
+    check(sorted(set(bins)) == [0],
+          f'evaluate: masks in bins {sorted(set(bins))}')
     for metric in ('ssim', 'lpips', 'fid'):
         for g in groups:
             v = table.get((metric, 'mean'), {}).get(g)
@@ -2335,8 +2386,8 @@ EVAL2_SEGM = os.path.join(REPO, 'configs', 'eval2_segm.yaml')
 SEG_ATOL = 5e-4
 # SEG_MASK_N: the object-mask search is host time (~10 s an image on a
 # slow host); image 0 gives the compared masks. SEG_FID_N: each pair adds
-# one host sqrtm of 2048^2 (14-24 s on the card's host) to segm_fid's N + 1
-SEG_CPU_N, SEG_FID_N, SEG_MASK_N = 2, 2, 2
+# one host sqrtm of 2048^2 (13-26 s on the card's host) to segm_fid's N + 1
+SEG_CPU_N, SEG_FID_N, SEG_MASK_N = 2, 2, 1
 SEG_DEVICE = 'cuda'   # main() stops without a card
 
 
@@ -3122,6 +3173,138 @@ def multidilated(work, reg_kwargs, card_line):
                 ffc_positions=ffc_launches)
 
 
+# ------------------------------------------------------ item-4 options
+# phase 19: big-lama at full width and depth (configs/training/big-lama.yaml,
+# seeded random weights) with the FFC options of ROADMAP queue 1 item 4, and
+# plain big-lama at 2560^2, whose 320^2 bottleneck is past kernel 1's
+# envelope. (name, generator options, side, batch of the checked forward)
+OPT_GENERATORS = (
+    ('opt_norm', dict(spectral_kwargs=dict(fft_norm='backward')), 512, 4),
+    ('opt_scaled_area', dict(spectral_kwargs=dict(
+        spatial_scale_factor=0.5, spatial_scale_mode='area')), 512, 4),
+    ('opt_st_outffc', dict(spatial_transform_layers=[4, 12], out_ffc=True),
+     512, 4),
+    ('opt_plain_units', dict(spectral_kwargs=dict(
+        spectral_pos_encoding=True, use_se=True, ffc3d=True)), 512, 4),
+    ('big_image', {}, 2560, 1),
+)
+# launches per forward, and fourier_unit_fft's calls: opt_norm and
+# opt_scaled_area as big-lama (kernel 1 at 64^2 and at 32^2); the wrapped
+# blocks of opt_st_outffc run kernels 1-3 at 128^2, one launch each as
+# before, and its out_ffc block at ngf 64 (16 local, 48 global channels)
+# adds six 3x3 reflect convs on kernel 6 (512^2, 16 and 48 channels), its
+# two LFU units on kernel 1 (24 channels at 256^2) and its two 512^2
+# units on cuFFT; opt_plain_units keeps every unit off kernel 1 by option,
+# big_image by shape (36 cuFFT units)
+OPT_PER_FORWARD = {
+    'opt_norm': (PER_FORWARD, 0),
+    'opt_scaled_area': (PER_FORWARD, 0),
+    'opt_st_outffc': (dict(PER_FORWARD, fused_fourier_unit=38,
+                           halo_conv3x3_reflect=6), 2),
+    'opt_plain_units': (dict(PER_FORWARD, fused_fourier_unit=0), 0),
+    'big_image': (dict(PER_FORWARD, fused_fourier_unit=0), 36),
+}
+# bf16 kernels vs the fp32 plain generator (sigmoid output in [0, 1]): the
+# kernels' bf16 bound (TOL); big-lama's runs ~1.1e-3 at 512^2 b2
+GEN_BF16_ATOL = TOL['bf16'][1]
+OPT_PROFILE_BATCH = 16   # the served batch; big_image profiles its b1
+
+
+def opt_generator(name, opts, size, batch, base_kwargs, card_line, seed):
+    """One phase-19 generator: fp32 and bf16 kernels forwards on a batch
+    with each kernel's launches and fourier_unit_fft's calls counted
+    (OPT_PER_FORWARD), the fp32 plain generator's output as the reference
+    (fp32 within GEN_ATOL, bf16 within GEN_BF16_ATOL), then one profiled
+    bf16 forward at the served batch (big_image at its b1): device ms and
+    the top 5 kernels. Returns the counts by precision."""
+    import torch
+    from lama_tpu_torch.models import make_generator
+    from lama_tpu_torch.ops.kernels import fourier_unit as fu
+    t0 = time.perf_counter()
+    kw = dict(base_kwargs, **{k: v for k, v in opts.items()
+                              if k != 'spectral_kwargs'})
+    if 'spectral_kwargs' in opts:
+        kw['spectral_kwargs'] = dict(base_kwargs.get('spectral_kwargs') or {},
+                                     **opts['spectral_kwargs'])
+    sd = random_state_dict(make_generator('ffc_resnet', **kw), seed)
+    # the spatial transform angles: uniform in [0, angle_init_range) (80,
+    # lama_tpu's default), as the reference's init draws them
+    gen = torch.Generator().manual_seed(seed)
+    for k in sd:
+        if k.endswith('.angle'):
+            sd[k] = torch.rand(1, generator=gen) * 80.0
+    gens = {}
+    for precision, kernels in (('fp32', 'cuda'), ('fp32', 'plain'),
+                               ('bf16', 'cuda')):
+        g = make_generator('ffc_resnet', kernels=kernels, dtype=dict(
+            fp32=torch.float32, bf16=torch.bfloat16)[precision], **kw)
+        g.load_state_dict(sd, strict=True)
+        gens[precision, kernels] = g.cuda().eval().requires_grad_(False)
+    want, want_fft = OPT_PER_FORWARD[name]
+    x = random_batch(batch, size, seed)
+    counts = {}
+    with torch.inference_mode():
+        ref = gens['fp32', 'plain'](x)
+        outs = {}
+        for precision in ('fp32', 'bf16'):
+            fns = reset_counts()
+            fu.fourier_unit_fft.calls = 0
+            outs[precision] = gens[precision, 'cuda'](x)
+            torch.cuda.synchronize()
+            counts[precision] = {k: fn.launches for k, fn in fns.items()}
+            counts[precision]['fourier_unit_fft'] = fu.fourier_unit_fft.calls
+    errs = {p: float((o.float() - ref).abs().max()) for p, o in outs.items()}
+    log(f'phase 19 {name} {size}^2 b{batch}: kernels vs fp32 plain max|d| '
+        f'fp32 {errs["fp32"]:.3e} (atol {GEN_ATOL}), bf16 '
+        f'{errs["bf16"]:.3e} (atol {GEN_BF16_ATOL}); launches a forward '
+        f'{counts["fp32"]}')
+    for precision in ('fp32', 'bf16'):
+        got = dict(counts[precision])
+        fft_calls = got.pop('fourier_unit_fft')
+        check(got == want and fft_calls == want_fft,
+              f'phase 19 {name} {precision}: launches {got}, cuFFT units '
+              f'{fft_calls}; expected {want}, {want_fft}')
+    check(ref.shape == (batch, 3, size, size)
+          and bool(torch.isfinite(outs['fp32']).all())
+          and bool(torch.isfinite(outs['bf16']).all()),
+          f'phase 19 {name}: output {tuple(outs["fp32"].shape)} not finite '
+          'or of the wrong shape')
+    check(errs['fp32'] <= GEN_ATOL, f'phase 19 {name}: fp32 kernels vs plain')
+    check(errs['bf16'] <= GEN_BF16_ATOL,
+          f'phase 19 {name}: bf16 kernels vs fp32 plain')
+    del outs, ref, gens['fp32', 'plain'], gens['fp32', 'cuda']
+    torch.cuda.empty_cache()
+    pb = 1 if size > 512 else OPT_PROFILE_BATCH
+    xp = random_batch(pb, size, seed + 1)
+    with torch.inference_mode():
+        prof = device_profile(lambda: gens['bf16', 'cuda'](xp),
+                              f'phase 19 {name} {size}^2 b{pb} bf16', top=5)
+    del gens
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    log(f'phase 19 {name}: {secs:.1f} s; bf16 b{pb} device '
+        f'{prof["device_ms"]} ms, wall {prof["wall_ms"]:.1f} ms, idle '
+        f'{prof["idle"]} ({card_line})')
+    return dict(counts=counts, errs=errs, profile=prof, seconds=secs)
+
+
+def item4_options(card_line):
+    """Phase 19: each OPT_GENERATORS generator through `opt_generator`.
+    Returns their records by name."""
+    import torch
+    t0 = time.perf_counter()
+    base = big_lama_kwargs()
+    base.pop('kind')
+    out = {}
+    for i, (name, opts, size, batch) in enumerate(OPT_GENERATORS):
+        out[name] = opt_generator(name, opts, size, batch, base, card_line,
+                                  seed=40 + i)
+        torch.cuda.empty_cache()
+    log(f'phase 19: {time.perf_counter() - t0:.1f} s (' + ', '.join(
+        f'{k} {v["seconds"]:.1f}' for k, v in out.items()) + ')')
+    return out
+
+
 # ------------------------------------------------------- the device CLIs
 # phase 18 (ROADMAP queue 1 item 12): the CLIs beside predict and train,
 # each on an earlier phase's files where it needs them. The exported
@@ -3346,7 +3529,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     card_line = card()
+    mark('phase 2: build')
     build()
+    mark('phase 3: kernels')
     gen = torch.Generator().manual_seed(0)
     rows = kernels_vs_plain(gen)
     kernel_gradients(gen, rows)
@@ -3358,9 +3543,13 @@ def main():
     with tempfile.TemporaryDirectory() as work:
         model_dir = os.path.join(work, 'model')
         write_model_dir(model_dir, dict(kind='ffc_resnet', **gen_kwargs), sd)
+        mark('phase 4: serve')
         launches = serve(work, model_dir)
+        mark('phase 5: refine')
         refine_launches = refine(work, model_dir)
+        mark('phase 6: train')
         trained = train(work)
+        mark('phase 18: exports, make_checkpoint')
         # phase 18 on phases 4 and 6's files
         t18 = time.perf_counter()
         exports = export_big_lama(work, model_dir, card_line)
@@ -3371,18 +3560,23 @@ def main():
         row['launches'] = launches[row['dtype']][row['name']]
         row['refine_launches'] = refine_launches[row['name']]
         row['train_launches'] = trained[row['dtype']]['launches'][row['name']]
+    mark('phase 7: generator')
     gens = make_generators(gen_kwargs, sd)
     generator_vs_plain(gens)
+    mark('phase 8: refine checks')
     refine_passes_vs_plain(gens)
     refine_gradient_vs_plain(gens)
     refine_step_split(gens['bf16', 'cuda'])
+    mark('phase 9: throughput')
     throughput(gens, card_line)
     del gens
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work:
         model_dir = os.path.join(work, 'model')
         write_model_dir(model_dir, dict(kind='ffc_resnet', **gen_kwargs), sd)
+        mark('phase 13: evaluate')
         ev = evaluate(work, model_dir, card_line)
+        mark('phase 14: segmentation')
         segmentation(work, ev, card_line)
         cli_secs['analyze_errors'] = analyze_errors_cli(work, ev)   # phase 18
     torch.cuda.empty_cache()
@@ -3390,6 +3584,7 @@ def main():
     # big-lama-regular: the GlobalGenerator, kernel 6 on its block convs
     reg_kwargs = big_lama_kwargs('big-lama-regular')
     reg_kind = reg_kwargs.pop('kind')
+    mark('phases 10-12: big-lama-regular')
     reg_sd = random_state_dict(make_generator(reg_kind, **reg_kwargs), seed=1)
     with tempfile.TemporaryDirectory() as work:
         model_dir = os.path.join(work, 'model_regular')
@@ -3418,7 +3613,7 @@ def main():
     del gens
     torch.cuda.empty_cache()
 
-    # phase 15: the rest of training
+    mark('phase 15: the rest of training')
     with tempfile.TemporaryDirectory() as work:
         rest = rest_of_training(work)
     for row in rows:
@@ -3427,13 +3622,13 @@ def main():
         row['rest_train_per_step'] = [c[row['name']] for c in run_b['counts']]
     torch.cuda.empty_cache()
 
-    # phase 16: int8 serving
+    mark('phase 16: int8 serving')
     with tempfile.TemporaryDirectory() as work:
         int8_rows_ = int8_serving(work, gen_kwargs, sd, reg_kind, reg_kwargs,
                                   reg_sd, card_line)
     torch.cuda.empty_cache()
 
-    # phase 17: the multidilated family and ffc_positions
+    mark('phase 17: the multidilated family and ffc_positions')
     with tempfile.TemporaryDirectory() as work:
         md = multidilated(work, reg_kwargs, card_line)
     for row in rows:
@@ -3450,8 +3645,8 @@ def main():
     rows += int8_rows_
     torch.cuda.empty_cache()
 
-    # phase 18: the device CLIs (their other parts ran beside phases 6, 14
-    # and 12)
+    mark('phase 18: the device CLIs (their other parts ran beside phases '
+         '6, 14 and 12)')
     with tempfile.TemporaryDirectory() as work:
         cli_secs.update(device_clis(work, gen_kwargs, sd))
     log(f'phase 18: {sum(cli_secs.values()):.1f} s (' + ', '.join(
@@ -3459,6 +3654,15 @@ def main():
         f'{k} {v["bytes"]} bytes, max |d| {v["max_abs_diff"]:.2e}, ms '
         f'{v["ms"]:.3f} vs eager {v["eager_ms"]:.3f}'
         for k, v in exports.items()))
+
+    mark('phase 19: the item-4 options and the 2560^2 image')
+    opt = item4_options(card_line)
+    for row in rows:
+        row['phase19_launches'] = {k: v['counts'].get(row['dtype'], {}).get(
+            row['name']) for k, v in opt.items()}
+        if row['role'] == 'fu_b16_norm_backward':   # opt_norm's path
+            row['launches'] = row['phase19_launches']['opt_norm']
+    mark('done')
     log(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -9,9 +9,17 @@ whose names are pytorch-fid's as they stand; the ADE20k segmenter, whose
 `ppm_{i}_{j}` map to `ppm.{i}.{j}` and whose MobileNetV2 stem
 `features_0/conv_{j}` to `features.0.{j}`) into reference-format tensors:
 conv kernels HWIO -> OIHW,
-the generator's ConvTranspose kernels HWIO -> IOHW, and a zero
+the generator's ConvTranspose kernels HWIO -> IOHW, Dense kernels (the
+SELayer's fc_0 and fc_2) (I, O) -> (O, I), and a zero
 `num_batches_tracked` beside every BatchNorm, as
 bin/export_torch_checkpoint.py writes them.
+
+A LearnableSpatialTransformWrapper is two entries in lama_tpu's tree: the
+wrapped block keeps its own name (`model_6`) and the wrapper, named with
+`_st` after it, holds only `angle` (lama_tpu/models/ffc.py:723). The
+reference key-space, which the port mirrors, nests the block under the
+wrapper: `model.6.impl.*` beside `model.6.angle`. So `X_st/angle` becomes
+`X.angle`, and every other key under `X` moves to `X.impl.*`.
 `load_checkpoint` reads a reference-format `.ckpt`. `act_amax_from_flax`
 and `set_act_amax` carry an int8 calibration (lama_tpu's 'quant_stats'
 collection, serving.py::calibrate_int8) onto the port's non-persistent
@@ -115,13 +123,20 @@ def state_dict_from_flax(variables: Dict, n_downsampling: int = 0,
                          'inception or segmentation')
     indexed = kind != 'inception'
     out: Dict[str, torch.Tensor] = {}
+    wrapped = []   # the key prefixes of spatially transformed modules
     for path, val in _flatten(dict(variables.get('params', {}))):
         *mpath, leaf = path
         v = np.asarray(val)
         key = flax_path_to_torch_key(mpath, leaf, indexed)
+        if leaf == 'angle' and mpath and mpath[-1].endswith('_st'):
+            key = flax_path_to_torch_key(mpath[:-1] + [mpath[-1][:-3]],
+                                         leaf, indexed)
+            wrapped.append(key[:-len('angle')])
         if leaf == 'kernel' and v.ndim == 4:
             v = np.transpose(v, (2, 3, 0, 1) if key.rsplit('.', 1)[0] in tconv
                              else (3, 2, 0, 1))
+        elif leaf == 'kernel' and v.ndim == 2:
+            v = v.T   # Dense (I, O) -> Linear (O, I)
         out[key] = torch.tensor(v, dtype=torch.float32)
     for path, val in _flatten(dict(variables.get('batch_stats', {}))):
         *mpath, leaf = path
@@ -130,6 +145,10 @@ def state_dict_from_flax(variables: Dict, n_downsampling: int = 0,
     if kind == 'segmentation':
         out = {_SEGMENTATION_KEY.sub(r'\1ppm.\2.', k).replace(
             'features.0.conv.', 'features.0.'): v for k, v in out.items()}
+    for prefix in wrapped:
+        out = {(prefix + 'impl.' + k[len(prefix):]
+                if k.startswith(prefix) and k != prefix + 'angle' else k): v
+               for k, v in out.items()}
     for key in [k for k in out if k.endswith('.running_mean')]:
         out[key[:-len('running_mean')] + 'num_batches_tracked'] = \
             torch.zeros((), dtype=torch.long)

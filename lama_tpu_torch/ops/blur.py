@@ -1,9 +1,10 @@
 """Separable gaussian blur of NCHW tensors (counterpart of
 lama_tpu/ops/blur.py:15-41; the kornia/OpenCV kernel, symmetric and
-normalised)."""
+normalised), and flat-kernel erosion and dilation (blur.py:44-59)."""
 import numpy as np
 import torch
 import torch.nn.functional as F
+
 
 def gaussian_kernel1d(kernel_size: int, sigma: float) -> np.ndarray:
     ax = np.arange(kernel_size, dtype=np.float64) - (kernel_size - 1) / 2.0
@@ -26,3 +27,27 @@ def gaussian_blur2d(x, kernel_size, sigma, border_type='reflect'):
     kw = kw.to(x.device, x.dtype).view(1, 1, 1, -1).repeat(c, 1, 1, 1)
     x = F.pad(x, (pw, pw, ph, ph), mode=border_type)
     return F.conv2d(F.conv2d(x, kh, groups=c), kw, groups=c)
+
+
+def _window(x, kernel_size: int, fill: float, take_min: bool):
+    """The min or max over each kernel_size^2 window of x padded by
+    kernel_size // 2 with `fill` on every side (lama_tpu's 'VALID'
+    reduce_window after a constant pad)."""
+    p = kernel_size // 2
+    xp = F.pad(x, (p, p, p, p), mode='constant', value=fill)
+    if take_min:
+        return -F.max_pool2d(-xp, kernel_size, stride=1)
+    return F.max_pool2d(xp, kernel_size, stride=1)
+
+
+def erosion(x, kernel_size: int):
+    """Greyscale erosion of NCHW x with an all-ones square structuring
+    element: the minimum over each window, the border padded with +inf
+    (kornia.morphology.erosion for a flat kernel)."""
+    return _window(x, kernel_size, float('inf'), True)
+
+
+def dilation(x, kernel_size: int):
+    """Greyscale dilation: the maximum over each window, the border padded
+    with -inf."""
+    return _window(x, kernel_size, float('-inf'), False)

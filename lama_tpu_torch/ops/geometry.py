@@ -12,8 +12,6 @@ Random warps come in two parts, so that a test can feed the port the JAX
 package's `jax.random` draws: `draw_random_affine` takes the angles and
 shifts from a `torch.Generator`, `random_affine` warps by given ones.
 """
-import math
-
 import torch
 
 
@@ -50,21 +48,28 @@ def _grid_sample_bilinear(x, ys, xs, padding_mode='zeros'):
     return top * (1 - wy) + bot * wy
 
 
-def _pixel_grid(h, w, device):
-    return torch.meshgrid(torch.arange(h, dtype=torch.float32, device=device),
-                          torch.arange(w, dtype=torch.float32, device=device),
+def _pixel_grid(h, w, device, dtype=torch.float32):
+    return torch.meshgrid(torch.arange(h, dtype=dtype, device=device),
+                          torch.arange(w, dtype=dtype, device=device),
                           indexing='ij')
 
 
 def rotate(x, angle_degrees):
-    """Rotate NCHW `x` by `angle_degrees` (a float: counter-clockwise in
-    image coordinates, kornia's convention) around the centre, bilinear,
-    zero outside (geometry.py:43-56)."""
+    """Rotate NCHW `x` by `angle_degrees` (counter-clockwise in image
+    coordinates, kornia's convention) around the centre, bilinear, zero
+    outside (geometry.py:43-56). The angle is a float or a 0-dim or
+    one-element tensor; the warp is differentiable in a tensor angle (the
+    learnable spatial transform's), and reads it on the device without a
+    host sync. The coordinates are float32, float64 for a float64 angle
+    (as jnp promotes them under x64)."""
     _, _, h, w = x.shape
-    theta = math.radians(float(angle_degrees))
-    cos, sin = math.cos(theta), math.sin(theta)
+    if not torch.is_tensor(angle_degrees):
+        angle_degrees = torch.tensor(float(angle_degrees))
+    dtype = torch.promote_types(angle_degrees.dtype, torch.float32)
+    theta = torch.deg2rad(angle_degrees.to(x.device, dtype).reshape(()))
+    cos, sin = torch.cos(theta), torch.sin(theta)
     cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
-    yy, xx = _pixel_grid(h, w, x.device)
+    yy, xx = _pixel_grid(h, w, x.device, dtype)
     xs = cos * (xx - cx) - sin * (yy - cy) + cx
     ys = sin * (xx - cx) + cos * (yy - cy) + cy
     return _grid_sample_bilinear(x, ys, xs)

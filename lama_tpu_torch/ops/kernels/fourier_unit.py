@@ -1,5 +1,6 @@
 """Eval-mode FourierUnit: CUDA kernel and its plain version (and the plain
-unit with any BN, which train mode uses).
+unit with any mix of its spectrum, `spectral_unit`, which train mode and
+the options off the kernel use).
 
 Counterpart of the TPU kernel lama_tpu/ops/pallas/fourier_unit.py::
 fused_fourier_unit (fourier_unit.py:130), with `planar_params` for its
@@ -31,6 +32,12 @@ where its DFT path runs, max(H, W) <= 256 (spectral.py:252-254); elsewhere
 the unit is the one without it. The plain version rounds at the same four
 points.
 
+`norm` is torch.fft's ('ortho', the default, 'backward' or 'forward'): the
+kernel's twiddle tables carry its scales (`twiddles_np`), so its
+arithmetic is the same for every norm. A unit wider than the kernel's
+envelope (`kernel_fits` false, max(H, W) > 256) takes `fourier_unit_fft`,
+torch.fft and one 1x1 conv, as lama_tpu's FourierUnit takes jnp.fft there.
+
 The wrapper calls the registered op `lama_tpu_torch::fused_fourier_unit`
 (library.py; the folded weights are op inputs), which launches the kernel
 on a CUDA tensor and computes the plain version on a CPU one; a CPU call
@@ -50,68 +57,116 @@ import torch
 import torch.nn.functional as F
 
 from .. import spectral
+from ..precision import widen
 from . import _build
 from ._autograd import differentiable, needs_grad
 
 MAX_SIDE = 256   # the TPU kernel's envelope, max(H, W) <= 256
+NORMS = ('ortho', 'backward', 'forward')
+
+
+def kernel_fits(h: int, w: int) -> bool:
+    """Whether a unit of side h x w takes the kernel: max(H, W) <=
+    MAX_SIDE, as lama_tpu's `use_dft_for` (ops/spectral.py:252-254) keeps
+    its DFT path there and takes jnp.fft past it. A FourierUnit consults
+    this before any launch and runs `fourier_unit_fft` past it."""
+    return max(h, w) <= MAX_SIDE
+
+
+def check_norm(norm: str) -> str:
+    if norm not in NORMS:
+        raise ValueError(f'fft norm {norm!r}: expected one of {NORMS}')
+    return norm
 
 
 def stores_bf16(x, store_bf16: bool) -> bool:
-    """Whether `store_bf16` acts on a unit with input x: a bf16 input with
-    max(H, W) <= MAX_SIDE, lama_tpu's DFT path (spectral.py:93-96,
-    :252-254)."""
+    """Whether `store_bf16` acts on a unit with input x: a bf16 input that
+    `kernel_fits`, lama_tpu's DFT path (spectral.py:93-96, :252-254)."""
     return (bool(store_bf16) and x.dtype == torch.bfloat16
-            and max(x.shape[-2:]) <= MAX_SIDE)
+            and kernel_fits(*x.shape[-2:]))
+
+
+def _eval_bn(bn_weight, bn_bias, bn_mean, bn_var, eps):
+    def norm(y):
+        return F.batch_norm(y, bn_mean.to(y.dtype), bn_var.to(y.dtype),
+                            bn_weight.to(y.dtype), bn_bias.to(y.dtype), False,
+                            0.0, eps)
+    return norm
 
 
 def fourier_unit_plain(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var,
-                       eps: float = 1e-5, store_bf16: bool = False):
+                       eps: float = 1e-5, store_bf16: bool = False,
+                       norm: str = 'ortho'):
     """Plain version, in the reference's form (reference ffc.py:76-113):
-    rfft2 (ortho) -> interleave re/im per channel -> 1x1 conv -> eval BN ->
-    ReLU -> irfft2, all in float32. Returns float32 NCHW; bf16 where
+    rfft2 -> interleave re/im per channel -> 1x1 conv -> eval BN -> ReLU
+    -> irfft2, all in float32, with torch.fft's `norm` ('ortho',
+    'backward' or 'forward'). Returns float32 NCHW; bf16 where
     `store_bf16` acts (`stores_bf16`), which rounds the outputs of the four
     DFT stages (W, H, H inverse, W inverse) to bf16."""
-    def norm(y):
-        return F.batch_norm(y, bn_mean.float(), bn_var.float(),
-                            bn_weight.float(), bn_bias.float(), False, 0.0,
-                            eps)
-    if stores_bf16(x, store_bf16):
-        return _unit_bf16_stores(x, conv_weight, norm)
-    return fourier_unit_with_norm(x, conv_weight, norm)
+    return spectral_unit(
+        x, mixer(conv_weight, _eval_bn(bn_weight, bn_bias, bn_mean, bn_var,
+                                       eps)),
+        norm, stores_bf16(x, store_bf16))
 
 
-def _spectral_conv(re, im, conv_weight, norm):
-    """The 1x1 conv over the re/im channels interleaved per channel, the
-    norm and the ReLU: (b, c, h, wf) re, im -> (b, c', 2, h, wf)."""
-    b, c, h, _ = re.shape
-    y = torch.stack([re, im], dim=2).reshape(b, 2 * c, h, -1)
-    y = torch.relu(norm(F.conv2d(y, conv_weight.to(y.dtype))))
-    return y.reshape(b, -1, 2, h, y.shape[-1])
+def fourier_unit_fft(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var,
+                     eps: float = 1e-5, norm: str = 'ortho'):
+    """The eval unit past the kernel's envelope (`kernel_fits` false):
+    torch.fft (cuFFT on the card) and one 1x1 conv, float32, the
+    counterpart of lama_tpu's jnp.fft branch (models/ffc.py:229-231,
+    :324-326), which its FourierUnit takes there. No `store_bf16`: lama_tpu
+    rounds only on its DFT path. Counts its calls in `calls`. Returns
+    float32 NCHW."""
+    fourier_unit_fft.calls += 1
+    return spectral_unit(
+        x, mixer(conv_weight, _eval_bn(bn_weight, bn_bias, bn_mean, bn_var,
+                                       eps)), norm)
 
 
-def fourier_unit_with_norm(x, conv_weight, norm):
-    """The plain FourierUnit with `norm` (a callable on the float32
-    spectrum, e.g. a BatchNorm module in train mode) as its BN."""
-    h, w = x.shape[-2:]
-    y = _spectral_conv(*spectral.rfft2(x), conv_weight, norm)
-    return spectral.irfft2(y[:, :, 0], y[:, :, 1], s=(h, w))
+fourier_unit_fft.calls = 0
 
 
-def _unit_bf16_stores(x, conv_weight, norm):
-    """The plain unit with each DFT stage's output rounded to bf16, stage by
-    stage as the kernel's launches run: W-DFT, H-DFT, the conv in float32,
-    H-iDFT, W-iDFT. Returns bf16."""
-    def stored(z):
-        return z.real.bfloat16().float(), z.imag.bfloat16().float()
+def mixer(conv_weight, bn, groups: int = 1):
+    """The unit's mix of its interleaved spectrum: the 1x1 conv (float32,
+    `groups`), the norm `bn` and the ReLU."""
+    def mix(y):
+        return torch.relu(bn(F.conv2d(y, conv_weight.to(y.dtype),
+                                      groups=groups)))
+    return mix
 
-    h, w = x.shape[-2:]
-    re, im = stored(torch.fft.rfft(x.float(), dim=-1, norm='ortho'))
-    re, im = stored(torch.fft.fft(torch.complex(re, im), dim=-2,
-                                  norm='ortho'))
-    y = _spectral_conv(re, im, conv_weight, norm)
-    re, im = stored(torch.fft.ifft(torch.complex(y[:, :, 0], y[:, :, 1]),
-                                   dim=-2, norm='ortho'))
-    return spectral.irfft_w(re, im, w).bfloat16()
+
+def spectral_unit(x, mix, norm: str = 'ortho', store_bf16: bool = False,
+                  ffc3d: bool = False):
+    """Any FourierUnit in plain PyTorch (lama_tpu/models/ffc.py:211-330):
+    the real FFT of NCHW x over (H, W), or over (C, H, W) with `ffc3d`,
+    re and im interleaved per channel ((B, 2C, H, Wf) float32), `mix` of
+    that ((B, 2C', H, Wf)), and its inverse, float32 (the spectral path
+    computes in float32, float64 for a float64 input). With store_bf16 the
+    outputs of the W-DFT, H-DFT, H-iDFT and W-iDFT are rounded to bf16 one
+    axis at a time, as the kernel's launches store them, and the result is
+    bf16 (not with ffc3d: lama_tpu rounds only on its DFT path)."""
+    b, c, h, w = x.shape
+    xf = widen(x)
+    if store_bf16:
+        def stored(z):
+            return z.real.bfloat16().float(), z.imag.bfloat16().float()
+
+        re, im = stored(torch.fft.rfft(xf, dim=-1, norm=norm))
+        re, im = stored(torch.fft.fft(torch.complex(re, im), dim=-2,
+                                      norm=norm))
+    elif ffc3d:
+        f = torch.fft.rfftn(xf, dim=(-3, -2, -1), norm=norm)
+        re, im = f.real, f.imag
+    else:
+        re, im = spectral.rfft2(xf, norm)
+    y = mix(torch.stack([re, im], dim=2).reshape(b, 2 * c, h, -1))
+    y = y.reshape(b, -1, 2, h, y.shape[-1])
+    if store_bf16:
+        re, im = stored(torch.fft.ifft(torch.complex(y[:, :, 0], y[:, :, 1]),
+                                       dim=-2, norm=norm))
+        return spectral.irfft_w(re, im, w, norm).bfloat16()
+    return spectral.irfftn(y[:, :, 0], y[:, :, 1],
+                           (c, h, w) if ffc3d else (h, w), norm)
 
 
 def planar_perm(c: int, device=None) -> torch.Tensor:
@@ -138,26 +193,40 @@ def planar_params(conv_weight, bn_weight, bn_bias, bn_mean, bn_var,
 
 
 # DFT matrices: copies of lama_tpu/ops/spectral.py::_rdft_mats, _dft_mats and
-# _irdft_mats (spectral.py:28-64), ortho norm, computed in float64.
-def _rdft_mats(n):
+# _irdft_mats (spectral.py:28-64) with their scales by norm (and the
+# H-iDFT's, lama_tpu/ops/pallas/fourier_unit.py:142-146), computed in
+# float64. 'ortho' and 'backward' scale as lama_tpu does; 'forward' as
+# torch.fft does (1/n forward, 1 inverse): lama_tpu's DFT matrices scale it
+# as 'backward' (spectral.py:34, :45, :61), which its jnp.fft path does not.
+def forward_scale(n: int, norm: str) -> float:
+    return {'ortho': n ** -0.5, 'backward': 1.0, 'forward': 1.0 / n}[norm]
+
+
+def inverse_scale(n: int, norm: str) -> float:
+    return {'ortho': n ** -0.5, 'backward': 1.0 / n, 'forward': 1.0}[norm]
+
+
+def _rdft_mats(n, norm='ortho'):
     ang = -2.0 * np.pi * np.arange(n)[:, None] * np.arange(n // 2 + 1)[None] / n
-    return np.cos(ang) / np.sqrt(n), np.sin(ang) / np.sqrt(n)       # (n, nf)
+    s = forward_scale(n, norm)
+    return np.cos(ang) * s, np.sin(ang) * s                         # (n, nf)
 
 
 def _dft_mats(n):
+    """The unscaled complex DFT (n, n)."""
     ang = -2.0 * np.pi * np.arange(n)[:, None] * np.arange(n)[None] / n
-    return np.cos(ang) / np.sqrt(n), np.sin(ang) / np.sqrt(n)       # (n, n)
+    return np.cos(ang), np.sin(ang)
 
 
-def _irdft_mats(n):
+def _irdft_mats(n, norm='ortho'):
     nf = n // 2 + 1
     ang = 2.0 * np.pi * np.arange(nf)[:, None] * np.arange(n)[None] / n
     wgt = np.full((nf, 1), 2.0)
     wgt[0] = 1.0
     if n % 2 == 0:
         wgt[-1] = 1.0
-    return (np.cos(ang) * wgt / np.sqrt(n),
-            -np.sin(ang) * wgt / np.sqrt(n))                        # (nf, n)
+    s = inverse_scale(n, norm)
+    return np.cos(ang) * wgt * s, -np.sin(ang) * wgt * s              # (nf, n)
 
 
 # The kernel's constants (csrc/fourier_unit.cu; tests/test_torch_kernels.py
@@ -244,18 +313,21 @@ def freq_order(w: int) -> np.ndarray:
     return np.r_[np.arange(1, w // 2 + 1), 0]
 
 
-def twiddles_np(h: int, w: int, pad: bool = True):
-    """The four twiddle tables of the stage plan, float32, each row padded
-    with zeros to `pitch` floats (pad=False: unpadded):
+def twiddles_np(h: int, w: int, pad: bool = True, norm: str = 'ortho'):
+    """The four twiddle tables of the stage plan for torch.fft's `norm`
+    (the forward tables carry its forward scale, the inverse ones its
+    inverse scale; the kernel itself scales nothing), float32, each row
+    padded with zeros to `pitch` floats (pad=False: unpadded):
     tw_f (W, W): row r is spectrum row r (of [re | im] in `freq_order`) of
     the real W-DFT, the first W rows only; tw_h (2H, 2H): the complex H-DFT
     as a real block matrix over [re | im]; tw_ih (2H, 2H): its inverse;
     tw_iw (W, W): the inverse real W-DFT, reading spectrum rows 0 .. W - 1
     (the rows past them weigh sin(0) and sin(pi n))."""
-    wr, wi = _rdft_mats(w)
-    hr, hi = _dft_mats(h)
-    ihr, ihi = hr.T, -hi.T
-    cr, ci = _irdft_mats(w)
+    wr, wi = _rdft_mats(w, norm)
+    dr, di = _dft_mats(h)
+    hr, hi = dr * forward_scale(h, norm), di * forward_scale(h, norm)
+    ihr, ihi = dr.T * inverse_scale(h, norm), -di.T * inverse_scale(h, norm)
+    cr, ci = _irdft_mats(w, norm)
     order = freq_order(w)
     fwd = np.concatenate([wr.T[order], wi.T[order]], axis=0)       # (2Wf, W)
     inv = np.concatenate([cr.T[:, order], ci.T[:, order]], axis=1)  # (W, 2Wf)
@@ -273,9 +345,9 @@ def twiddles_np(h: int, w: int, pad: bool = True):
 
 
 @functools.lru_cache(maxsize=8)
-def _twiddles(h: int, w: int, device: torch.device):
+def _twiddles(h: int, w: int, norm: str, device: torch.device):
     return {k: torch.from_numpy(v).to(device).contiguous()
-            for k, v in twiddles_np(h, w).items()}
+            for k, v in twiddles_np(h, w, norm=norm).items()}
 
 
 def vec_ok(row, col, n_rows: int, n_cols: int, ev: int) -> bool:
@@ -414,13 +486,14 @@ def _gemm(stage: str, *args):
 
 @functools.lru_cache(maxsize=16)
 def _launch_plan(b: int, h: int, w: int, c: int, co: int, x_bf16: bool,
-                 device: torch.device, sms: int, store_bf16: bool = False):
+                 device: torch.device, sms: int, store_bf16: bool = False,
+                 norm: str = 'ortho'):
     """One shape's five launches on a card of `sms` SMs as ctypes
     structures (the per-call buffers' pointers are filled in at each call),
-    its twiddle tables and the workspace its split stages need:
+    its twiddle tables for `norm` and the workspace its split stages need:
     [(stage, (M, N, K, bm, splits), A, B, C, [(struct, buffer, vec)],
     bias)], tables, workspace floats."""
-    tabs = _twiddles(h, w, device)
+    tabs = _twiddles(h, w, norm, device)
     launches = []
     plan = _stage_plan(b, h, w, c, co, x_bf16, sms=sms,
                        store_bf16=store_bf16)
@@ -449,19 +522,22 @@ _launch_lock = threading.Lock()   # the cached structures are filled per call
 
 def fused_fourier_unit(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var,
                        eps: float = 1e-5, planar=None,
-                       store_bf16: bool = False):
-    """Eval-mode FourierUnit (ortho norm). x: (B, C, H, W); conv_weight:
-    (2C', 2C, 1, 1) in the reference's interleaved order; BN over 2C'.
-    `planar`: the (W, bias) of `planar_params`, when the caller keeps them;
-    else computed here. The forward reads
-    them; a gradient flows through the plain version's parameters. Runs
-    the registered op `lama_tpu_torch::fused_fourier_unit` (library.py:
-    the kernel on a CUDA tensor, the plain version on a CPU one). Returns
-    float32 (B, C', H, W); bf16 where `store_bf16` acts (`stores_bf16`)."""
+                       store_bf16: bool = False, norm: str = 'ortho'):
+    """Eval-mode FourierUnit with torch.fft's `norm` ('ortho', 'backward'
+    or 'forward'). x: (B, C, H, W) with max(H, W) <= MAX_SIDE
+    (`kernel_fits`); conv_weight: (2C', 2C, 1, 1) in the reference's
+    interleaved order; BN over 2C'. `planar`: the (W, bias) of
+    `planar_params`, when the caller keeps them; else computed here. The
+    forward reads them; a gradient flows through the plain version's
+    parameters. Runs the registered op `lama_tpu_torch::fused_fourier_unit`
+    (library.py: the kernel on a CUDA tensor, the plain version on a CPU
+    one). Returns float32 (B, C', H, W); bf16 where `store_bf16` acts
+    (`stores_bf16`)."""
+    check_norm(norm)
     store_bf16 = stores_bf16(x, store_bf16)
     inputs = (x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var)
     plain = functools.partial(fourier_unit_plain, eps=eps,
-                              store_bf16=store_bf16)
+                              store_bf16=store_bf16, norm=norm)
     if not x.is_cuda and needs_grad(*inputs):
         return plain(*inputs)
     if planar is None:
@@ -469,22 +545,23 @@ def fused_fourier_unit(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var,
 
     def op(*args):
         return torch.ops.lama_tpu_torch.fused_fourier_unit.default(
-            *args, *planar, eps, store_bf16)
+            *args, *planar, eps, store_bf16, norm)
     return differentiable(op, plain, *inputs)
 
 
 def _launch(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var, eps, planar,
-            store_bf16=False):
+            store_bf16=False, norm='ortho'):
     """The kernel's five launches on CUDA tensors: the CUDA implementation
     of the registered op (library.py)."""
     b, c, h, w = x.shape
     co = conv_weight.shape[0] // 2
+    check_norm(norm)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f'fused_fourier_unit: dtype {x.dtype}')
     if tuple(conv_weight.shape) != (2 * co, 2 * c, 1, 1):
         raise ValueError(f'fused_fourier_unit: conv weight '
                          f'{tuple(conv_weight.shape)} for {c} channels')
-    if max(h, w) > MAX_SIDE:
+    if not kernel_fits(h, w):
         raise ValueError(f'fused_fourier_unit: {h}x{w} exceeds {MAX_SIDE}')
     wp, bp = planar if planar is not None else planar_params(
         conv_weight, bn_weight, bn_bias, bn_mean, bn_var, eps)
@@ -505,7 +582,7 @@ def _launch(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var, eps, planar,
                       memory_format=torch.channels_last)
     launches, tabs, ws_floats = _launch_plan(
         b, h, w, c, co, x.dtype == torch.bfloat16, x.device,
-        _sm_count(x.device), store_bf16)
+        _sm_count(x.device), store_bf16, norm)
     ws = (torch.empty(ws_floats, dtype=torch.float32, device=x.device)
           if ws_floats else None)
     ptrs = {k: t.data_ptr() for k, t in tabs.items()}

@@ -176,29 +176,30 @@ OPS['halo_conv_reflect_tiled'] = _define(
 
 # ---- kernel 1, the eval FourierUnit (fourier_unit.py)
 def _fu_fake(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var, wp, bp,
-             eps, store_bf16):
+             eps, store_bf16, norm='ortho'):
     return _empty_channels_last(
         (x.shape[0], conv_weight.shape[0] // 2, x.shape[2], x.shape[3]), x,
         torch.bfloat16 if store_bf16 else torch.float32)
 
 
 def _fu_cpu(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var, wp, bp,
-            eps, store_bf16):
+            eps, store_bf16, norm='ortho'):
     return _channels_last(fourier_unit.fourier_unit_plain(
-        x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var, eps, store_bf16))
+        x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var, eps, store_bf16,
+        norm))
 
 
 def _fu_cuda(x, conv_weight, bn_weight, bn_bias, bn_mean, bn_var, wp, bp,
-             eps, store_bf16):
+             eps, store_bf16, norm='ortho'):
     return fourier_unit._launch(x, conv_weight, bn_weight, bn_bias, bn_mean,
-                                bn_var, eps, (wp, bp), store_bf16)
+                                bn_var, eps, (wp, bp), store_bf16, norm)
 
 
 OPS['fused_fourier_unit'] = _define(
     'fused_fourier_unit',
     '(Tensor x, Tensor conv_weight, Tensor bn_weight, Tensor bn_bias, '
     'Tensor bn_mean, Tensor bn_var, Tensor wp, Tensor bp, float eps, '
-    'bool store_bf16) -> Tensor',
+    'bool store_bf16, str norm="ortho") -> Tensor',
     _counted(fourier_unit.fused_fourier_unit, _fu_cuda), _fu_cpu, _fu_fake)
 
 

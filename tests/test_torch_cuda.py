@@ -526,6 +526,45 @@ def test_fourier_unit_kernel(device, dtype, b, c, co, h, w):
     _close(out, ref, dtype)
 
 
+@pytest.mark.parametrize('norm', ['backward', 'forward'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b,c,co,h,w', [(16, 192, 192, 64, 64),
+                                        (1, 16, 16, 125, 95)])
+def test_fourier_unit_kernel_with_norm(device, dtype, norm, b, c, co, h, w):
+    """The other norms' twiddle tables, against the plain unit of that
+    norm."""
+    x, args = _fourier_unit_case(device, b, c, co, h, w)
+    ref = fu.fourier_unit_plain(x, *args, norm=norm)
+    before = fu.fused_fourier_unit.launches
+    out = fu.fused_fourier_unit(x.to(dtype), *args, norm=norm)
+    torch.cuda.synchronize()
+    assert fu.fused_fourier_unit.launches == before + 1
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_fourier_unit_past_256_takes_cufft(device, dtype):
+    """A (1, 192, 320, 320) eval unit runs fourier_unit_fft (cuFFT), no
+    kernel-1 launch, and matches its CPU run."""
+    from lama_tpu_torch.models.ffc import FourierUnit
+    unit = FourierUnit(192, 192).eval()
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        unit.bn.running_mean.copy_(0.1 * torch.rand(384, generator=g))
+        unit.bn.running_var.copy_(1 + 0.3 * torch.rand(384, generator=g))
+    x = torch.rand(1, 192, 320, 320, generator=g)
+    with torch.no_grad():
+        ref = unit(x)
+        launches, calls = fu.fused_fourier_unit.launches, \
+            fu.fourier_unit_fft.calls
+        out = unit.to(device)(x.to(device, dtype))
+        torch.cuda.synchronize()
+    assert fu.fused_fourier_unit.launches == launches
+    assert fu.fourier_unit_fft.calls == calls + 1
+    assert out.dtype == dtype
+    _close(out.float().cpu(), ref, dtype)
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_fourier_unit_is_bit_equal_run_to_run(device, dtype):
     """No atomics and a fixed summation order: two calls on the same

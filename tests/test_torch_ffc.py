@@ -103,32 +103,57 @@ def test_fourier_unit_planar_cache_follows_weights():
     dict(resnet_conv_kwargs=dict(ratio_gin=0.75, ratio_gout=0.75,
                                  enable_lfu=True)),
     dict(spatial_transform_layers=[0]),
-    dict(out_ffc=True),
+    dict(out_ffc=True, out_ffc_kwargs=dict(enable_lfu=False)),
     dict(spectral_kwargs=dict(use_se=True)),
     dict(spectral_kwargs=dict(spectral_pos_encoding=True)),
     dict(spectral_kwargs=dict(ffc3d=True)),
     dict(spectral_kwargs=dict(spatial_scale_factor=0.5)),
 ])
 def test_unported_options_raise(kwargs):
-    """Item 4's options raise, but for LFU, which is ported: its generator
-    builds with an `lfu` unit in each block's SpectralTransform
-    (tests/test_torch_pix2pixhd_extra.py holds it to lama_tpu)."""
+    """Item 4's options, once refused here, build and match lama_tpu's
+    generator (fp32, 64^2, the bounds above; every option in all three
+    stages in tests/test_torch_ffc_options.py). LFU builds an `lfu` unit
+    in each block's SpectralTransform."""
+    from test_torch_ffc_options import jax_variables
     kw = dict(GEN_KW, **kwargs)
+    jgen = make_jax_generator('ffc_resnet', **kw)
+    x = np.random.RandomState(1).rand(1, 64, 64, 4).astype(np.float32)
+    variables = jax_variables(jgen, jnp.asarray(x), train=False, seed=2)
+    ref = np.asarray(jax.jit(lambda v, x: jgen.apply(v, x, train=False))(
+        variables, jnp.asarray(x)))
+    g = make_generator('ffc_resnet', **kw)
+    g.load_state_dict(state_dict_from_flax(variables, 3, 2), strict=True)
     if kw['resnet_conv_kwargs']['enable_lfu']:
-        g = make_generator('ffc_resnet', **kw)
         assert g.model[5].conv1.ffc.convg2g.lfu is not None
-        return
-    with pytest.raises(NotImplementedError):
-        make_generator('ffc_resnet', **kw)
+    with torch.no_grad():
+        out = g.eval()(torch.from_numpy(np.transpose(x, (0, 3, 1, 2))))
+    np.testing.assert_allclose(np.transpose(out.numpy(), (0, 2, 3, 1)), ref,
+                               rtol=1e-3, atol=2e-4)
 
 
 def test_gated_ffc_raises():
-    """The gated FFC is still refused; the multidilated generator, once
-    refused beside it, builds, and an unknown kind raises as lama_tpu's
-    factory does."""
+    """The gated FFC, once refused, matches lama_tpu's (its `gate` 1x1
+    conv weighting the g2l and l2g terms); the multidilated generator,
+    once refused beside it, builds, and an unknown kind raises as
+    lama_tpu's factory does."""
+    from lama_tpu.models.ffc import FFC as JaxFFC
     from lama_tpu_torch.models import MultiDilatedGlobalGenerator
-    with pytest.raises(NotImplementedError):
-        ffc.FFC(8, 8, 3, 0.5, 0.5, padding=1, gated=True, enable_lfu=False)
+    from test_torch_ffc_options import jax_variables
+    rng = np.random.RandomState(3)
+    x = tuple(rng.rand(2, 8, 8, 4).astype(np.float32) for _ in range(2))
+    jmod = JaxFFC(8, 8, 3, 0.5, 0.5, padding=1, gated=True, enable_lfu=False)
+    variables = jax_variables(jmod, tuple(map(jnp.asarray, x)), seed=4)
+    ref = jmod.apply(variables, tuple(map(jnp.asarray, x)))
+    port = ffc.FFC(8, 8, 3, 0.5, 0.5, padding=1, gated=True,
+                   enable_lfu=False)
+    port.load_state_dict(state_dict_from_flax(variables), strict=True)
+    assert port.gate.weight.shape == (2, 8, 1, 1)
+    with torch.no_grad():
+        out = port.eval()(tuple(torch.from_numpy(np.transpose(t, (0, 3, 1, 2)))
+                                for t in x))
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(np.transpose(o.numpy(), (0, 2, 3, 1)),
+                                   np.asarray(r), rtol=1e-5, atol=1e-5)
     assert isinstance(make_generator('pix2pixhd_multidilated'),
                       MultiDilatedGlobalGenerator)
     with pytest.raises(ValueError, match='Unknown generator kind'):

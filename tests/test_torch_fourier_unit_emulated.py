@@ -74,10 +74,11 @@ def gemm(tmp_path_factory):
     return fn
 
 
-def host_unit(gemm, x, conv_weight, bn, misalign=False):
-    """The unit through the wrapper's cached launch plan and the host build
-    of the kernel; x NCHW on the CPU, float32 or bfloat16. misalign: x one
-    element past a 16-byte boundary, so its 16-byte copies are off."""
+def host_unit(gemm, x, conv_weight, bn, misalign=False, norm='ortho'):
+    """The unit through the wrapper's cached launch plan (the twiddle
+    tables of `norm`) and the host build of the kernel; x NCHW on the CPU,
+    float32 or bfloat16. misalign: x one element past a 16-byte boundary,
+    so its 16-byte copies are off."""
     b, c, h, w = x.shape
     co = conv_weight.shape[0] // 2
     wp, bp = fu.planar_params(conv_weight, *bn)
@@ -93,7 +94,7 @@ def host_unit(gemm, x, conv_weight, bn, misalign=False):
         memory_format=torch.channels_last)
     launches, tabs, ws_floats = fu._launch_plan(
         b, h, w, c, co, x.dtype == torch.bfloat16, torch.device('cpu'),
-        EMU_SMS)
+        EMU_SMS, norm=norm)
     ws = torch.full((max(ws_floats, 1),), float('nan'))
     ptrs = {k: t.data_ptr() for k, t in tabs.items()}
     ptrs.update(x=xk.data_ptr(), s0=s0.data_ptr(), s1=s1.data_ptr(),
@@ -152,4 +153,24 @@ def test_kernel_source_on_the_host_with_a_misaligned_input(gemm, dtype, c):
     out, vecs, _ = host_unit(gemm, x, conv, bn, misalign=True)
     assert vecs[0] == (1, 0, 1) and all(v == (1, 1, 1) for v in vecs[1:])
     ref = fu.fourier_unit_plain(x.float(), conv, *bn)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize('norm', ['backward', 'forward'])
+@pytest.mark.parametrize('dtype,b,c,co,h,w', [
+    (torch.float32, 2, 8, 8, 8, 8), (torch.bfloat16, 1, 16, 16, 13, 11),
+    (torch.float32, 1, 8, 8, 5, 95)])
+def test_kernel_source_on_the_host_with_other_norms(gemm, norm, dtype, b, c,
+                                                    co, h, w):
+    """The same source on the 'backward' and 'forward' table sets matches
+    the plain unit of that norm: the norm lives in the tables only."""
+    g = torch.Generator().manual_seed(b + c + h + w + 1)
+    x = torch.rand(b, c, h, w, generator=g).to(dtype)
+    conv = (torch.rand(2 * co, 2 * c, 1, 1, generator=g) * 2 - 1) * 0.3
+    bn = (1 + 0.2 * torch.rand(2 * co, generator=g),
+          0.1 * torch.rand(2 * co, generator=g),
+          0.1 * torch.rand(2 * co, generator=g),
+          1 + 0.3 * torch.rand(2 * co, generator=g))
+    out, _, _ = host_unit(gemm, x, conv, bn, norm=norm)
+    ref = fu.fourier_unit_plain(x.float(), conv, *bn, norm=norm)
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)

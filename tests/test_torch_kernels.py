@@ -229,17 +229,22 @@ def _torch_fu_args(p):
                                              'var')]
 
 
-def test_fourier_unit_plain_matches_pallas_interpret():
+@pytest.mark.parametrize('norm', [None, 'ortho', 'backward'])
+def test_fourier_unit_plain_matches_pallas_interpret(norm):
+    """Each norm the TPU kernel scales as torch.fft does (None: the
+    default, ortho); its 'forward' is lama_tpu's 'backward' and is not
+    held to it (tests/test_torch_ffc_options.py pins that)."""
     rng = np.random.RandomState(0)
     x = rng.rand(2, 16, 16, 8).astype(np.float32)
     p = _fu_params(rng, 8, 8)
+    kw = {} if norm is None else dict(norm=norm)
     ref = jfu.fused_fourier_unit(
         jnp.asarray(x), jnp.asarray(np.transpose(p['conv'], (2, 3, 1, 0))),
         jnp.asarray(p['gamma']), jnp.asarray(p['beta']),
         jnp.asarray(p['mean']), jnp.asarray(p['var']),
-        dtype=jnp.float32, interpret=True)
+        dtype=jnp.float32, interpret=True, **kw)
     before = tfu.fused_fourier_unit.launches
-    out = tfu.fused_fourier_unit(_nchw(x), *_torch_fu_args(p))
+    out = tfu.fused_fourier_unit(_nchw(x), *_torch_fu_args(p), **kw)
     assert tfu.fused_fourier_unit.launches == before
     assert out.dtype == torch.float32
     np.testing.assert_allclose(_nhwc(out), np.asarray(ref), rtol=RTOL,
@@ -334,17 +339,19 @@ def _operands(st, x_bf16):
                8 if x_bf16 and st[key][0] == 'x' else 4)
 
 
-def _replay_unit(b, h, w, c, co, x_bf16=False, pad=True, seed=2, sms=0):
-    """The plan replayed on numpy inputs made from `seed`; the spectra and
-    the output start as NaN, so a read of an element no stage wrote shows.
-    Returns (replayed output NHWC, plain output NHWC)."""
+def _replay_unit(b, h, w, c, co, x_bf16=False, pad=True, seed=2, sms=0,
+                 norm='ortho'):
+    """The plan replayed on numpy inputs made from `seed` with the twiddle
+    tables of `norm`; the spectra and the output start as NaN, so a read
+    of an element no stage wrote shows. Returns (replayed output NHWC,
+    plain output NHWC)."""
     rng = np.random.RandomState(seed)
     x = rng.rand(b, h, w, c).astype(np.float32)
     p = _fu_params(rng, c, co)
     wp, bp = tfu.planar_params(*_torch_fu_args(p))
     wf = w // 2 + 1
     scratch = b * h * 2 * wf * max(c, co)
-    tables = tfu.twiddles_np(h, w, pad)
+    tables = tfu.twiddles_np(h, w, pad, norm)
     # the kernel reads raw row-major memory, as the replay's reshape(-1) does
     assert all(t.flags.c_contiguous for t in tables.values())
     bufs = dict(tables, x=x, wp=wp.numpy(), bp=bp.numpy(),
@@ -352,7 +359,7 @@ def _replay_unit(b, h, w, c, co, x_bf16=False, pad=True, seed=2, sms=0):
                 s1=np.full(scratch, np.nan, np.float32),
                 out=np.full((b, h, w, co), np.nan, np.float32))
     _replay_plan(tfu._stage_plan(b, h, w, c, co, x_bf16, pad, sms), bufs)
-    ref = tfu.fourier_unit_plain(_nchw(x), *_torch_fu_args(p))
+    ref = tfu.fourier_unit_plain(_nchw(x), *_torch_fu_args(p), norm=norm)
     return bufs['out'], _nhwc(ref)
 
 
@@ -378,6 +385,50 @@ def test_fourier_unit_stage_plan_matches_plain(b, h, w, c, co, x_bf16):
         for key, (_, row, col, vec), n_rows, n_cols, ev in _operands(
                 st, x_bf16):
             assert not vec or _runs_ok(row, col, n_rows, n_cols, ev), key
+
+
+@pytest.mark.parametrize('norm', ['backward', 'forward'])
+@pytest.mark.parametrize('b,h,w,c,co,x_bf16', [
+    (2, 8, 8, 3, 3, False), (1, 7, 5, 3, 2, False), (2, 11, 13, 8, 5, True)])
+def test_fourier_unit_stage_plan_matches_plain_for_norm(b, h, w, c, co,
+                                                        x_bf16, norm):
+    """The other norms change only the tables: the same plan on the
+    'backward' and 'forward' tables matches the plain unit of that norm
+    (whose outputs differ from the ortho unit's)."""
+    out, ref = _replay_unit(b, h, w, c, co, x_bf16, norm=norm)
+    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
+    _, ortho = _replay_unit(b, h, w, c, co, x_bf16)
+    assert np.abs(ref - ortho).max() > 10 * ATOL
+
+
+def test_fourier_unit_tables_scale_by_norm():
+    """Forward tables scale by 1/sqrt(n) (ortho), 1 (backward) or 1/n
+    (forward), inverse tables by 1/sqrt(n), 1/n or 1; 'ortho' and
+    'backward' as lama_tpu's Pallas kernel builds them
+    (ops/pallas/fourier_unit.py:140-146)."""
+    from lama_tpu.ops import spectral as jspec
+    h, w = 6, 10
+    base = tfu.twiddles_np(h, w, pad=False, norm='backward')
+    for norm, fwd, inv in (('ortho', lambda n: n ** -0.5, lambda n: n ** 0.5),
+                           ('forward', lambda n: 1.0 / n, lambda n: n)):
+        # each table over the 'backward' one: forward ones 1 / sqrt(n) or
+        # 1 / n, inverse ones sqrt(n) or n over its 1 / n
+        t = tfu.twiddles_np(h, w, pad=False, norm=norm)
+        for name, factor in (('tw_f', fwd(w)), ('tw_h', fwd(h)),
+                             ('tw_ih', inv(h)), ('tw_iw', inv(w))):
+            np.testing.assert_allclose(t[name], base[name] * factor,
+                                       rtol=1e-6, atol=1e-7, err_msg=name)
+    for norm in ('ortho', 'backward'):
+        wr, wi = jspec._rdft_mats(w, norm)
+        ours = tfu._rdft_mats(w, norm)
+        np.testing.assert_allclose(ours[0], wr, rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(ours[1], wi, rtol=1e-6, atol=1e-7)
+        cr, ci = jspec._irdft_mats(w, norm)
+        ours = tfu._irdft_mats(w, norm)
+        np.testing.assert_allclose(ours[0], cr, rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(ours[1], ci, rtol=1e-6, atol=1e-7)
+    with pytest.raises(ValueError, match='fft norm'):
+        tfu.check_norm('unitary')
 
 
 @pytest.mark.parametrize('b,h,w,c,co', [(1, 7, 5, 3, 2), (2, 9, 6, 4, 4),
