@@ -228,6 +228,27 @@ version):
      kernels within GEN_BF16_ATOL, each kernel's launches and the cuFFT
      units a forward exact (OPT_PER_FORWARD), one profiled bf16 forward
      at b16 (big_image b1): device ms and the top 5 kernels.
+ 20. data parallel (last; ROADMAP queue 1 item 11): (a) two ranks of
+     `python3 chip_smoke.py --dp-worker` on the one card, gloo (NCCL refuses
+     two ranks on one device), each an InpaintingTrainer of `-cn big-lama`
+     at full width (ResNetPL on seeded random weights) on its b5 rows of
+     the same global b10 256^2 batches: fp32 with SGD for 2 steps against
+     one process at b10 on the same batches (every metric within rtol 1e-3
+     / atol 1e-5; the G and D BN running statistics as the G optimizer
+     first steps, all from the starting weights, within 1e-5; those after
+     step 1, which hold a forward on updated weights, within 2x the one
+     process's own spread when its images move by 1e-6), then bf16 with
+     Adam as configured for 3 steps (the last profiled, device activity
+     only); every step's metrics finite, its launches on each rank
+     big-lama's per step (PER_TRAIN_STEP), the ranks' weights and buffers
+     bit-equal after it; ms per step and the host ms in collectives
+     logged; (b) one rank of `python -m torch.distributed.run --standalone
+     --nproc_per_node 1 chip_smoke.py --dp-train` (which runs `python -m
+     lama_tpu_torch.train -cn big-lama` in its process) on NCCL, b10
+     256^2 bf16, 4 steps (2 warm up) and one validation of 4 images (SSIM
+     and LPIPS): losses finite, launches exact (the validation's per eval
+     forward), its last.ckpt served by the predict CLI; ms per step and
+     its collectives' host ms beside phase 6's.
 Prints the `kernels` JSON line, then, as its last line,
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device, and
 when run outside a checkout of the repository.
@@ -416,9 +437,14 @@ def kernel_cases(gen):
     from lama_tpu_torch.ops.kernels import halo_conv as hc
     from lama_tpu_torch.ops.kernels import reflect_conv as rc
 
+    # drawn on the card from a seed that `gen` gives: on the host they took
+    # ~18 s a call
+    dev = torch.Generator('cuda').manual_seed(
+        int(torch.randint(0, 2 ** 62, (), generator=gen)))
+
     def u(*shape, scale=1.0, shift=0.0):
-        t = torch.rand(*shape, generator=gen) * 2 - 1
-        return (t * scale + shift).cuda()
+        t = torch.rand(*shape, generator=dev, device='cuda') * 2 - 1
+        return t * scale + shift
 
     def conv_case(c, co, h, k, bias, x=None, b=BATCH, w=None):
         x = (u(b, c, h, w or h) + 1) / 2 if x is None else x
@@ -2678,13 +2704,17 @@ def int8_cases(gen):
     (tools/conv_int8_time.py's CASES)."""
     import torch
     from lama_tpu_torch.tools.conv_int8_time import BATCH, CASES
+    # drawn on the card from a seed that `gen` gives, as kernel_cases' are
+    dev = torch.Generator('cuda').manual_seed(
+        int(torch.randint(0, 2 ** 62, (), generator=gen)))
     out = []
     for role, c, co, h, k, stride, mode, kind, d in CASES:
-        x = (torch.rand(BATCH, c, h, h, generator=gen) * 2 - 1)
+        x = torch.rand(BATCH, c, h, h, generator=dev, device='cuda') * 2 - 1
         shape = (c, co, k, k) if kind == 'transposed' else (co, c, k, k)
-        wt = (torch.rand(*shape, generator=gen) * 2 - 1) * (c * k * k) ** -0.5
-        out.append((role, kind, x.cuda().bfloat16().contiguous(
-            memory_format=torch.channels_last), wt.cuda(), stride, mode, d))
+        wt = ((torch.rand(*shape, generator=dev, device='cuda') * 2 - 1)
+              * (c * k * k) ** -0.5)
+        out.append((role, kind, x.bfloat16().contiguous(
+            memory_format=torch.channels_last), wt, stride, mode, d))
     return out
 
 
@@ -3518,6 +3548,581 @@ def device_clis(work, gen_kwargs, sd):
     return secs
 
 
+# ------------------------------------------------------- data parallel
+# Phase 20 (a): DP_RANKS gloo ranks on the one card (NCCL refuses two ranks
+# on one device), DP_BATCH images each, so the global batch is phase 6's
+# TRAIN_BATCH. An fp32 run with SGD (which keeps the update linear in the
+# gradient; Adam amplifies fp32 summation order) is held to one process on
+# the global batch: every metric within rtol DP_RTOL / atol DP_ATOL, the BN
+# statistics after the first step within DP_STATS_TOL. Then a bf16 run as
+# configured (Adam). Two ranks that share one card measure what the
+# collectives cost, not scaling.
+DP_RANKS = 2
+DP_BATCH = TRAIN_BATCH // DP_RANKS
+DP_FP32_STEPS, DP_BF16_STEPS = 2, 3
+DP_RTOL, DP_ATOL, DP_STATS_TOL = 1e-3, 1e-5, 1e-5
+# the BN statistics after a step also hold the second G forward's, on
+# weights the update moved: held to DP_FLOOR_FACTOR times the one
+# process's own spread when its images move by DP_X_EPS (relative,
+# gaussian), as the G-step check does (TRAIN_X_EPS, TRAIN_FLOOR_FACTOR)
+DP_X_EPS, DP_FLOOR_FACTOR = 1e-6, 2.0
+DP_TIMEOUT = 300   # s: each collective's in a worker, and each world's
+DP_SGD = ('optimizers.generator.kind=sgd', 'optimizers.generator.lr=0.01',
+          'optimizers.discriminator.kind=sgd',
+          'optimizers.discriminator.lr=0.001')
+DP_NCCL_STEPS, DP_VAL_N = 4, 4   # phase 20 (b); its first 2 steps warm up
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def dp_config(work, precision, batch, extra=()):
+    """big-lama's train config at full width, ResNetPL on random weights
+    from the seed, `batch` images a rank."""
+    from lama_tpu_torch.config import compose
+    return compose(os.path.join(REPO, 'configs', 'training'), 'big-lama', [
+        f'location.data_root_dir={work}', f'location.out_root_dir={work}',
+        f'location.tb_dir={work}', f'location.pretrained_models={work}',
+        f'data.batch_size={batch}', f'data.train.out_size={TRAIN_SIZE}',
+        f'trainer.kwargs.precision={"bf16" if precision == "bf16" else 32}',
+        'losses.resnet_pl.allow_random_weights=true', 'device=cuda', *extra])
+
+
+def dp_batches(steps, seed=20):
+    """`steps` global batches of TRAIN_BATCH at TRAIN_SIZE^2: smooth
+    images with noise and a box hole each, NHWC float32."""
+    rng = np.random.RandomState(seed)
+    s = TRAIN_SIZE
+    yy, xx = np.mgrid[0:s, 0:s] / 30.0
+    out = []
+    for _ in range(steps):
+        imgs = np.zeros((TRAIN_BATCH, s, s, 3), np.float32)
+        masks = np.zeros((TRAIN_BATCH, s, s, 1), np.float32)
+        for i in range(TRAIN_BATCH):
+            p = rng.rand(3) * 6
+            img = np.stack([np.sin(yy + p[0]), np.cos(xx - p[1]),
+                            np.sin(xx + yy + p[2])], -1)
+            imgs[i] = np.clip(0.5 + 0.4 * img + 0.05 * rng.randn(s, s, 3), 0, 1)
+            y0, x0 = rng.randint(0, s // 2, size=2)
+            masks[i, y0:y0 + s // 3, x0:x0 + s // 2] = 1
+        out.append((imgs, masks))
+    return out
+
+
+def bn_stats(trainer):
+    """Every BatchNorm running statistic of G and D, on the host."""
+    out = {}
+    for prefix, mod in (('G.', trainer.state.generator),
+                        ('D.', trainer.state.discriminator)):
+        out.update({prefix + k: v.detach().cpu().clone()
+                    for k, v in mod.state_dict().items()
+                    if k.endswith(('running_mean', 'running_var'))})
+    return out
+
+
+@contextlib.contextmanager
+def timed_collectives(calls):
+    """Appends (kind, bytes, host ms) of each all_reduce and broadcast call
+    in the block to `calls`. gloo stages a CUDA tensor through the host, so
+    a call also waits for the work queued before it."""
+    import torch.distributed as dist
+    saved = dist.all_reduce, dist.broadcast
+
+    def timed(kind, fn):
+        def run(tensor, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(tensor, *args, **kwargs)
+            calls.append((kind, tensor.numel() * tensor.element_size(),
+                          (time.perf_counter() - t0) * 1e3))
+            return out
+        return run
+
+    dist.all_reduce = timed('all_reduce', saved[0])
+    dist.broadcast = timed('broadcast', saved[1])
+    try:
+        yield calls
+    finally:
+        dist.all_reduce, dist.broadcast = saved
+
+
+def step_profile(fn):
+    """One call of fn under torch.profiler (device activity only): wall ms
+    and the device's busy ms; no retry, so every rank runs fn once."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return dict(wall_ms=wall, device_ms=device or None)
+
+
+def ranks_bit_equal(trainer):
+    """Whether this rank's G and D weights and buffers are bit-equal to
+    rank 0's (rank 0 broadcasts them, one flat tensor per dtype)."""
+    import torch
+    import torch.distributed as dist
+    from torch._utils import _flatten_dense_tensors
+    tensors = [t.detach() for m in (trainer.state.generator,
+                                    trainer.state.discriminator)
+               for t in (*m.parameters(), *m.buffers())]
+    same = True
+    for dtype in sorted({t.dtype for t in tensors}, key=str):
+        flat = _flatten_dense_tensors([t for t in tensors if t.dtype == dtype])
+        ref = flat.clone()
+        dist.broadcast(ref, src=0, group=trainer.group)
+        same = same and torch.equal(flat.view(torch.uint8),
+                                    ref.view(torch.uint8))
+    return bool(same)
+
+
+def dp_steps(trainer, batches, rank=0, world=1, profile_last=False):
+    """The trainer's step on this rank's rows of each global batch (the
+    trainer's own wire and device copy): per step the metrics averaged over
+    the ranks, host ms (synchronised before and after), launches, the
+    collectives inside the step (with a group) and whether the ranks'
+    weights are bit-equal after it; with `profile_last`, the last step
+    runs under the profiler. The BN statistics are kept after the first
+    step (`bn_stats`) and as the G optimizer first steps (`bn_stats_first`:
+    G's from the G step's forward, D's from the G step's D forwards, all
+    on the starting weights)."""
+    import torch
+    from lama_tpu_torch.parallel.data_parallel import global_rows
+    rec = dict(metrics=[], ms=[], counts=[], collectives=[], equal=[])
+
+    def first_update(opt, args, kwargs):
+        if 'bn_stats_first' not in rec:
+            rec['bn_stats_first'] = bn_stats(trainer)
+    handle = trainer.state.g_opt.register_step_pre_hook(first_update)
+    for i, (img, mask) in enumerate(batches):
+        image, hole = trainer.to_device(trainer.to_wire(dict(
+            image=global_rows(img, rank, world),
+            mask=global_rows(mask, rank, world))))
+        fns = kernel_wrappers()
+        before = {k: f.launches for k, f in fns.items()}
+        calls, out = [], {}
+
+        def step():
+            out['metrics'] = trainer.step_fn(trainer.state, image, hole)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (timed_collectives(calls) if trainer.group is not None
+              else contextlib.nullcontext()):
+            if profile_last and i == len(batches) - 1:
+                rec['profile'] = step_profile(step)
+            else:
+                step()
+            torch.cuda.synchronize()
+        rec['ms'].append((time.perf_counter() - t0) * 1e3)
+        rec['counts'].append({k: f.launches - before[k] for k, f in fns.items()})
+        rec['collectives'].append(calls)
+        rec['metrics'].append(trainer.global_metrics(out['metrics']))
+        if trainer.group is not None:
+            rec['equal'].append(ranks_bit_equal(trainer))
+        if i == 0:
+            rec['bn_stats'] = bn_stats(trainer)
+            handle.remove()
+    return rec
+
+
+def wait_for(path, timeout):
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        check(time.monotonic() < deadline, f'no {path} after {timeout} s')
+        time.sleep(0.1)
+
+
+def dp_worker(argv):
+    """One rank of phase 20 (a): `python3 chip_smoke.py --dp-worker RANK
+    WORLD INIT WORKDIR`. The fp32 SGD steps, then, once the parent's
+    one-process run has ended (WORKDIR/dp_one.done), the bf16 steps (the
+    last profiled), on its rows of the global batches; writes
+    WORKDIR/dp<RANK>.pt."""
+    import torch
+    sys.path.insert(0, REPO)
+    rank, world, init, work = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from lama_tpu_torch.parallel import multihost
+    from lama_tpu_torch.training.trainer import InpaintingTrainer
+    multihost.maybe_initialize_distributed(
+        init_method=init, world_size=world, rank=rank, local_rank=0,
+        backend='gloo', device='cuda', timeout=DP_TIMEOUT)
+    out = dict(backend=torch.distributed.get_backend())
+    batches = dp_batches(max(DP_FP32_STEPS, DP_BF16_STEPS))
+    mark(f'rank {rank}: in the group')
+    try:
+        for precision, steps, extra in (('fp32', DP_FP32_STEPS, DP_SGD),
+                                        ('bf16', DP_BF16_STEPS, ())):
+            trainer = InpaintingTrainer(
+                dp_config(work, precision, DP_BATCH, extra),
+                os.path.join(work, f'dp_{precision}'), device='cuda')
+            check(trainer.world == world and trainer.group is not None,
+                  f'rank {rank}: the trainer is not in the world')
+            mark(f'rank {rank}: {precision} trainer built')
+            if precision == 'bf16':   # time the steps on a card of their own
+                wait_for(os.path.join(work, 'dp_one.done'), DP_TIMEOUT)
+                multihost.barrier()
+                mark(f'rank {rank}: the one-process run has ended')
+            torch.cuda.reset_peak_memory_stats()
+            out[precision] = dp_steps(trainer, batches[:steps], rank, world,
+                                      profile_last=precision == 'bf16')
+            mark(f'rank {rank}: {precision} steps done')
+            out[precision]['peak_gib'] = (torch.cuda.max_memory_allocated()
+                                          / 2 ** 30)
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        multihost.shutdown()
+    torch.save(out, os.path.join(work, f'dp{rank}.pt'))
+    return 0
+
+
+def dp_train(argv):
+    """Phase 20 (b)'s rank under torchrun: `python -m torch.distributed.run
+    ... chip_smoke.py --dp-train OUT.json <train argv>` runs
+    lama_tpu_torch.train as `-m` runs it (runpy, in this process) with
+    each step's metrics, ms, launches and collectives and the validation's
+    launches recorded, and the process group's backend and world; writes
+    OUT.json. Its fit, the trainer built, writes OUT.json.ready and waits
+    for OUT.json.go."""
+    import torch
+    sys.path.insert(0, REPO)
+    from lama_tpu_torch.training import step as step_mod
+    from lama_tpu_torch.training import trainer as trainer_mod
+    out_path, train_argv = argv[0], argv[1:]
+    rec = dict(metrics=[], ms=[], counts=[], collectives=[])
+    call = step_mod.InpaintingTrainStep.__call__
+    validate = trainer_mod.InpaintingTrainer.validate
+
+    def counted_call(self, state, image, mask, draws=None):
+        fns = kernel_wrappers()
+        before = {k: f.launches for k, f in fns.items()}
+        mark(f'(b) step {len(rec["ms"])}')
+        calls = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timed_collectives(calls):
+            metrics = call(self, state, image, mask, draws)
+            torch.cuda.synchronize()
+        rec['ms'].append((time.perf_counter() - t0) * 1e3)
+        rec['collectives'].append((len(calls), sum(c[2] for c in calls)))
+        rec['counts'].append({k: f.launches - before[k] for k, f in fns.items()})
+        rec['metrics'].append({k: float(v) for k, v in metrics.items()})
+        return metrics
+
+    def counted_validate(self, epoch):
+        import torch.distributed as dist
+        rec.update(backend=dist.get_backend(), world=self.world,
+                   card=torch.cuda.current_device(), run_dir=self.run_dir)
+        fns = kernel_wrappers()
+        before = {k: f.launches for k, f in fns.items()}
+        mark('(b) validation')
+        t0 = time.perf_counter()
+        with counting_forwards() as forwards:
+            val = validate(self, epoch)
+        mark('(b) validation done')
+        rec.update(val_seconds=time.perf_counter() - t0, val_metrics=val,
+                   val_forwards=forwards[0],
+                   val_counts={k: f.launches - before[k]
+                               for k, f in fns.items()})
+        return val
+
+    def gated_fit(self, resume_from=None):
+        open(out_path + '.ready', 'w').close()
+        wait_for(out_path + '.go', DP_TIMEOUT)
+        mark('(b) released')
+        return fit(self, resume_from)
+
+    fit = trainer_mod.InpaintingTrainer.fit
+    step_mod.InpaintingTrainStep.__call__ = counted_call
+    trainer_mod.InpaintingTrainer.validate = counted_validate
+    trainer_mod.InpaintingTrainer.fit = gated_fit
+    reset_counts()
+    run_module('lama_tpu_torch.train', train_argv)
+    with open(out_path, 'w') as f:
+        json.dump(rec, f)
+    return 0
+
+
+def run_session(cmd, log_path, timeout):
+    """Start cmd in a session of its own, its output to log_path; returns
+    the Popen. `end_session` waits for it and kills the whole session (the
+    launcher's children too) at the timeout."""
+    f = open(log_path, 'w')
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=f, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    proc.log_file, proc.deadline = f, time.monotonic() + timeout
+    return proc
+
+
+def end_session(proc):
+    import signal
+    try:
+        proc.wait(timeout=max(1.0, proc.deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    finally:
+        proc.log_file.close()
+        try:   # whatever the session left behind
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    return proc.returncode
+
+
+def check_session(proc, rc, label):
+    """Logs the session's `[seconds]` marks (and the end of its output
+    when it failed); fails unless it exited 0."""
+    with open(proc.log_file.name) as f:
+        text = f.read()
+    marks = [f'  {label}: {ln}' for ln in text.splitlines()
+             if ln.startswith('[') and ' s] ' in ln]
+    if marks:
+        log('\n'.join(marks))
+    if rc != 0:
+        log(f'{label} (exit {rc}), the end of its output:\n{text[-6000:]}')
+    check(rc == 0, f'{label} exited with {rc}')
+
+
+def _close(ours, theirs, rtol, atol):
+    return abs(ours - theirs) <= atol + rtol * abs(theirs)
+
+
+def dp_nccl_start(work):
+    """Phase 20 (b)'s session: `python -m torch.distributed.run
+    --standalone --nproc_per_node 1 chip_smoke.py --dp-train ...` on
+    synthetic JPEGs, a val set of DP_VAL_N images and the serve phase's
+    PNGs (written first); its fit waits for OUT.json.go."""
+    rng = np.random.RandomState(21)
+    data = os.path.join(work, 'dp_data')
+    write_train_images(data, TRAIN_BATCH * DP_NCCL_STEPS, rng)
+    val_dir = os.path.join(work, 'dp_val')
+    write_val_images(val_dir, rng, n=DP_VAL_N)
+    write_images(os.path.join(work, 'in'), rng)
+    run_dir = os.path.join(work, 'dp_nccl')
+    out_json = os.path.join(work, 'dp_nccl.json')
+    argv = ['-cn', 'big-lama', f'location.data_root_dir={data}',
+            f'location.out_root_dir={work}', f'location.tb_dir={work}',
+            f'location.pretrained_models={work}', f'run_dir={run_dir}',
+            f'data.batch_size={TRAIN_BATCH}',
+            f'data.train.out_size={TRAIN_SIZE}', 'data.num_workers=4',
+            'trainer.kwargs.max_epochs=1',
+            f'trainer.kwargs.limit_train_batches={DP_NCCL_STEPS}',
+            'trainer.kwargs.log_every_n_steps=1',
+            'trainer.kwargs.precision=bf16',
+            'losses.resnet_pl.allow_random_weights=true', 'device=cuda',
+            f'data.val.indir={val_dir}', 'data.val.img_suffix=.png',
+            '+evaluator.fid=false', '~evaluator.integral_kind',
+            'trainer.checkpoint_kwargs.monitor=val_ssim_total_mean']
+    proc = run_session(
+        [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+         '--nproc_per_node', '1', os.path.join(REPO, 'chip_smoke.py'),
+         '--dp-train', out_json, *argv],
+        os.path.join(work, 'dp_nccl.log'), DP_TIMEOUT)
+    proc.run_dir, proc.out_json = run_dir, out_json
+    return proc
+
+
+def a_checks(work, one, spread, phase6_ms, t_a):
+    """Phase 20 (a)'s checks and logs on the ranks' records (work/dp<r>.pt)
+    and the one process's runs; returns rank 0's bf16 launches."""
+    import torch
+    ranks = [torch.load(os.path.join(work, f'dp{r}.pt'), weights_only=False)
+             for r in range(DP_RANKS)]
+    for i, c in enumerate(one['counts']):
+        check(c == PER_TRAIN_STEP, f'phase 20 one process step {i}: '
+              f'launches {c}, expected {PER_TRAIN_STEP}')
+    for r, rank in enumerate(ranks):
+        check(rank['backend'] == 'gloo', f'rank {r}: {rank["backend"]}')
+        for precision, steps in (('fp32', DP_FP32_STEPS),
+                                 ('bf16', DP_BF16_STEPS)):
+            rec = rank[precision]
+            check(len(rec['metrics']) == steps and all(rec['equal']),
+                  f'phase 20 {precision} rank {r}: weights differ from rank '
+                  f'0\'s after a step ({rec["equal"]})')
+            check(rec['metrics'] == ranks[0][precision]['metrics'],
+                  f'phase 20 {precision}: the ranks\' global metrics differ')
+            for i, m in enumerate(rec['metrics']):
+                check(all(math.isfinite(v) for v in m.values()),
+                      f'phase 20 {precision} step {i}: non-finite {m}')
+            for i, c in enumerate(rec['counts']):
+                check(c == PER_TRAIN_STEP, f'phase 20 {precision} rank {r} '
+                      f'step {i}: launches {c}, expected {PER_TRAIN_STEP}')
+    # fp32: the ranks against the one process
+    worst_m = max(abs(ours[k] - v) / max(abs(v), 1e-30)
+                  for ours, theirs in zip(ranks[0]['fp32']['metrics'],
+                                          one['metrics'])
+                  for k, v in theirs.items())
+    bn = {}   # when: (max |d| / its bound, |d|, |v| there, key), worst first
+    for when in ('bn_stats_first', 'bn_stats'):
+        stats, ours = one[when], ranks[0]['fp32'][when]
+        check(stats and stats.keys() == ours.keys(), 'phase 20: BN keys')
+        bn[when] = []
+        for k, v in stats.items():
+            d = (ours[k] - v).abs()
+            r = d / (DP_STATS_TOL + DP_STATS_TOL * v.abs())
+            i = int(r.argmax())
+            bn[when].append((float(r[i]), float(d[i]), float(v.abs()[i]), k))
+        bn[when].sort(reverse=True)
+    log(f'phase 20 (a) fp32 SGD, {DP_RANKS} ranks x b{DP_BATCH} vs 1 process '
+        f'x b{TRAIN_BATCH}, {DP_FP32_STEPS} steps: largest metric relative '
+        f'difference {worst_m:.3e} (rtol {DP_RTOL}, atol {DP_ATOL}); '
+        f'{len(bn["bn_stats"])} BN statistics, the largest |d| / ({DP_STATS_TOL}'
+        f' + {DP_STATS_TOL} |v|) (|d|, |v|) as G first steps: ' + '; '.join(
+            f'{k} {r:.3f} ({d:.2e}, {v:.2e})'
+            for r, d, v, k in bn['bn_stats_first'][:4])
+        + '; after step 1: ' + '; '.join(
+            f'{k} {r:.3f} ({d:.2e}, {v:.2e})'
+            for r, d, v, k in bn['bn_stats'][:4])
+        + '; weights bit-equal across ranks after every step')
+    for i, (ours, theirs) in enumerate(zip(ranks[0]['fp32']['metrics'],
+                                           one['metrics'])):
+        check(ours.keys() == theirs.keys(), f'phase 20 metrics {ours.keys()}')
+        for k, v in theirs.items():
+            check(_close(ours[k], v, DP_RTOL, DP_ATOL),
+                  f'phase 20 fp32 step {i} {k}: 2 ranks {ours[k]} vs 1 '
+                  f'process {v}')
+    r, d, v, k = bn['bn_stats_first'][0]
+    check(r <= 1, f'phase 20 fp32 BN {k} as G first steps: |d| {d:.3e} at '
+          f'|v| {v:.3e}, outside {DP_STATS_TOL} + {DP_STATS_TOL} |v|')
+    # after step 1: max |d| / (1 + |v|) over every statistic
+    ours, floor = (max(float(((a[k] - v).abs() / (1 + v.abs())).max())
+                       for k, v in one['bn_stats'].items())
+                   for a in (ranks[0]['fp32']['bn_stats'], spread['bn_stats']))
+    log(f'phase 20 (a) fp32 BN statistics after step 1: max |d| / (1 + |v|) '
+        f'{ours:.3e}, the one process\'s own spread at images x (1 + '
+        f'{DP_X_EPS} N(0, 1)) {floor:.3e} (ratio {ours / floor:.3f}, bound '
+        f'{DP_FLOOR_FACTOR})')
+    check(ours <= DP_FLOOR_FACTOR * floor, 'phase 20 fp32 BN statistics '
+          f'after step 1: {ours:.3e} > {DP_FLOOR_FACTOR} x {floor:.3e}')
+    bf = ranks[0]['bf16']
+    for r, rank in enumerate(ranks):
+        b = rank['bf16']
+        per_step = [(len(c), sum(ms for _, _, ms in c),
+                     sum(nb for _, nb, _ in c)) for c in b['collectives']]
+        log(f'phase 20 (a) bf16 rank {r}: ms per step '
+            + ', '.join(f'{t:.1f}' for t in b['ms'])
+            + f' (step {DP_BF16_STEPS - 1} profiled); collectives a step '
+            '(calls, host ms, MB): ' + ', '.join(
+                f'{n} / {ms:.1f} / {nb / 2 ** 20:.1f}' for n, ms, nb in per_step)
+            + f'; peak {b["peak_gib"]:.2f} GiB; losses step 0 -> '
+            f'{DP_BF16_STEPS - 1}: gen_total {b["metrics"][0]["gen_total"]:.4f}'
+            f' -> {b["metrics"][-1]["gen_total"]:.4f}, discr_total '
+            f'{b["metrics"][0]["discr_total"]:.4f} -> '
+            f'{b["metrics"][-1]["discr_total"]:.4f}')
+        p = b['profile']
+        log(f'phase 20 (a) bf16 rank {r} profiled step: wall {p["wall_ms"]:.1f}'
+            ' ms, device busy ' + (
+                'not measured' if p['device_ms'] is None else
+                f'{p["device_ms"]:.1f} ms (idle share '
+                f'{1 - p["device_ms"] / p["wall_ms"]:.3f})'))
+    calls = bf['collectives'][1]
+    small = [ms for _, nb, ms in calls if nb <= 1 << 16]
+    big = [ms for _, nb, ms in calls if nb > 1 << 16]
+    coll_ms = sum(ms for _, _, ms in calls)
+    log(f'phase 20 (a) bf16 rank 0 step 1: {bf["ms"][1]:.1f} ms, of which in '
+        f'collectives {coll_ms:.1f} ms (share {coll_ms / bf["ms"][1]:.3f}): '
+        f'{len(small)} small all-reduces (BN statistics, metrics; <= 64 KiB) '
+        f'{sum(small):.1f} ms, {len(big)} gradient buckets {sum(big):.1f} ms; '
+        f'phase 6 b{TRAIN_BATCH} one process: {phase6_ms:.1f} ms per step; '
+        f'(a) took {t_a:.1f} s')
+
+    return {k: sum(c[k] for c in bf['counts']) for k in bf['counts'][0]}
+
+
+def data_parallel(work, phase6_ms):
+    """Phase 20: (a) DP_RANKS gloo ranks against one process, then their
+    bf16 run; (b) one rank under torchrun on NCCL, its last.ckpt served,
+    started with (a) and released when (a) ends. Returns the launches of
+    (a)'s bf16 run (rank 0) and of (b)'s run."""
+    import torch
+    from lama_tpu_torch.training.trainer import InpaintingTrainer
+    t0 = time.perf_counter()
+    init = f'tcp://127.0.0.1:{free_port()}'
+    procs = [run_session([sys.executable, os.path.join(REPO, 'chip_smoke.py'),
+                          '--dp-worker', str(r), str(DP_RANKS), init, work],
+                         os.path.join(work, f'dp{r}.log'), DP_TIMEOUT)
+             for r in range(DP_RANKS)]
+    # (b) starts now too and waits, its trainer built, until (a) has ended
+    nccl = dp_nccl_start(work)
+    try:   # every exit before (b) has ended ends its session at once
+        try:   # meanwhile, the one process on the global batch, twice
+            batches = dp_batches(DP_FP32_STEPS)
+            rng = np.random.RandomState(22)
+            moved = [((img * (1 + DP_X_EPS * rng.randn(*img.shape))).astype(
+                np.float32), mask) for img, mask in batches]
+            one, spread = (dp_steps(InpaintingTrainer(
+                dp_config(work, 'fp32', TRAIN_BATCH, DP_SGD),
+                os.path.join(work, f'dp_one{j}'), device='cuda'), b)
+                for j, b in enumerate((batches, moved)))
+            torch.cuda.empty_cache()
+            mark('phase 20 (a): the one-process run has ended')
+            wait_for(nccl.out_json + '.ready', DP_TIMEOUT)
+        finally:   # (a)'s bf16 steps start once this exists
+            open(os.path.join(work, 'dp_one.done'), 'w').close()
+            rcs = [end_session(proc) for proc in procs]
+        open(nccl.out_json + '.go', 'w').close()
+        t1 = time.perf_counter()
+        for r, (proc, rc) in enumerate(zip(procs, rcs)):
+            check_session(proc, rc, f'phase 20 rank {r}')
+        mark('phase 20 (a): the ranks have ended')
+        gloo = a_checks(work, one, spread, phase6_ms, t1 - t0)
+        check_session(nccl, end_session(nccl), 'phase 20 (b) torchrun')
+    except BaseException:
+        nccl.deadline = 0
+        end_session(nccl)
+        raise
+    mark('phase 20 (b): the rank has ended')
+    run_dir = nccl.run_dir
+    with open(nccl.out_json) as f:
+        rec = json.load(f)
+    check(rec.get('backend') == 'nccl' and rec.get('world') == 1,
+          f'phase 20 (b): backend {rec.get("backend")}, world '
+          f'{rec.get("world")}')
+    check(len(rec['metrics']) == DP_NCCL_STEPS and all(
+        math.isfinite(v) for m in rec['metrics'] for v in m.values()),
+        f'phase 20 (b): losses {rec["metrics"]}')
+    for i, c in enumerate(rec['counts']):
+        check(c == PER_TRAIN_STEP,
+              f'phase 20 (b) step {i}: launches {c}, expected {PER_TRAIN_STEP}')
+    n = rec['val_forwards']
+    check(n > 0 and all(rec['val_counts'][k] == per * n
+                        for k, per in PER_FORWARD.items()),
+          f'phase 20 (b) validation: launches {rec["val_counts"]} in {n} '
+          'forwards')
+    val = rec['val_metrics']
+    for key in ('val_ssim_total_mean', 'val_lpips_total_mean'):
+        check(math.isfinite(val.get(key, float('nan'))),
+              f'phase 20 (b) validation: {key} {val.get(key)}')
+    check(os.path.isfile(os.path.join(run_dir, 'models', 'last.ckpt')),
+          'phase 20 (b): no last.ckpt')
+    serve_checkpoint(work, run_dir)
+    timed = rec['ms'][TRAIN_WARMUP:]
+    log(f'phase 20 (b) torchrun, 1 rank on NCCL (card {rec["card"]}), '
+        f'b{TRAIN_BATCH} {TRAIN_SIZE}^2 bf16: {np.mean(timed):.1f} ms per '
+        f'step (mean of {len(timed)} after {TRAIN_WARMUP} warm-up; all: '
+        + ', '.join(f'{t:.1f}' for t in rec['ms'])
+        + f'; phase 6, one process without a group: {phase6_ms:.1f}); '
+        'collectives a step (calls, host ms): ' + ', '.join(
+            f'{n} / {ms:.1f}' for n, ms in rec['collectives'])
+        + f'; validation of {DP_VAL_N} images in {rec["val_seconds"]:.1f} s '
+        f'(ssim {val["val_ssim_total_mean"]:.4f}, lpips '
+        f'{val["val_lpips_total_mean"]:.4f}); (b) took '
+        f'{time.perf_counter() - t1:.1f} s; phase 20 '
+        f'{time.perf_counter() - t0:.1f} s')
+    return dict(gloo=gloo, nccl={k: sum(c[k] for c in rec['counts'])
+                                 for k in rec['counts'][0]})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3662,6 +4267,14 @@ def main():
             row['name']) for k, v in opt.items()}
         if row['role'] == 'fu_b16_norm_backward':   # opt_norm's path
             row['launches'] = row['phase19_launches']['opt_norm']
+    torch.cuda.empty_cache()
+
+    mark('phase 20: data parallel')
+    with tempfile.TemporaryDirectory() as work:
+        dp = data_parallel(work, trained['bf16']['ms_per_step'])
+    for row in rows:
+        row['dp_gloo_launches'] = dp['gloo'].get(row['name'])
+        row['dp_nccl_launches'] = dp['nccl'].get(row['name'])
     mark('done')
     log(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': {
@@ -3671,4 +4284,8 @@ def main():
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--dp-worker']:   # phase 20 (a)'s ranks
+        sys.exit(dp_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ['--dp-train']:    # phase 20 (b)'s rank
+        sys.exit(dp_train(sys.argv[2:]))
     sys.exit(main())

@@ -110,8 +110,8 @@ class InpaintingEvaluatorOnline:
     """In-training evaluator: `process_batch` computes and keeps each
     batch's score states; `evaluation_end(states=...)` merges the states the
     caller collected into the keyed results (reference evaluator.py:
-    129-220). The port's trainer runs on one device, so the caller's states
-    are its own."""
+    129-220). A data-parallel trainer passes the states of every rank in
+    rank order, having set `groups` to the ranks' bins in the same order."""
 
     def __init__(self, scores, bins=10, image_key='image', inpainted_key='inpainted',
                  integral_func=None, integral_title=None, clamp_image_range=None):

@@ -182,15 +182,16 @@ def refine_predict(image, mask, generator, modulo=8, n_iters=15, lr=0.002,
     are the unpadded size, scaled down when it exceeds px_budget.
     return_losses (a debug aid): also return the Adam-step losses of each
     scale, a list of 1-D CPU tensors (the first empty: that scale has no
-    reference). `gpu_ids` (the reference's pipeline split) and `mesh`
-    (spatial sharding) are not ported and raise when set."""
-    if gpu_ids is not None:
-        raise NotImplementedError('refiner gpu_ids (the multi-GPU pipeline '
-                                  'split) is not ported; the refiner runs '
-                                  "on the generator's device")
+    reference). `gpu_ids` is accepted for the reference's configs and
+    ignored, as lama_tpu ignores it (refinement.py:168, :178): the
+    reference spreads the rear stages over those GPUs to fit their memory
+    (refinement.py:266-289 there), and one card holds the whole refiner,
+    so the output is the same. `mesh` (spatial sharding) is not ported and
+    raises when set."""
+    del gpu_ids
     if mesh is not None:
         raise NotImplementedError('refiner mesh (spatial sharding) is not '
-                                  'ported yet (ROADMAP queue 1 item 11)')
+                                  'ported yet (ROADMAP queue 1 item 11b)')
     check_refinable(generator)
     device = next(generator.parameters()).device
     image = torch.as_tensor(image).to(device, torch.float32)

@@ -44,16 +44,19 @@ class FakeFakesGenerator:
         is_aug = (torch.rand(b, generator=gen) < self.aug_proba).float()
         return FakeFakesDraws(mask_affine, perm, img_affine, is_aug)
 
-    def __call__(self, draws: FakeFakesDraws, input_images, masks):
+    def __call__(self, draws: FakeFakesDraws, input_images, masks, pool=None):
         """(fake fakes, blend masks), NCHW, from images (B, 3, H, W) and
-        masks (B, 1, H, W) (fake_fakes.py:23-28)."""
+        masks (B, 1, H, W) (fake_fakes.py:23-28). `draws.perm` indexes
+        `pool`, the images a target may be taken from (default: the
+        batch; a data-parallel rank passes the global batch)."""
         blend_masks = self._fill_masks_with_gradient(draws, masks)
-        blend_target = self._make_blend_target(draws, input_images)
+        blend_target = self._make_blend_target(
+            draws, input_images, input_images if pool is None else pool)
         result = input_images * (1 - blend_masks) + blend_target * blend_masks
         return result, blend_masks
 
-    def _make_blend_target(self, draws, input_images):
-        permuted = input_images[draws.perm.to(input_images.device)]
+    def _make_blend_target(self, draws, input_images, pool):
+        permuted = pool[draws.perm.to(pool.device)]
         augmented = random_affine(input_images, *draws.img_affine)
         is_aug = draws.is_aug.to(input_images)[:, None, None, None]
         return augmented * is_aug + permuted * (1 - is_aug)

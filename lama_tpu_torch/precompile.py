@@ -28,7 +28,7 @@ only the build is. The CLI
 Each step logs its seconds. quant_calibration=K (int8 only) calibrates the
 static scales on one zero image of each bucket shape first, as a serving
 process calibrates before its first forward. spatial_shards > 1 raises
-(ROADMAP queue 1 item 11), as in the predict CLI. device defaults to cuda
+(ROADMAP queue 1 item 11b), as in the predict CLI. device defaults to cuda
 and fails without a card; device=cpu runs the same forwards on the CPU's
 plain versions.
 """
@@ -119,7 +119,7 @@ def main(argv):
     if int(cfg.get('spatial_shards', 0) or 0) > 1:
         raise NotImplementedError(f'spatial_shards={cfg.get("spatial_shards")}'
                                   ' is not ported yet (ROADMAP queue 1 item '
-                                  '11)')
+                                  '11b)')
     device = resolve_device(str(cfg.get('device', 'cuda')))
     precision = str(cfg.get('precision', 'bf16'))
     use_refine = bool(cfg.get('refine', False))

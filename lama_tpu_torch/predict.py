@@ -66,7 +66,7 @@ def main(argv):
     if cfg.get('spatial_shards'):
         raise NotImplementedError(f'spatial_shards={cfg.get("spatial_shards")}'
                                   ' is not ported yet (ROADMAP queue 1 item '
-                                  '11)')
+                                  '11b)')
     use_refine = bool(cfg.get('refine', False))
     if use_refine and str(cfg.get('precision', 'bf16')) == 'int8':
         # the refiner differentiates through the rear of the generator;

@@ -7,6 +7,7 @@ Usage:
       [trainer.kwargs.max_epochs=N] [trainer.kwargs.limit_train_batches=N] \
       [losses.resnet_pl.allow_random_weights=true] [device=cuda|cpu] \
       [trainer.resume_from_checkpoint=<run_dir>/models/last.ckpt]
+  torchrun --nproc_per_node N -m lama_tpu_torch.train -cn big-lama ...
 
 Composes configs/training/<name>.yaml with its defaults and the key=value
 overrides, freezes the resolved config to <run_dir>/config.yaml (which
@@ -15,6 +16,13 @@ InpaintingTrainer and fits. Training images are `<data>/train/**/*.jpg`.
 It runs on the CUDA card unless device=cpu is asked for; without a card
 device=cuda fails. The run dir is `run_dir`, else the config's hydra
 template, else <out_root_dir>/<user>_<time>_<name><title>, as in bin/train.py.
+
+Under torchrun each of the N processes drives one card (LOCAL_RANK) and
+they train data-parallel on a global batch of N x data.batch_size, with
+the BatchNorm statistics, gradients and logged metrics of the global batch
+(training/trainer.py): NCCL between cards, gloo with device=cpu. Rank 0
+resolves the run dir and tells the others, and alone writes config.yaml
+and the run's files.
 """
 import argparse
 import datetime
@@ -26,6 +34,7 @@ import sys
 import traceback
 
 from .config import compose, save_config
+from .parallel import multihost
 from .predict import resolve_device
 from .training.trainer import InpaintingTrainer
 
@@ -59,10 +68,15 @@ def main(config_name, overrides):
     logging.basicConfig(level=logging.INFO, force=True)
     config = compose(CONFIG_DIR, config_name, overrides)
     device = resolve_device(str(config.get('device', 'cuda')))
-    run_dir = resolve_run_dir(config, config_name)
-    os.makedirs(run_dir, exist_ok=True)
-    save_config(config, os.path.join(run_dir, 'config.yaml'))
-    LOGGER.info(f'Run dir: {run_dir}')
+    multihost.maybe_initialize_distributed(device=device)
+    # one run dir for every rank: its template holds the time
+    run_dir = multihost.broadcast_pyobj(
+        resolve_run_dir(config, config_name) if multihost.is_main_process()
+        else None)
+    if multihost.is_main_process():
+        os.makedirs(run_dir, exist_ok=True)
+        save_config(config, os.path.join(run_dir, 'config.yaml'))
+        LOGGER.info(f'Run dir: {run_dir}')
     trainer = InpaintingTrainer(config, run_dir, device=device)
     resume = config.select('trainer.resume_from_checkpoint')
     trainer.fit(resume_from=resume if isinstance(resume, str) else None)
@@ -83,3 +97,4 @@ if __name__ == '__main__':
     except Exception as ex:
         LOGGER.critical(f'Training failed due to {ex}:\n{traceback.format_exc()}')
         sys.exit(1)
+    multihost.shutdown()

@@ -8,6 +8,11 @@ The port writes the reference's format instead: a `torch.save`d dict with
 `python -m lama_tpu_torch.predict`) reads and `restore` resumes from.
 `CheckpointManager` keeps the best epochs by a validation metric beside
 `last.ckpt`, as the JAX package's does.
+
+In a data-parallel run (parallel/multihost.py) every rank holds the same
+state, and rank 0 alone writes (`save`, `CheckpointManager.save`,
+`repair_index`; the JAX package's checkpoint.py:23-40), then every rank
+waits at a barrier, so none reads a checkpoint before it is whole.
 """
 import json
 import logging
@@ -17,17 +22,26 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ..parallel import multihost
 from .state import TrainState
 
 LOGGER = logging.getLogger(__name__)
 
 
-def save(path: str, state: TrainState, epoch: int):
+def _write(path: str, state: TrainState, epoch: int):
     """Write the checkpoint atomically (a reader never sees half a file)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f'{path}.{os.getpid()}.tmp'
     torch.save(dict(state.state_dict(), epoch=int(epoch)), tmp)
     os.replace(tmp, path)
+
+
+def save(path: str, state: TrainState, epoch: int):
+    """Write the checkpoint on rank 0; every rank returns once it is
+    written."""
+    if multihost.is_main_process():
+        _write(path, state, epoch)
+    multihost.barrier()
 
 
 def restore(path: str, state: TrainState) -> int:
@@ -46,7 +60,9 @@ class CheckpointManager:
     mode='max')): each epoch writes `epoch<N>.ckpt`, keeps the `save_top_k`
     best by the monitor (records in `index.json`), rewrites `last.ckpt`,
     and notes the epoch in `last_epoch.json`. A monitor value that is not
-    finite or lies outside its valid range ranks strictly worst."""
+    finite or lies outside its valid range ranks strictly worst. Only rank
+    0's manager touches the directory; every rank keeps the same
+    records."""
 
     # valid ranges per monitor-name fragment, longest fragment first
     DEFAULT_MONITOR_RANGES = (
@@ -69,6 +85,7 @@ class CheckpointManager:
                  mode: str = 'max', save_top_k: int = 5, save_last: bool = True,
                  monitor_range: Optional[Tuple[float, float]] = None):
         self.directory = directory
+        self.write = multihost.is_main_process()
         self.monitor = monitor
         self.mode = mode
         self.save_top_k = save_top_k
@@ -76,7 +93,8 @@ class CheckpointManager:
         self.monitor_range = (tuple(monitor_range) if monitor_range is not None
                               else self.monitor_range_for(monitor))
         self.records: List[Dict] = []
-        os.makedirs(directory, exist_ok=True)
+        if self.write:
+            os.makedirs(directory, exist_ok=True)
         self._index_path = os.path.join(directory, 'index.json')
         if os.path.exists(self._index_path):
             with open(self._index_path) as f:
@@ -105,20 +123,22 @@ class CheckpointManager:
                     f'epoch {epoch} strictly worst')
             value = worst
         name = f'epoch{epoch}.ckpt'
-        path = os.path.join(self.directory, name)
-        save(path, state, epoch)
-        if self.save_last:
-            save(os.path.join(self.directory, 'last.ckpt'), state, epoch)
+        if self.write:
+            _write(os.path.join(self.directory, name), state, epoch)
+            if self.save_last:
+                _write(os.path.join(self.directory, 'last.ckpt'), state, epoch)
         self.records.append({'name': name, 'epoch': epoch, 'value': value})
         for r in self._ranked()[self.save_top_k:]:
             stale = os.path.join(self.directory, r['name'])
-            if os.path.exists(stale):
+            if self.write and os.path.exists(stale):
                 os.remove(stale)
             self.records.remove(r)
-        with open(self._index_path, 'w') as f:
-            json.dump(self.records, f)
-        with open(os.path.join(self.directory, 'last_epoch.json'), 'w') as f:
-            json.dump({'epoch': epoch}, f)
+        if self.write:
+            with open(self._index_path, 'w') as f:
+                json.dump(self.records, f)
+            with open(os.path.join(self.directory, 'last_epoch.json'), 'w') as f:
+                json.dump({'epoch': epoch}, f)
+        multihost.barrier()
 
     def best_path(self) -> Optional[str]:
         if not self.records:
@@ -135,7 +155,15 @@ class CheckpointManager:
         gone, and demote the records whose value is non-finite or outside
         the monitor's valid range to strictly worst, keeping the original
         under 'invalid_value', so a value a faulty metric recorded is never
-        taken as best. Returns {'kept', 'dropped', 'demoted'} by name."""
+        taken as best. Returns {'kept', 'dropped', 'demoted'} by name, on
+        every rank; rank 0 repairs."""
+        report = None
+        if multihost.is_main_process():
+            report = cls._repair_index(directory, monitor, mode, monitor_range)
+        return multihost.broadcast_pyobj(report)
+
+    @classmethod
+    def _repair_index(cls, directory, monitor, mode, monitor_range):
         index_path = os.path.join(directory, 'index.json')
         with open(index_path) as f:
             records = json.load(f)

@@ -27,6 +27,16 @@ and its warps) is drawn apart from its use (`draw` -> `StepDraws`), from
 on the host, so each branch is taken on a host value. The JAX step keys
 the same draws by `jax.random.PRNGKey(step)` (trainer.py:447), which
 torch cannot reproduce; the tests hand `__call__` the JAX draws instead.
+
+Data parallel (`group`, a process group; parallel/data_parallel.py): each
+rank steps on its rows of the global batch and the step computes what
+lama_tpu's step over a ('data',) mesh computes on the whole of it
+(mesh.py:88-103). The modules' BatchNorms take global statistics
+(`sync_batchnorm_`, set by the trainer); after each player's backward the
+gradients are averaged over the ranks, then clipped, then stepped; the
+draws are made for the global batch, the same on every rank, and each
+rank keeps its rows, and the fake fakes permute the global batch. The
+metrics stay this rank's means; the trainer averages them.
 """
 import dataclasses
 from typing import Dict, List, Optional
@@ -38,6 +48,8 @@ from ..losses.feature_matching import feature_matching_loss, masked_l1_loss
 from ..models.fake_fakes import FakeFakesDraws
 from ..ops.precision import widen
 from ..ops.resize import interpolate
+from ..parallel.data_parallel import (allreduce_grads_, gather_rows,
+                                      global_rows, rank_and_world)
 from .state import TrainState, clip_grad_norm
 
 
@@ -112,7 +124,7 @@ class InpaintingTrainStep:
                  distance_weighted_mask_for_discr: bool = False,
                  fake_fakes_proba: float = 0.0, fake_fakes_gen=None,
                  add_noise_kwargs=None, noise_fill_hole: bool = False,
-                 r1_every: int = 1, seed: int = 0):
+                 r1_every: int = 1, seed: int = 0, group=None):
         if image_to_discriminator not in ('predicted_image', 'inpainted'):
             raise ValueError(f'image_to_discriminator={image_to_discriminator!r}')
         if fake_fakes_proba > 1e-3 and fake_fakes_gen is None:
@@ -133,27 +145,40 @@ class InpaintingTrainStep:
         self.noise_fill_hole = noise_fill_hole
         self.r1_every = int(r1_every)
         self.seed = int(seed)
+        self.group = group
+        self.rank, self.world = rank_and_world(group)
 
     # ------------------------------------------------------------- draws
-    def _noise(self, gen, img):
+    def _noise(self, gen, img, world=1):
         b, _, h, w = img.shape
         return draw_multiscale_noise(
-            gen, b, h, w, self.add_noise_kwargs.get('scales', 6), img.device)
+            gen, b * world, h, w, self.add_noise_kwargs.get('scales', 6),
+            img.device)
 
     def draw(self, step: int, img) -> StepDraws:
-        """This step's draws for a batch shaped like `img`."""
+        """This step's draws for a batch shaped like `img`: made for the
+        global batch (world x its rows), the same on every rank, and cut to
+        this rank's rows."""
         draws = StepDraws()
+        rank, world = self.rank, self.world
         if self.add_noise_kwargs is not None:
             dev = torch.Generator(img.device).manual_seed(
                 step_seed(self.seed, step, 1))
-            draws.g_noise, draws.d_noise = self._noise(dev, img), self._noise(dev, img)
+            draws.g_noise = [global_rows(t, rank, world)
+                             for t in self._noise(dev, img, world)]
+            draws.d_noise = [global_rows(t, rank, world)
+                             for t in self._noise(dev, img, world)]
         if self.fake_fakes_proba > 1e-3:
             host = torch.Generator().manual_seed(step_seed(self.seed, step, 0))
             draws.use_ff = bool(torch.rand((), generator=host)
                                 < self.fake_fakes_proba)
             if draws.use_ff:
                 b, _, h, w = img.shape
-                draws.ff = self.fake_fakes_gen.draw(host, b, h, w)
+                ff = self.fake_fakes_gen.draw(host, b * world, h, w)
+                rows = lambda t: global_rows(t, rank, world)
+                draws.ff = FakeFakesDraws(
+                    tuple(map(rows, ff.mask_affine)), rows(ff.perm),
+                    tuple(map(rows, ff.img_affine)), rows(ff.is_aug))
         return draws
 
     def eval_noise(self, img):
@@ -275,6 +300,8 @@ class InpaintingTrainStep:
             g_total.backward()
         finally:
             disc.requires_grad_(True)
+        if self.group is not None:
+            allreduce_grads_(gen.parameters(), self.group)
         if self.clip:
             clip_grad_norm(list(gen.parameters()), self.clip)
         state.g_opt.step()
@@ -285,13 +312,16 @@ class InpaintingTrainStep:
             pred = self.to_discriminator(
                 widen(gen(self.generator_input(img, mask, draws.d_noise))),
                 img, mask)
-            fake_fakes = (self.fake_fakes_gen(draws.ff, img, mask)[0]
-                          if draws.use_ff else None)
+            fake_fakes = (self.fake_fakes_gen(
+                draws.ff, img, mask, pool=gather_rows(img, self.group))[0]
+                if draws.use_ff else None)
         state.d_opt.zero_grad(set_to_none=True)
         d_total, d_metrics = self.discriminator_loss(
             disc, img, pred, mask, take_r1=state.step % self.r1_every == 0,
             fake_fakes=fake_fakes)
         d_total.backward()
+        if self.group is not None:
+            allreduce_grads_(disc.parameters(), self.group)
         if self.clip:
             clip_grad_norm(list(disc.parameters()), self.clip)
         state.d_opt.step()

@@ -27,8 +27,24 @@ per-host one, seeded as lama_tpu seeds them), the uint8 input wire
 K batches stacked on the host and moved to the device in one copy, then K
 steps, each as a single step would run it (lama_tpu's refusals kept: no
 curricula, limit_train_batches a multiple of K). The web-shard train data
-cycles its shards to `limit_train_batches` batches an epoch. More than one
-device raises NotImplementedError (ROADMAP queue 1 item 11).
+cycles its shards to `limit_train_batches` batches an epoch.
+
+Data parallel (lama_tpu's ('data',) mesh, trainer.py:192-203 there): one
+process per card under torchrun, joined by the default process group
+(parallel/multihost.py). Each of W ranks loads its own shard of the train
+data at `data.batch_size` images (ddp_kwargs; web shards round-robin, and
+then `limit_train_batches` is required), and the step computes lama_tpu's
+mesh step on the global batch of W x `data.batch_size`: G and D start
+from rank 0's weights, their BatchNorms take global statistics and their
+gradients are averaged before the clip (parallel/data_parallel.py). The
+crop position stream is seeded per rank. On a logging step the metrics
+are averaged over the ranks before the NaN screen, so every rank raises
+together. Validation runs each rank's contiguous shard and merges the
+score states in rank order (`allgather_pyobj`), so every rank computes
+the same metrics and keeps the same checkpoint records. Rank 0 alone
+writes the run dir: metrics.jsonl, the step logs, sample grids and
+checkpoints. `trainer.kwargs.gpus` / `devices` above 1 must match the
+launched world: one process drives one card.
 """
 import json
 import logging
@@ -52,6 +68,8 @@ from ..losses.distance_weighting import make_mask_distance_weighter
 from ..models import make_discriminator, make_generator
 from ..models.fake_fakes import FakeFakesGenerator
 from ..ops.resize import interpolate
+from ..parallel import multihost
+from ..parallel.data_parallel import replicate_, sync_batchnorm_
 from ..utils.ramps import get_ramp
 from . import checkpoint
 from .state import TrainState, make_optimizer
@@ -63,22 +81,26 @@ _DTYPES = {'bf16': torch.bfloat16, '16': torch.bfloat16, '32': torch.float32,
            'fp32': torch.float32}
 
 
-def _refuse(what, item):
-    return NotImplementedError(f'{what} is not ported yet (ROADMAP queue 1 '
-                               f'item {item})')
-
-
 class InpaintingTrainer:
     def __init__(self, config: ConfigNode, run_dir: str, device='cuda',
                  kernels: str = 'cuda'):
         self.config = config
         self.run_dir = run_dir
         self.device = torch.device(device)
-        os.makedirs(run_dir, exist_ok=True)
-        for path, item in (('trainer.kwargs.devices', 11),
-                           ('trainer.kwargs.gpus', 11)):
-            if int(config.select(path, 1) or 1) > 1:
-                raise _refuse(f'{path} > 1 (more than one device)', item)
+        # the launched world (parallel/multihost.py; rank 0 of 1 unlaunched)
+        self.group = multihost.world_group()
+        self.rank = multihost.process_index()
+        self.world = multihost.process_count()
+        self.is_main = self.rank == 0
+        for path in ('trainer.kwargs.devices', 'trainer.kwargs.gpus'):
+            n = int(config.select(path, 1) or 1)
+            if n > 1 and n != self.world:
+                raise NotImplementedError(
+                    f'{path}={n} in a world of {self.world} process(es): one '
+                    f'process drives one card; launch {n}: torchrun '
+                    f'--nproc_per_node {n} -m lama_tpu_torch.train ...')
+        if self.is_main:
+            os.makedirs(run_dir, exist_ok=True)
         tm = config.get('training_model', ConfigNode())
 
         precision = str(config.select('trainer.kwargs.precision', 'bf16'))
@@ -170,17 +192,17 @@ class InpaintingTrainer:
             fake_fakes_proba=fake_fakes_proba, fake_fakes_gen=fake_fakes_gen,
             add_noise_kwargs=tm.get('add_noise_kwargs', None),
             noise_fill_hole=bool(tm.get('noise_fill_hole', False)),
-            r1_every=r1_every, seed=seed)
+            r1_every=r1_every, seed=seed, group=self.group)
 
         # ---- host curricula (trainer.py:137-154 of the JAX package): the
-        # crop size from a stream shared by every host, its position from
-        # a per-host one (one host here: process index 0)
+        # crop size from a stream shared by every rank, its position from
+        # a per-rank one
         rs_kwargs = tm.get('rescale_scheduler_kwargs', None)
         self.rescale_size_getter = get_ramp(**dict(rs_kwargs)) if rs_kwargs else None
         cac = tm.get('const_area_crop_kwargs', None)
         self.const_area_crop_kwargs = dict(cac) if cac else None
         self._shared_rng = np.random.RandomState(seed)
-        self._host_rng = np.random.RandomState(seed + 7919 * 0)
+        self._host_rng = np.random.RandomState(seed + 7919 * self.rank)
 
         # ---- state: modules on the device, optimizers over their parameters
         self.generator.to(self.device)
@@ -188,6 +210,12 @@ class InpaintingTrainer:
         for module in (perceptual_fn, vgg_perceptual_fn, distance_weighter):
             if isinstance(module, torch.nn.Module):
                 module.to(self.device)
+        if self.group is not None:
+            # put_replicated; global BN statistics for the two players only
+            # (the loss nets stay in eval mode)
+            for module in (self.generator, self.discriminator):
+                sync_batchnorm_(module, self.group)
+            replicate_((self.generator, self.discriminator), self.group)
 
         def build_opt(params, opt_cfg):
             kw = dict(opt_cfg)
@@ -204,6 +232,8 @@ class InpaintingTrainer:
         # ---- visualizer, logging, loop limits
         vis_kwargs = dict(config.get('visualizer', {}) or {'kind': 'noop'})
         vis_kind = vis_kwargs.pop('kind', 'noop')
+        if not self.is_main:   # rank 0 alone draws the sample grids
+            vis_kind, vis_kwargs = 'noop', {}
         if vis_kind == 'directory':
             vis_kwargs['outdir'] = os.path.join(run_dir,
                                                 vis_kwargs.get('outdir', 'samples'))
@@ -272,10 +302,21 @@ class InpaintingTrainer:
         seed = int(self.config.get('seed', 0) or 0)
         kwargs['dataloader_kwargs'].setdefault('seed', seed)
         kwargs.setdefault('seed', seed)
+        # each rank its own shard (trainer.py:298-301 of the JAX package)
+        kwargs['ddp_kwargs'] = dict(rank=self.rank, num_replicas=self.world)
         loader = make_default_train_dataloader(**kwargs)
-        if isinstance(loader, IterableBatchLoader) and self.limit_train_batches:
-            # webdataset's .repeat(): a fixed number of batches an epoch
-            loader.epoch_batches = int(self.limit_train_batches)
+        if isinstance(loader, IterableBatchLoader):
+            # webdataset's .repeat(): a fixed number of batches an epoch,
+            # which ranks whose shards hold unequal counts need, or one
+            # would wait for ever in the step's collectives
+            if self.limit_train_batches:
+                loader.epoch_batches = int(self.limit_train_batches)
+            elif self.world > 1:
+                raise ValueError(
+                    'data-parallel web-shard training needs '
+                    'trainer.kwargs.limit_train_batches to fix the epoch '
+                    'length (the ranks\' shards may hold unequal sample '
+                    'counts)')
         return loader
 
     def prepare_train_batch(self, batch):
@@ -355,7 +396,7 @@ class InpaintingTrainer:
             val_metrics = self.validate(epoch)
             LOGGER.info(f'epoch {epoch} validation done in '
                         f'{time.time() - t_val:.1f}s')
-            if val_metrics:
+            if val_metrics and self.is_main:
                 with open(self.metrics_path, 'a') as f:
                     f.write(json.dumps(dict(step=self.global_step, epoch=epoch,
                                             **val_metrics)) + '\n')
@@ -379,24 +420,41 @@ class InpaintingTrainer:
 
     def _bookkeeping(self, epoch, step, batch_i, batch, metrics):
         """Logging, the NaN screen and sample grids for the step just run
-        (number `step`); metrics are read back only on logging steps."""
+        (number `step`); metrics are read back only on logging steps, as
+        their mean over the ranks."""
         if step % self.log_every_n_steps == 0:
-            host = {k: float(v) for k, v in metrics.items()}
-            with open(self.metrics_path, 'a') as f:
-                f.write(json.dumps(dict(step=step, epoch=epoch, **host)) + '\n')
-            LOGGER.info(f'epoch {epoch} step {step}: ' + ' '.join(
-                f'{k}={v:.4f}' for k, v in list(host.items())[:6]))
+            host = self.global_metrics(metrics)
+            if self.is_main:
+                with open(self.metrics_path, 'a') as f:
+                    f.write(json.dumps(dict(step=step, epoch=epoch, **host))
+                            + '\n')
+                LOGGER.info(f'epoch {epoch} step {step}: ' + ' '.join(
+                    f'{k}={v:.4f}' for k, v in list(host.items())[:6]))
             if self.terminate_on_nan and not all(
                     math.isfinite(v) for v in host.values()):
                 raise FloatingPointError(
                     f'non-finite training metrics at step {step}: {host}')
-        if self.visualize_each_iters and step % self.visualize_each_iters == 0:
+        if (self.visualize_each_iters and self.is_main
+                and step % self.visualize_each_iters == 0):
             self._visualize(epoch, batch_i, batch, suffix='_train')
+
+    def global_metrics(self, metrics) -> Dict[str, float]:
+        """The step's metrics (0-d tensors, each this rank's mean) as
+        floats, averaged over the ranks (one all-reduce): the global
+        batch's means, which lama_tpu's mesh step returns."""
+        if self.group is None:
+            return {k: float(v) for k, v in metrics.items()}
+        keys = list(metrics)
+        values = torch.stack([metrics[k].detach().float() for k in keys])
+        torch.distributed.all_reduce(values, group=self.group)
+        values = (values / self.world).tolist()
+        return dict(zip(keys, values))
 
     # ------------------------------------------------------------- validation
     def val_dataloader(self, key='val'):
         """The loader of data.val, data.visual_test or an extra_val title
-        (trainer.py:318-338 of the JAX package, on one device)."""
+        (trainer.py:318-338 of the JAX package): this rank's contiguous
+        shard, so the shards in rank order are the dataset's order."""
         if key in ('val', 'visual_test'):
             kwargs = dict(self.config.data[key])
         else:
@@ -408,7 +466,9 @@ class InpaintingTrainer:
         dl_kwargs.pop('num_workers', None)
         kwargs.setdefault('kind', 'default')
         dataset = make_default_val_dataset(**kwargs)
-        return BatchLoader(dataset, shuffle=False, drop_last=False, **dl_kwargs)
+        return BatchLoader(dataset, shuffle=False, drop_last=False,
+                           shard_id=self.rank, num_shards=self.world,
+                           shard_contiguous=True, **dl_kwargs)
 
     def evaluator(self, key):
         if key not in self.evaluators:
@@ -446,8 +506,15 @@ class InpaintingTrainer:
             ev_batch = {'image': image, 'mask': mask,
                         'predicted_image': pred, 'inpainted': inpainted}
             states.append(evaluator.process_batch(ev_batch))
-            if batch_i == 0 or visualize_all:
+            if (batch_i == 0 or visualize_all) and self.is_main:
                 self._visualize(epoch, batch_i, ev_batch, suffix=f'_{prefix}')
+        if self.group is not None:
+            # every rank's states (and mask-area bins), in rank order, on
+            # every rank (trainer.py:581-592 of the JAX package); every rank
+            # calls this, also with no batch of its own
+            merged = multihost.allgather_pyobj((list(evaluator.groups), states))
+            evaluator.groups = [g for groups, _ in merged for g in groups]
+            states = [st for _, rank_states in merged for st in rank_states]
         if not states:
             return {}
         results = evaluator.evaluation_end(states=states)
@@ -456,10 +523,11 @@ class InpaintingTrainer:
             group = group.replace('%', '').replace('-', '_')
             for stat, val in values.items():
                 out[f'{prefix}_{name}_{group}_{stat}'] = float(val)
-        LOGGER.info(f'epoch {epoch} {data_key}: ' + ' '.join(
-            f'{k}={v:.4f}' for k, v in out.items() if 'total' in k))
-        LOGGER.info(f'{data_key} metrics after epoch #{epoch}:\n'
-                    + results_to_tsv(results))
+        if self.is_main:
+            LOGGER.info(f'epoch {epoch} {data_key}: ' + ' '.join(
+                f'{k}={v:.4f}' for k, v in out.items() if 'total' in k))
+            LOGGER.info(f'{data_key} metrics after epoch #{epoch}:\n'
+                        + results_to_tsv(results))
         return out
 
     # ---------------------------------------------------------------- helpers

@@ -255,11 +255,17 @@ def test_refine_predict_matches_jax(models):
 
 
 def test_refine_predict_rejects_unported_options(models):
+    """`mesh` (spatial sharding, ROADMAP item 11b) raises; `gpu_ids` is
+    ignored, as lama_tpu ignores it: the output equals that of None."""
     _, _, port = models
     image, mask, _ = _input(12)
-    for kw in (dict(gpu_ids='0,1'), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            tref.refine_predict(image, mask, port, **kw)
+    with pytest.raises(NotImplementedError, match='item 11b'):
+        tref.refine_predict(image, mask, port, mesh=object())
+    kw = dict(modulo=8, n_iters=2, min_side=16, max_scales=1)
+    out = tref.refine_predict(image, mask, port, **kw)
+    np.testing.assert_array_equal(
+        tref.refine_predict(image, mask, port, gpu_ids='0,1', **kw).numpy(),
+        out.numpy())
 
 
 # ------------------------------------------------------------ down conv

@@ -173,7 +173,8 @@ def test_port_imports_no_jax():
 
 def test_port_and_chip_smoke_import_nothing_of_lama_tpu():
     """The port (its serving, refining, training and evaluation entry points
-    and modules, the device CLIs and the op registrations) and
+    and modules, the data-parallel modules, the device CLIs and the op
+    registrations) and
     chip_smoke.py load no module of lama_tpu, jax or flax,
     also while chip_smoke.py reads the big-lama config and an evaluator is
     built."""
@@ -220,6 +221,8 @@ def test_port_and_chip_smoke_import_nothing_of_lama_tpu():
             'lama_tpu_torch.analyze_errors, '
             'lama_tpu_torch.evaluation.linear_svm, '
             'lama_tpu_torch.verify_reference_parity, '
+            'lama_tpu_torch.parallel.multihost, '
+            'lama_tpu_torch.parallel.data_parallel, '
             'chip_smoke; chip_smoke.big_lama_kwargs(); '
             'lama_tpu_torch.losses.distance_weighting.'
             'make_mask_distance_weighter("pps"); '
